@@ -5,20 +5,33 @@
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA versions;
    TF32 off for matmuls and cuDNN.
-2. build: compiles csrc/riccati_small.cu with nvcc (sm_90a).
-3. kernel vs plain version on the card, numpy-seeded inputs: (n, m, e) =
-   (2, 1, 1) at B=4096, T=32 in f32 and f64, (12, 6, 6) at B=512, T=16 in
-   f64, a ragged B=1000, and one lane forced non-PD.
-4. main path: bench.py's headline (4096 constrained pendulum swing-ups,
-   T=32, f32, 8 AL iterations, inner_iters_max=1) through solve_batched with
-   backward="kernel"; checks the kernel's launch count, finiteness and
-   feasibility, then the same solve with backward="sweep" (lanes agree on us
-   within 1e-3 of their largest |u|), and both again in f64 (1e-8, identical μ).
-5. times: kernel vs plain backward at the headline shape (CUDA events,
-   median of 20) and headline solves/s (median of 3 after a warm-up).
+2. build: compiles csrc/riccati_small.cu and csrc/fd_derivs.cu with nvcc
+   (sm_90a), each loaded from a thread of its own so both compile at once.
+3. kernels vs their plain versions on the card, numpy-seeded inputs.
+   Riccati: (n, m, e) = (2, 1, 1) at B=4096, T=32 in f32 and f64, (12, 6, 6)
+   at B=512, T=16 in f64, (14, 7, 3) at B=256, T=16 in f64 and f32, a ragged
+   B=1000, and one lane forced non-PD.  fd-derivatives: panda7 at N=4096 in
+   f32 and f64, cartpole at N=4096 in f64, a ragged N=1000; each output
+   array is held to a bar relative to its largest entry, and the f32 kernel,
+   row by row, to twice the f32 plain version's distance from the f64 kernel.
+4. pendulum main path: bench.py's headline (4096 constrained pendulum
+   swing-ups, T=32, f32, 8 AL iterations, inner_iters_max=1) through
+   solve_batched with backward="kernel"; checks the kernel's launch count,
+   finiteness and feasibility, then the same solve with backward="sweep"
+   (lanes agree on us within 1e-3 of their largest |u|), and both again in
+   f64 (1e-8, identical μ).
+5. arm main path: bench.py's 7-DoF fleet row (256 panda7 arms reaching an
+   end-effector target, H=16, f32, 24 AL iterations) through solve_batched
+   with deriv="kernel", backward="kernel", forward="seq"; checks both
+   kernels' launch counts, finiteness and the feasible share, then the same
+   solve with deriv="jvp", backward="sweep", and both in f64 at 6 iterations
+   (us within 1e-7 of each lane's largest |u|, identical μ).
+6. times: each kernel vs its plain version at its main-path shape (CUDA
+   events, median of 20) and solves/s of both main paths (median of 3 after a
+   warm-up).
 
 Every phase prints one line; any failure raises and the exit code is not 0.
-The last lines are a JSON object describing the kernel and the JSON result
+The last lines are a JSON object describing the kernels and the JSON result
 {"ok": true, "device": {...}}.  There is no CPU path.
 """
 
@@ -28,13 +41,19 @@ import json
 import statistics
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from ddp_tpu_torch.convert import problem_from_numpy
 from ddp_tpu_torch.kernels import _build
+from ddp_tpu_torch.kernels import fd_derivs as fd
 from ddp_tpu_torch.kernels import riccati_small as rs
+from ddp_tpu_torch.models import robots
+from ddp_tpu_torch.models.base import state_pack
+from ddp_tpu_torch.ocp import constraints, costs, dynamics
+from ddp_tpu_torch.ocp.problem import Problem
 from ddp_tpu_torch.ocp.problem import Derivs
 from ddp_tpu_torch.solver import al
 from ddp_tpu_torch.solver.batched import solve_batched
@@ -50,6 +69,24 @@ SPEC = dict(
 # pre-loop + 8 iterations, one reg level each
 EXPECTED_LAUNCHES = 1 + HEADLINE.max_iterations
 DEV = "cuda"
+
+# bench.py's 7-DoF fleet row: 256 panda7 arms, H=16, 24 AL iterations, f32
+ARM_B, ARM_H = 256, 16
+ARM = SolverParams(max_iterations=24, threshold=1e-5, mu=1e4, inner_iters_max=1)
+ARM_KW = dict(n_linesearch=2, forward="seq", matmul_precision="highest")
+ARM_REG_LEVELS = 4  # solve_batched's default ladder depth
+ARM_READY = (0.0, -0.785, 0.0, -2.356, 0.0, 1.571, 0.785)
+# fd kernel vs plain, per output array relative to its largest entry: f64
+# differs by summation order only; f32 carries M⁻¹ of panda7 (wrist inertias
+# of 1e-3, entries up to 4e3), where this script's first run on an H100 80GB
+# HBM3 gave up to 5.5e-4.  That bar alone is loose for the small rows of the
+# f32 outputs, so each row of the f32 kernel's outputs must also lie within
+# FD_F32_VS_PLAIN times the plain f32 version's distance from the f64 kernel
+FD_BAR = {torch.float64: 1e-9, torch.float32: 2e-3}
+FD_F32_VS_PLAIN = 2.0
+# published peaks of one H100 SXM used for the kernels' bounds
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12  # outside the tensor cores
 
 
 def say(phase, **fields):
@@ -148,7 +185,199 @@ def kernel_vs_plain(name, packed, mu, reg, Tk, n, m, e, rtol, atol):
     return err, got[2]
 
 
+def fd_inputs(model, N, dtype, seed=5):
+    """q ~ U(−π, π), v, τ ~ N(0, 1) from a numpy seed, [N, nv] on the card."""
+    rng = np.random.default_rng(seed)
+    kw = dict(dtype=dtype, device=DEV)
+    return (
+        torch.tensor(rng.uniform(-np.pi, np.pi, (N, model.nv)), **kw),
+        torch.tensor(rng.normal(size=(N, model.nv)), **kw),
+        torch.tensor(rng.normal(size=(N, model.nv)), **kw),
+    )
+
+
+def fd_kernel_vs_plain(name, model, N, dtype, model64=None):
+    """Run the fd-derivatives kernel and its plain version on the same card
+    tensors; raise unless each of (a, ∂a/∂q, ∂a/∂v, M⁻¹) agrees within
+    FD_BAR of the array's largest entry.  With ``model64`` (the same model in
+    f64) the f64 kernel on the same inputs is the truth: for every output
+    array and every row i of it (joint i's acceleration, its derivatives, its
+    row of M⁻¹; rows differ by orders of magnitude), the kernel's largest
+    error over samples and columns, relative to the row's largest entry, may
+    be at most FD_F32_VS_PLAIN times the plain version's.  So the f32 kernel
+    is held to what f32 conditioning explains and no more.  Returns (max abs
+    error over the four arrays, the inputs)."""
+    q, v, tau = inputs = fd_inputs(model, N, dtype)
+    got = fd.fd_derivs(model, q, v, tau)
+    torch.cuda.synchronize()
+    ref = fd.fd_derivs_reference(model, q, v, tau)
+    err, rel = 0.0, 0.0
+    for g, r, label in zip(got, ref, ("a", "da_dq", "da_dv", "Minv")):
+        check(g.shape == r.shape, f"{name}: {label} shape {tuple(g.shape)}")
+        check(bool(torch.isfinite(g).all()), f"{name}: non-finite {label}")
+        e = float((g - r).abs().max())
+        rel_e = e / float(r.abs().max())
+        check(rel_e <= FD_BAR[dtype], f"{name}: {label} rel err {rel_e:.3e}")
+        err, rel = max(err, e), max(rel, rel_e)
+    extra = {}
+    if model64 is not None:
+        truth = fd.fd_derivs(model64, q.double(), v.double(), tau.double())
+        worst = {"kernel_vs_f64": 0.0, "plain_vs_f64": 0.0, "row_ratio": 0.0}
+        for g, r, w, label in zip(got, ref, truth, ("a", "da_dq", "da_dv", "Minv")):
+            # [N, nv] or [N, nv, nv] → [nv, N·cols]: one line per row i
+            rows = [x.double().reshape(N, model.nv, -1).transpose(0, 1).flatten(1)
+                    for x in (g, r, w)]  # fmt: skip
+            scale = rows[2].abs().amax(dim=1)
+            k_row = (rows[0] - rows[2]).abs().amax(dim=1) / scale
+            p_row = (rows[1] - rows[2]).abs().amax(dim=1) / scale
+            ratio = float((k_row / p_row.clamp(min=1e-300)).max())
+            check(ratio <= FD_F32_VS_PLAIN,
+                  f"{name}: {label} rows {(k_row / p_row).tolist()} of the plain version's error")
+            worst["row_ratio"] = max(worst["row_ratio"], ratio)
+            for key, o in (("kernel_vs_f64", g), ("plain_vs_f64", r)):
+                worst[key] = max(worst[key], float((o - w).abs().max() / w.abs().max()))
+        extra = {k: f"{x:.3e}" for k, x in worst.items()}
+        extra["row_ratio_bar"] = FD_F32_VS_PLAIN
+    say("kernel", case=name, max_abs_err=f"{err:.3e}", max_rel_err=f"{rel:.3e}",
+        bar=FD_BAR[dtype], **extra)  # fmt: skip
+    return err, inputs
+
+
+# ---------------------------------------------------------------- arm path
+
+
+def arm_problem(dtype):
+    """bench.py's 7-DoF row: Euler panda7 (dt = 0.01), ½‖u‖², the end
+    effector at the pose of q_ready ⊕ 0.04·(1 … 7) two steps past the
+    horizon, Gauss-Newton; x0s = (q_ready, 0) + 0.05·N(0, 1) from
+    default_rng(0), us0 = gravity compensation tiled over the horizon."""
+    kw = dict(dtype=dtype, device=DEV)
+    arm = robots.panda7(**kw)
+    dyn = dynamics.euler(arm, 0.01)
+    fid = robots.ee_frame_id(arm, "ee")
+    q_ready = torch.tensor(ARM_READY, **kw)
+    q_goal = arm.integrate(q_ready, torch.tensor(0.04 * np.arange(1.0, 8.0), **kw))
+    con = constraints.advance_time(
+        constraints.FrameTarget(arm, arm.frame_position(fid, q_goal), fid, (ARM_H,)),
+        dyn, times=2,
+    )  # fmt: skip
+    problem = Problem(
+        dynamics=dyn, cost=costs.quad_control(1.0, **kw), constraint=con,
+        horizon=ARM_H, second_order=False,
+    )  # fmt: skip
+    rng = np.random.default_rng(0)
+    x0 = state_pack(q_ready, torch.zeros(arm.nv, **kw)).cpu().numpy()
+    x0s = torch.tensor(x0[None] + 0.05 * rng.standard_normal((ARM_B, problem.nx)), **kw)
+    zero_v = torch.zeros(arm.nv, **kw)
+    grav = arm.rnea(x0s[:, : arm.nq], zero_v, zero_v)
+    us0 = grav[:, None, :].repeat(1, ARM_H, 1)
+    return problem, x0s, us0
+
+
+def arm_solve(problem, x0s, us0, deriv, backward, params=ARM):
+    res = solve_batched(problem, params, x0s, us_init=us0, deriv=deriv,
+                        backward=backward, **ARM_KW)  # fmt: skip
+    torch.cuda.synchronize()
+    return res
+
+
+def arm_main_path():
+    """Phase 5: the fleet row through both kernels, its checks, and the
+    jvp/sweep and f64 comparisons.  Returns (riccati launches, fd launches,
+    problem, x0s, us0)."""
+    p32, x32, u32 = arm_problem(torch.float32)
+    rs.LAUNCHES = fd.LAUNCHES = 0
+    res_k = arm_solve(p32, x32, u32, "kernel", "kernel")
+    rs_launches, fd_launches = rs.LAUNCHES, fd.LAUNCHES
+    # one derivative pass before the loop, one per iteration, one for the
+    # final optimality; one backward pass before the loop and one per
+    # iteration, each a launch per level of the regularization ladder
+    fd_expected = 1 + ARM.max_iterations + 1
+    rs_expected = (1 + ARM.max_iterations) * ARM_REG_LEVELS
+    check(fd_launches == fd_expected, f"fd launches {fd_launches} != {fd_expected}")
+    check(rs_launches == rs_expected, f"riccati launches {rs_launches} != {rs_expected}")
+    for name in ("xs", "us", "fb_k", "fb_K", "opt_constr", "opt_lag", "mu", "reg", "w", "n"):
+        check(bool(torch.isfinite(getattr(res_k, name)).all()), f"arm: non-finite {name}")
+    check(res_k.us.shape == (ARM_B, ARM_H, 7) and res_k.xs.shape == (ARM_B, ARM_H + 1, 14),
+          "arm: result shapes")  # fmt: skip
+    frac_k = float((res_k.opt_constr < 1e-2).float().mean())
+    check(frac_k >= 0.90, f"arm f32 frac_main {frac_k}")
+    res_j = arm_solve(p32, x32, u32, "jvp", "sweep")
+    frac_j = float((res_j.opt_constr < 1e-2).float().mean())
+    check(abs(frac_k - frac_j) <= 0.02, f"arm feasible shares {frac_k} vs {frac_j}")
+    say("arm_f32", B=ARM_B, H=ARM_H, iters=ARM.max_iterations, fd_launches=fd_launches,
+        riccati_launches=rs_launches, frac_main_kernel=frac_k, frac_main_jvp_sweep=frac_j,
+        p99_eq=f"{float(torch.quantile(res_k.opt_constr, 0.99)):.3e}",
+        mu_equal=float((res_k.mu == res_j.mu).float().mean()))  # fmt: skip
+
+    short = ARM._replace(max_iterations=6)
+    p64, x64, u64 = arm_problem(torch.float64)
+    r64_k = arm_solve(p64, x64, u64, "kernel", "kernel", short)
+    r64_j = arm_solve(p64, x64, u64, "jvp", "sweep", short)
+    diff = (r64_k.us - r64_j.us).abs().amax(dim=(1, 2))
+    scale = r64_j.us.abs().amax(dim=(1, 2)).clamp(min=1.0)
+    err64 = float((diff / scale).max())
+    check(err64 <= 1e-7, f"arm f64 us max scaled err {err64}")
+    check(torch.equal(r64_k.mu, r64_j.mu), "arm f64 per-lane mu differs")
+    say("arm_f64", iters=short.max_iterations, us_max_scaled_err=f"{err64:.3e}",
+        mu_identical=True, mu_levels=sorted({float(v) for v in r64_k.mu}))  # fmt: skip
+    return rs_launches, fd_launches, p32, x32, u32
+
+
 # ------------------------------------------------------------------ timing
+
+
+def riccati_bound_ms(Tk, n, m, e, Bk):
+    """Least time for one float32 sweep: every input and output element
+    moved once at the card's memory rate, or its multiply-adds at the
+    float32 peak."""
+    item = 4
+    rows_in = sum(rs._rows(n, m, e).values())
+    elems = Tk * Bk * (rows_in + m + m * n) + Bk * (n + n * n + 2)
+    bytes_ms = 1e3 * (elems * item + Bk) / HBM_BYTES_PER_S
+    # per step: Vxx·[fx fu], [fx fu]ᵀ·(·), the e-row terms, Cholesky, solves
+    macs = n * n * (n + m) + (n + m) * n * (n + m) + 2 * e * (n + m) * n
+    macs += m**3 // 3 + (1 + n) * m * m + m * n * (1 + n)
+    ops_ms = 1e3 * 2 * macs * Tk * Bk / F32_FLOPS_PER_S
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def fd_flops(parents):
+    """Floating-point operations the FUNCTION (q, v, τ) → (a, ∂a/∂q, ∂a/∂v,
+    M⁻¹) needs per sample for a tree with these parents, whatever a kernel
+    does on top (a multiply-add is 2):
+
+    - one primal chain.  Per body: kinematics 210 (Rodrigues 18 multiply-adds,
+      fixed placement 27 + 9, parent composition 27 + 9, joint subspace 15),
+      the world inertia at its structured cost 180 (rotate the 3×3 inertia 54,
+      rotate and shift the centre of mass 12, parallel-axis term 24), RNEA 260
+      (two 6×6 products with the inertia 72, six cross products 36, the
+      subspace products 13, vector sums 18), composite sums 42; then M: a
+      6×6·6 product per joint and a 6-dot per (ancestor, joint) pair;
+    - nv tangents of that chain for ∂/∂q at twice its cost each, and nv
+      tangents of the RNEA part alone for ∂/∂v (∂M/∂v = 0: no kinematics, no
+      inertia, no M);
+    - one Cholesky factor nv³/3, the products (∂_q M)·a 2·nv³, and 3·nv + 1
+      forward/backward substitutions of 2·nv² each."""
+    nv = len(parents)
+    pairs = 0
+    for j in range(nv):
+        i = j
+        while i >= 0:
+            pairs, i = pairs + 1, parents[i]
+    rnea = nv * (260 + 6)
+    chain = nv * (210 + 180 + 42) + rnea + 2 * (36 * nv + 6 * pairs)
+    return chain + nv * 2 * chain + nv * 2 * rnea + nv**3 // 3 + 2 * nv**3 + (3 * nv + 1) * 2 * nv * nv
+
+
+def fd_bound_ms(model, N):
+    """Least time for one float32 call on N samples: 3·nv inputs and
+    nv + 3·nv² outputs per sample moved once at the card's memory rate, or
+    ``fd_flops`` at the float peak."""
+    nv, item = model.nv, 4
+    bytes_ms = 1e3 * N * (3 * nv + nv + 3 * nv * nv) * item / HBM_BYTES_PER_S
+    ops_ms = 1e3 * fd_flops(tuple(model.parents)) * N / F32_FLOPS_PER_S
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def event_ms(fn, reps=20):
@@ -233,9 +462,13 @@ def main():
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)  # fmt: skip
 
-    # 2. build
-    rs._kernel_fn()
-    say("build", source=rs.SOURCE, nvcc_s=f"{_build.build_seconds(rs.SOURCE):.1f}")
+    # 2. build: one nvcc per source, each under its own thread's load()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        for built in [pool.submit(rs._kernel_fn), pool.submit(fd._kernel_fn)]:
+            built.result()
+    say("build", sources=f"{rs.SOURCE},{fd.SOURCE}", wall_s=f"{time.perf_counter() - t0:.1f}",
+        nvcc_s=[f"{_build.build_seconds(x):.1f}" for x in (rs.SOURCE, fd.SOURCE)])  # fmt: skip
 
     # 3. kernel vs plain version
     f32_in = pendulum_inputs(B, torch.float32)
@@ -249,18 +482,36 @@ def main():
     _, ok = kernel_vs_plain("nonpd_lane3_f64_B1000", *pendulum_inputs(1000, torch.float64, 3),
                             T, 2, 1, 1, 1e-10, 1e-10)  # fmt: skip
     check(not bool(ok[3]) and int(ok.sum()) == ok.numel() - 1, "only lane 3 may fail")
+    arm_dims = (ARM_H, 14, 7, 3)
+    kernel_vs_plain("armdims_f64_B256_T16", *spd_inputs(ARM_B, ARM_H, 14, 7, 3, torch.float64),
+                    *arm_dims, 1e-9, 1e-9)  # fmt: skip
+    arm_in = spd_inputs(ARM_B, ARM_H, 14, 7, 3, torch.float32)
+    kernel_vs_plain("armdims_f32_B256_T16", *arm_in, *arm_dims, 2e-3, 2e-4)
+    panda32 = robots.panda7(device=DEV, dtype=torch.float32)
+    panda64 = robots.panda7(device=DEV, dtype=torch.float64)
+    N = ARM_B * ARM_H
+    fd_err32, fd_in = fd_kernel_vs_plain(f"panda7_f32_N{N}", panda32, N, torch.float32, panda64)
+    fd_kernel_vs_plain(f"panda7_f64_N{N}", panda64, N, torch.float64)
+    fd_kernel_vs_plain(f"cartpole_f64_N{N}", robots.cartpole(device=DEV, dtype=torch.float64),
+                       N, torch.float64)  # fmt: skip
+    fd_kernel_vs_plain("panda7_ragged_f64_N1000", panda64, 1000, torch.float64)
 
-    # 4. main path
+    # 4. pendulum main path
     launches, p32, x32 = main_path()
 
-    # 5. times
+    # 5. arm main path
+    arm_rs_launches, arm_fd_launches, a32, ax32, au32 = arm_main_path()
+
+    # 6. times
     packed, mu, reg = f32_in
     ms = event_ms(lambda: rs.backward_sweep(packed, mu, reg, T=T, n=2, m=1, e=1))
     plain_ms = event_ms(
         lambda: rs.backward_sweep_reference(packed, mu, reg, T=T, n=2, m=1, e=1)
     )
+    bound, bound_by = riccati_bound_ms(T, 2, 1, 1, B)
     say("time_backward", card=f"'{card}'", shape=f"n2m1e1_T{T}_B{B}_f32",
-        kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")  # fmt: skip
+        kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.5f}",
+        bound_by=bound_by)  # fmt: skip
     solve(p32, x32, "kernel")  # warm-up
     torch.cuda.reset_peak_memory_stats()
     walls = []
@@ -273,12 +524,62 @@ def main():
         solve_s=[f"{w:.4f}" for w in walls], solves_per_s=f"{B / wall:.1f}",
         peak_mem_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")  # fmt: skip
 
-    print(json.dumps({"kernels": [{
-        "name": "riccati_small_bwd", "route": "cuda",
-        "source": "ddp_tpu_torch/csrc/riccati_small.cu",
-        "replaces": "ddp_tpu/kernels/riccati_small.py:379",
-        "launches": launches, "max_abs_err": err32, "ms": ms, "plain_ms": plain_ms,
-    }]}))  # fmt: skip
+    arm_packed, arm_mu, arm_reg = arm_in
+    arm_kw = dict(T=ARM_H, n=14, m=7, e=3)
+    arm_ms = event_ms(lambda: rs.backward_sweep(arm_packed, arm_mu, arm_reg, **arm_kw))
+    arm_plain_ms = event_ms(
+        lambda: rs.backward_sweep_reference(arm_packed, arm_mu, arm_reg, **arm_kw)
+    )
+    arm_bound, arm_bound_by = riccati_bound_ms(ARM_H, 14, 7, 3, ARM_B)
+    say("time_backward", card=f"'{card}'", shape=f"n14m7e3_T{ARM_H}_B{ARM_B}_f32",
+        kernel_ms=f"{arm_ms:.4f}", plain_ms=f"{arm_plain_ms:.4f}",
+        bound_ms=f"{arm_bound:.5f}", bound_by=arm_bound_by)  # fmt: skip
+    fd_ms = event_ms(lambda: fd.fd_derivs(panda32, *fd_in))
+    fd_plain_ms = event_ms(lambda: fd.fd_derivs_reference(panda32, *fd_in))
+    fd_model_ms = event_ms(lambda: panda32.fd_derivatives(*fd_in))
+    fd_bound, fd_bound_by = fd_bound_ms(panda32, N)
+    say("time_fd_derivs", card=f"'{card}'", shape=f"panda7_N{N}_f32", kernel_ms=f"{fd_ms:.4f}",
+        plain_ms=f"{fd_plain_ms:.4f}", model_fd_derivatives_ms=f"{fd_model_ms:.4f}",
+        bound_ms=f"{fd_bound:.5f}", bound_by=fd_bound_by,
+        flops_per_sample=fd_flops(tuple(panda32.parents)),
+        kernel_over_bound=f"{fd_ms / fd_bound:.1f}")  # fmt: skip
+    arm_walls = {}
+    for deriv, backward in (("kernel", "kernel"), ("jvp", "sweep")):
+        arm_solve(a32, ax32, au32, deriv, backward)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            arm_solve(a32, ax32, au32, deriv, backward)
+            walls.append(time.perf_counter() - t0)
+        arm_walls[deriv] = statistics.median(walls)
+        say("time_arm_solve", card=f"'{card}'", deriv=deriv, backward=backward, B=ARM_B,
+            solve_s=[f"{w:.4f}" for w in walls],
+            solves_per_s=f"{ARM_B / arm_walls[deriv]:.1f}",
+            peak_mem_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")  # fmt: skip
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "riccati_small_bwd", "route": "cuda",
+            "source": "ddp_tpu_torch/csrc/riccati_small.cu",
+            "replaces": "ddp_tpu/kernels/riccati_small.py:379",
+            "launches": launches, "max_abs_err": err32, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "arm_path": {
+                "shape": f"n14m7e3_T{ARM_H}_B{ARM_B}_f32", "launches": arm_rs_launches,
+                "ms": arm_ms, "plain_ms": arm_plain_ms, "bound_ms": arm_bound,
+                "bound_by": arm_bound_by,
+            },
+        },
+        {
+            "name": "fd_derivs", "route": "cuda",
+            "source": "ddp_tpu_torch/csrc/fd_derivs.cu",
+            "replaces": "ddp_tpu/kernels/fd_derivs.py:500",
+            "launches": arm_fd_launches, "max_abs_err": fd_err32, "ms": fd_ms,
+            "plain_ms": fd_plain_ms, "bound_ms": fd_bound, "bound_by": fd_bound_by,
+            "library_ms": None,
+        },
+    ]}))  # fmt: skip
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

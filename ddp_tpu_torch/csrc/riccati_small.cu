@@ -17,8 +17,8 @@
 // writes a tenth of that: about 4 us at the H100's 3.35 TB/s, the same order
 // as a launch.  4096 lanes at 128 threads per block make 32 blocks for 132
 // SMs, so the card is far from full at that size; making the kernel fast
-// (more lanes per SM, fewer bytes) is later work.  At the UR5 dims
-// (12, 6, 6) a thread's live state spills to local memory.
+// (more lanes per SM, fewer bytes) is later work.  At the arm dims
+// (12, 6, 6) and (14, 7, 3) a thread's live state spills to local memory.
 //
 // A failed factorization yields NaN through sqrt of a negative pivot, and
 // the per-lane ok flag is L[i][i] > 0 && isfinite(L[i][i]) at every step:
@@ -221,5 +221,8 @@ extern "C" int ddp_riccati_small_bwd(int is_double, int n, int m, int e, int T,
   if (n == 12 && m == 6 && e == 6)
     return is_double ? launch<double, 12, 6, 6>(in, k, K, ok, T, B, s)
                      : launch<float, 12, 6, 6>(in, k, K, ok, T, B, s);
+  if (n == 14 && m == 7 && e == 3)
+    return is_double ? launch<double, 14, 7, 3>(in, k, K, ok, T, B, s)
+                     : launch<float, 14, 7, 3>(in, k, K, ok, T, B, s);
   return -1;
 }

@@ -18,8 +18,9 @@ import torch
 from ddp_tpu_torch.kernels import _build
 
 SOURCE = "riccati_small.cu"
-# (n, m, e) the CUDA source instantiates: the pendulum headline and UR5
-KERNEL_DIMS = ((2, 1, 1), (12, 6, 6))
+# (n, m, e) the CUDA source instantiates: the pendulum headline, UR5 with a
+# configuration target, panda7 with a frame target
+KERNEL_DIMS = ((2, 1, 1), (12, 6, 6), (14, 7, 3))
 # kernel launches since import (or since a caller reset it)
 LAUNCHES = 0
 

@@ -49,6 +49,30 @@ class ConfigTarget(nn.Module):
         return t in self.active_ts
 
 
+class FrameTarget(nn.Module):
+    """eq = frame_position(frame_id, q) − p_target (3-D end-effector
+    target), for a model with frames (``RobotModel``)."""
+
+    ne = 3
+
+    def __init__(
+        self, model: nn.Module, target: torch.Tensor, frame_id: int = 0, active_ts: tuple = ()
+    ):
+        super().__init__()
+        self.model = model
+        self.register_buffer("target", target)  # [3]
+        self.frame_id = int(frame_id)
+        self.active_ts = tuple(active_ts)
+
+    def value(self, t, x, u):
+        del t, u
+        q, _ = state_split(self.model, x)
+        return self.model.frame_position(self.frame_id, q) - self.target
+
+    def active(self, t: int) -> bool:
+        return t in self.active_ts
+
+
 class AdvanceTime(nn.Module):
     """Apply ``inner`` one step ahead through the dynamics:
     eq'(t, x, u) = inner(t+1, f(t, x, u), u).  The same u is forwarded to

@@ -5,7 +5,9 @@
     q' = q ⊕ (dt · v)
     v' = v + dt · FD(q, v, u)
 
-RK4 is still to be ported (ROADMAP slice B, item 7).
+The model is the closed-form pendulum or a ``RobotModel``.  RK4 and the
+analytic Jacobians on manifold configurations are still to be ported
+(ROADMAP slice B, item 7).
 """
 
 from __future__ import annotations

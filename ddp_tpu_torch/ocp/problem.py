@@ -108,19 +108,32 @@ class Problem(nn.Module):
             xs.append(x)
         return torch.stack(xs, dim=-2)
 
-    def derivatives(self, xs: torch.Tensor, us: torch.Tensor) -> Derivs:
+    def derivatives(self, xs: torch.Tensor, us: torch.Tensor, fx_fu=None) -> Derivs:
         """All first/second-order derivatives along (xs [B, T+1, nx],
         us [B, T, nu]), Gauss-Newton mode.
 
         Cost derivatives and assembled Euler Jacobians at every step; the
         constraint's value and Jacobian only at the statically-active steps
-        (``active_ts``), scattered into the dense [B, T, …] arrays."""
+        (``active_ts``), scattered into the dense [B, T, …] arrays.
+
+        ``fx_fu``: optional precomputed tangent-space dynamics Jacobians
+        (fx [B, T, ndx, ndx], fu [B, T, ndx, nu]) — e.g. from the batched
+        fd-derivatives kernel (kernels/fd_derivs.py) — which replace the
+        ``dynamics.jacobians`` call; only cost and constraint derivatives
+        remain."""
         if self.second_order:
             raise NotImplementedError(
                 "second_order=True (full DDP Hessians) is still to be ported "
                 "(ROADMAP slice C); build the Problem with second_order=False"
             )
-        if not getattr(self.dynamics, "analytic_jacobians_ok", False):
+        analytic_ok = getattr(self.dynamics, "analytic_jacobians_ok", False)
+        if fx_fu is not None and not analytic_ok:
+            raise ValueError(
+                "fx_fu requires dynamics.analytic_jacobians_ok "
+                "(dynamics.jacobians is the producer of valid tangent-space "
+                "fx/fu); other models need the generic JVP path"
+            )
+        if not analytic_ok:
             raise NotImplementedError(
                 "the generic JVP derivative path (models without assembled "
                 "fd_derivatives) is still to be ported (ROADMAP slice B)"
@@ -143,7 +156,10 @@ class Problem(nn.Module):
 
         lz = vmap(jacfwd(c), in_dims=(None, 0, 0, 0))(z0, ts, x, u)
         lzz = vmap(jacfwd(jacfwd(c)), in_dims=(None, 0, 0, 0))(z0, ts, x, u)
-        _, fx, fu = self.dynamics.jacobians(ts, x, u)
+        if fx_fu is not None:
+            fx, fu = fx_fu
+        else:
+            _, fx, fu = self.dynamics.jacobians(ts, x, u)
         lz = lz.reshape(B, T, nz)
         lzz = lzz.reshape(B, T, nz, nz)
 

@@ -12,16 +12,23 @@
 
 The batch is the leading dim of every tensor; the backward pass is either a
 batched PyTorch sweep (``backward="sweep"``) or the Riccati kernel over the
-whole batch (``backward="kernel"``, ``kernels/riccati_small.py``).
+whole batch (``backward="kernel"``, ``kernels/riccati_small.py``); the
+dynamics Jacobians come from ``Problem.derivatives`` (``deriv="jvp"``) or
+from the fd-derivatives kernel over all B·T samples (``deriv="kernel"``,
+``kernels/fd_derivs.py``); the line search is the parallel sweep
+(``forward="sweep"``) or the early-exit ladder (``forward="seq"``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
 
+from ddp_tpu_torch.kernels.fd_derivs import fd_derivs
 from ddp_tpu_torch.kernels.riccati_small import backward_sweep, pack_batch_last
+from ddp_tpu_torch.ocp.dynamics import EulerDynamics, _vector_space_config
 from ddp_tpu_torch.solver import al as al_mod
 from ddp_tpu_torch.solver.riccati import factor_solve
 from ddp_tpu_torch.solver.rollout import feedback_rollout
@@ -177,15 +184,110 @@ def _bwhere(c, a, b):
     return torch.where(c.reshape(c.shape + (1,) * (a.dim() - 1)), a, b)
 
 
+def _linesearch_seq(problem, xs, us, k, K, mults, mu, n_candidates):
+    """Sequential early-exit line search: walk the step ladder 1, ½, ¼, …
+    largest first and stop once every lane has accepted a candidate (or the
+    ladder is spent); lanes that are done are select-masked.  Picks the same
+    candidate as ``_linesearch_sweep`` (first accepted = largest accepted)
+    but pays max-first-accept-index rollouts per call instead of always
+    ``n_candidates`` — worth it when one rollout is heavy (arm-class
+    dynamics).  Returns (xs, us, step [B])."""
+    cost_old = al_mod.al_costs(problem, xs, us, mults, mu).sum(dim=-1)
+    xs_b, us_b = xs, us
+    step_b = torch.zeros_like(cost_old)
+    done = torch.zeros(cost_old.shape, dtype=torch.bool, device=xs.device)
+    for i in range(n_candidates):
+        step = 2.0**-i
+        xs_c, us_c = feedback_rollout(problem, xs, us, k, K, step)
+        delta = al_mod.al_costs(problem, xs_c, us_c, mults, mu).sum(dim=-1) - cost_old
+        acc = ~done & (delta <= 0)
+        xs_b = _bwhere(acc, xs_c, xs_b)
+        us_b = _bwhere(acc, us_c, us_b)
+        step_b = torch.where(acc, torch.full_like(step_b, step), step_b)
+        done = done | acc
+        # the loop's exit test reads the device: one host sync per candidate
+        # (the semantics of a while loop over the batch's slowest lane)
+        if bool(done.all()):
+            break
+    return xs_b, us_b, step_b
+
+
+def _kernel_derivatives(problem):
+    """``deriv="kernel"``: the derivative pass with the dynamics Jacobians
+    from one fd-derivatives kernel call over all B·T samples, assembled into
+    the Euler-step blocks
+
+        fx = [[I, dt·I], [dt·∂a/∂q, I + dt·∂a/∂v]],  fu = [[0], [dt·M⁻¹]]
+
+    and handed to ``Problem.derivatives`` as ``fx_fu``."""
+    model, dyn = problem.model, problem.dynamics
+    if problem.second_order:
+        raise NotImplementedError(
+            "deriv='kernel' with second_order=True needs the second-order "
+            "fd-derivatives kernel, which is still to be ported (ROADMAP slice C; "
+            "Queue 2, kernel 3)"
+        )
+    if not (
+        isinstance(dyn, EulerDynamics)
+        and dyn.analytic_jacobians_ok
+        and hasattr(model, "joint_types")
+        # the kernel and the fx assembly below are vector-space only;
+        # manifold models take deriv="jvp"
+        and _vector_space_config(model)
+    ):
+        raise ValueError(
+            "deriv='kernel' needs Euler dynamics on a revolute/prismatic RobotModel"
+        )
+    nq, nv, nu, ndx = model.nq, model.nv, problem.nu, problem.ndx
+
+    def derivatives(xs, us):
+        B, T = us.shape[0], us.shape[1]
+        kw = dict(dtype=xs.dtype, device=xs.device)
+        q = xs[:, :-1, :nq].reshape(B * T, nq)
+        v = xs[:, :-1, nq:].reshape(B * T, nv)
+        _, A, Bv, Mi = fd_derivs(model, q, v, us.reshape(B * T, nu))
+        dt = dyn.dt
+        I = torch.eye(nv, **kw).expand(B * T, nv, nv)
+        top = torch.cat([I, dt * I], dim=2)
+        bot = torch.cat([dt * A, I + dt * Bv], dim=2)
+        fx = torch.cat([top, bot], dim=1).reshape(B, T, ndx, ndx)
+        fu = torch.cat([torch.zeros(B * T, nv, nu, **kw), dt * Mi], dim=1)
+        return problem.derivatives(xs, us, fx_fu=(fx, fu.reshape(B, T, ndx, nu)))
+
+    return derivatives
+
+
+@contextlib.contextmanager
+def _matmul_precision(precision):
+    """float32 matmul precision on the card for the duration of a solve:
+    "highest" → full float32, "high"/"default" → TF32 allowed, None → the
+    process setting untouched.  Restored on exit; no effect on the CPU."""
+    if precision is None:
+        yield
+        return
+    if precision not in ("highest", "high", "default"):
+        raise ValueError(
+            f"unknown matmul_precision {precision!r}; have None, 'highest', 'high', 'default'"
+        )
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = precision != "highest"
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
 def _check_backends(backward, forward, deriv):
     deferred = {
         ("backward", "assoc"): "ROADMAP slice H",
         ("backward", "tf"): "ROADMAP slice G",
-        ("forward", "seq"): "ROADMAP slice A, item 5",
         ("forward", "pallas"): "ROADMAP Queue 2, kernel 4 (linesearch_flat)",
-        ("deriv", "pallas"): "ROADMAP slice B, item 8 (Queue 2, kernel 2)",
     }
-    supported = {"backward": ("sweep", "kernel"), "forward": ("sweep",), "deriv": ("jvp",)}
+    supported = {
+        "backward": ("sweep", "kernel"),
+        "forward": ("sweep", "seq"),
+        "deriv": ("jvp", "kernel"),
+    }
     for knob, value in (("backward", backward), ("forward", forward), ("deriv", deriv)):
         if (knob, value) in deferred:
             raise NotImplementedError(
@@ -207,14 +309,36 @@ def solve_batched(
     # "kernel": the Riccati kernel (kernels/riccati_small.py), one launch per
     #   reg level over the whole batch
     forward: str = "sweep",
+    # "sweep": every step candidate rolled out in one [S, B] batch
+    # "seq": early-exit ladder, largest step first, until every lane has
+    #   accepted; the same accepted step as "sweep", ~1 rollout per iteration
+    #   near convergence — for models whose rollout is heavy (arms)
     deriv: str = "jvp",
+    # "jvp": Problem.derivatives (assembled Euler Jacobians from the model's
+    #   fd_derivatives)
+    # "kernel": the fd-derivatives kernel (kernels/fd_derivs.py) over all B·T
+    #   samples; Euler dynamics on a revolute/prismatic RobotModel, Gauss-Newton
     n_reg_levels: int = 4,  # parallel regularization ladder depth (≥1)
+    matmul_precision: str | None = None,
+    # None → the process setting | "highest" → full-float32 matmuls |
+    # "high"/"default" → TF32 matmuls allowed on the card for this call
 ) -> BatchSolveResult:
     """Fixed-budget batched AL-DDP: exactly ``params.max_iterations`` outer
     iterations for every lane (converged lanes no-op through the line search
     keeping their trajectory).  The problem's buffers and ``x0s`` must share
     one device and dtype."""
     _check_backends(backward, forward, deriv)
+    with _matmul_precision(matmul_precision):
+        return _solve_batched(
+            problem, params, x0s, us_init, method, n_linesearch, backward,
+            forward, deriv, n_reg_levels,
+        )  # fmt: skip
+
+
+def _solve_batched(
+    problem, params, x0s, us_init, method, n_linesearch, backward, forward,
+    deriv, n_reg_levels,
+):  # fmt: skip
     T, nu = problem.horizon, problem.nu
     model = problem.model
     dtype, device = x0s.dtype, x0s.device
@@ -245,6 +369,8 @@ def solve_batched(
         return jac if affine else torch.zeros_like(jac)
 
     run_backward = _backward_kernel_levels if backward == "kernel" else _backward_multi_reg
+    linesearch = _linesearch_seq if forward == "seq" else _linesearch_sweep
+    derivatives = _kernel_derivatives(problem) if deriv == "kernel" else problem.derivatives
 
     # --- pre-loop backward/forward ---
     xs = problem.rollout(x0s, us_init)
@@ -255,9 +381,9 @@ def solve_batched(
     w = torch.full((B,), params.w if params.w is not None else 1.0 / params.mu, **kw)
     n = torch.full((B,), params.n if params.n is not None else 1.0 / params.mu**0.1, **kw)
 
-    derivs = problem.derivatives(xs, us)
+    derivs = derivatives(xs, us)
     k, K, ok, reg_u = run_backward(derivs, mults.val, mults.jac, mu, reg, n_reg_levels)
-    xs1, us1, step = _linesearch_sweep(problem, xs, us, k, K, mults, mu, n_linesearch)
+    xs1, us1, step = linesearch(problem, xs, us, k, K, mults, mu, n_linesearch)
     # guard: a failed factorization poisons the candidate rollouts
     ok = ok & torch.isfinite(us1.sum(dim=(1, 2)))
     xs = _bwhere(ok, xs1, xs)
@@ -275,7 +401,7 @@ def solve_batched(
     inner = torch.ones(B, dtype=torch.int32, device=device)  # pre-loop ran once
 
     for _ in range(params.max_iterations):
-        derivs = problem.derivatives(xs, us)
+        derivs = derivatives(xs, us)
         mults = al_mod.update_origin(model, mults, xs)
         mults = mults._replace(jac=constrain_jac(mults.jac))
         fbm = al_mod.update_origin(model, fb, xs)
@@ -321,7 +447,7 @@ def solve_batched(
         w_new = torch.where(upd_s, w / mu, w)
 
         k, K, ok, reg_u = run_backward(derivs, mults.val, mults.jac, mu_new, reg, n_reg_levels)
-        xs1, us1, step = _linesearch_sweep(problem, xs, us, k, K, mults, mu_new, n_linesearch)
+        xs1, us1, step = linesearch(problem, xs, us, k, K, mults, mu_new, n_linesearch)
         ok = ok & torch.isfinite(us1.sum(dim=(1, 2)))
         # carry the reg level that factorized; relax it on a full accepted
         # step; escalate only if all levels failed (μ is never escalated
@@ -344,7 +470,7 @@ def solve_batched(
         just_changed = upd_s | upd_f
         inner = torch.where(just_changed, torch.ones_like(inner), inner + 1)
 
-    derivs = problem.derivatives(xs, us)
+    derivs = derivatives(xs, us)
     mults = al_mod.update_origin(model, mults, xs)
     return BatchSolveResult(
         xs=xs,

@@ -7,11 +7,14 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from ddp_tpu.models import base as jbase
+from ddp_tpu.models import robots as jrobots
 from ddp_tpu.models.pendulum import pendulum
+from ddp_tpu.models.rigid_body import RobotModel as JRobotModel
 from ddp_tpu.ocp import constraints, costs, dynamics
 from ddp_tpu.ocp.problem import Derivs as JDerivs
 from ddp_tpu.ocp.problem import Problem
-from ddp_tpu_torch.convert import problem_from_numpy
+from ddp_tpu_torch.convert import problem_from_numpy, robot_model_from_numpy
 from ddp_tpu_torch.ocp.problem import Derivs as TDerivs
 
 TORCH_DTYPE = {np.float32: torch.float32, np.float64: torch.float64}
@@ -38,14 +41,34 @@ def jax_pendulum_problem(horizon, dtype, target=3.14):
     )
 
 
+def robot_leaves(model) -> dict:
+    """robot_model_from_numpy's leaves, read from a ddp_tpu RobotModel."""
+    arrays = (
+        "jp_rot", "jp_trans", "axes", "inertias", "gravity", "frame_rot",
+        "frame_trans", "damping", "q_lower", "q_upper", "v_limit", "tau_limit",
+    )  # fmt: skip
+    leaves = {
+        k: None if getattr(model, k) is None else np.asarray(getattr(model, k))
+        for k in arrays
+    }
+    for k in ("joint_types", "parents", "frame_bodies", "frame_names", "name"):
+        leaves[k] = getattr(model, k)
+    return leaves
+
+
+def both_robots(jmodel):
+    """(the ddp_tpu RobotModel, its float64 CPU counterpart in the port)."""
+    return jmodel, robot_model_from_numpy(
+        robot_leaves(jmodel), device="cpu", dtype=torch.float64
+    )
+
+
 def spec_of(problem) -> dict:
     """problem_from_numpy's spec, read from a ddp_tpu Problem's leaves."""
     con, times = problem.constraint, 0
     while isinstance(con, constraints.AdvanceTime):
         con, times = con.inner, times + 1
-    return dict(
-        mass=np.asarray(problem.model.mass),
-        length=np.asarray(problem.model.length),
+    spec = dict(
         dt=np.asarray(problem.dynamics.dt),
         c=np.asarray(problem.cost.c),
         target=np.asarray(con.target),
@@ -54,12 +77,66 @@ def spec_of(problem) -> dict:
         horizon=problem.horizon,
         second_order=problem.second_order,
     )
+    if isinstance(problem.model, JRobotModel):
+        spec["robot"] = robot_leaves(problem.model)
+    else:
+        spec.update(
+            mass=np.asarray(problem.model.mass), length=np.asarray(problem.model.length)
+        )
+    if isinstance(con, constraints.FrameTarget):
+        spec["frame_id"] = con.frame_id
+    return spec
+
+
+def jax_arm_problem(model, frame_name, q_ready, horizon):
+    """The fleet row's problem (bench.py's 7-DoF row) for any revolute/
+    prismatic arm: Euler dt = 0.01, ½‖u‖², a FrameTarget at the pose reached
+    from ``q_ready`` by 0.04·(1 … nv), active at the horizon and advanced
+    twice, Gauss-Newton."""
+    dtype = model.dtype
+    dyn = dynamics.euler(model, 0.01)
+    fid = jrobots.ee_frame_id(model, frame_name)
+    q_ready = jnp.asarray(q_ready, dtype)
+    q_goal = model.integrate(q_ready, jnp.asarray(0.04 * np.arange(1.0, model.nv + 1), dtype))
+    con = constraints.advance_time(
+        constraints.FrameTarget(
+            model=model, target=model.frame_position(fid, q_goal),
+            frame_id=fid, active_ts=(horizon,),
+        ),
+        dyn, times=2,
+    )  # fmt: skip
+    return Problem(
+        dynamics=dyn, cost=costs.quad_control(1.0, dtype=dtype),
+        constraint=con, horizon=horizon, second_order=False,
+    )  # fmt: skip
+
+
+def arm_inputs(model, q_ready, B, horizon, np_dtype=np.float64):
+    """The fleet row's inputs: x0s = (q_ready, 0) + 0.05·N(0, 1) from
+    ``default_rng(0)``, us0 = gravity compensation rnea(q, 0, 0) tiled over
+    the horizon.  Returns numpy (x0s [B, nx], us0 [B, H, nu])."""
+    rng = np.random.default_rng(0)
+    dtype = model.dtype
+    x0 = jbase.state_pack(jnp.asarray(q_ready, dtype), jnp.zeros(model.nv, dtype))
+    x0s = (np.asarray(x0)[None] + 0.05 * rng.standard_normal((B, x0.shape[0]))).astype(np_dtype)
+    zero_v = jnp.zeros(model.nv, dtype)
+    grav = np.stack(
+        [np.asarray(model.rnea(jnp.asarray(q), zero_v, zero_v)) for q in x0s[:, : model.nq]]
+    )
+    return x0s, np.tile(grav[:, None, :], (1, horizon, 1)).astype(np_dtype)
+
+
+PANDA_READY = (0.0, -0.785, 0.0, -2.356, 0.0, 1.571, 0.785)
 
 
 def both_problems(horizon, np_dtype, **kw):
     jp = jax_pendulum_problem(horizon, jnp.dtype(np_dtype), **kw)
-    tp = problem_from_numpy(spec_of(jp), device="cpu", dtype=TORCH_DTYPE[np_dtype])
-    return jp, tp
+    return jp, torch_problem(jp, np_dtype)
+
+
+def torch_problem(jproblem, np_dtype=np.float64):
+    """The port's CPU counterpart of a ddp_tpu Problem."""
+    return problem_from_numpy(spec_of(jproblem), device="cpu", dtype=TORCH_DTYPE[np_dtype])
 
 
 def headline_x0s(B, np_dtype):
