@@ -5,15 +5,21 @@
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA versions;
    TF32 off for matmuls and cuDNN.
-2. build: compiles csrc/riccati_small.cu and csrc/fd_derivs.cu with nvcc
-   (sm_90a), each loaded from a thread of its own so both compile at once.
+2. build: compiles csrc/riccati_small.cu, csrc/fd_derivs.cu and
+   csrc/fd_derivs2.cu with nvcc (sm_90a), each loaded from a thread of its
+   own so all three compile at once.
 3. kernels vs their plain versions on the card, numpy-seeded inputs.
    Riccati: (n, m, e) = (2, 1, 1) at B=4096, T=32 in f32 and f64, (12, 6, 6)
    at B=512, T=16 in f64, (14, 7, 3) at B=256, T=16 in f64 and f32, a ragged
-   B=1000, and one lane forced non-PD.  fd-derivatives: panda7 at N=4096 in
-   f32 and f64, cartpole at N=4096 in f64, a ragged N=1000; each output
-   array is held to a bar relative to its largest entry, and the f32 kernel,
-   row by row, to twice the f32 plain version's distance from the f64 kernel.
+   B=1000, and one lane forced non-PD; with the second-order terms (non-zero
+   rank-3 slabs) (2, 1, 1) at B=4096, T=32, (4, 2, 2) at a ragged B=1000,
+   (14, 7, 3) at B=256, T=16 in f64 and f32, and one lane forced non-PD.
+   fd-derivatives, first and second order: panda7 at N=4096 in f32 and f64,
+   cartpole at N=4096 in f64, a ragged N=1000; each output array is held to
+   a bar relative to its largest entry, and the f32 kernel, row by row, to a
+   multiple of the f32 plain version's distance from the f64 kernel; the
+   second-order kernel's H must be exactly symmetric with exactly zero ττ
+   and vτ blocks.
 4. pendulum main path: bench.py's headline (4096 constrained pendulum
    swing-ups, T=32, f32, 8 AL iterations, inner_iters_max=1) through
    solve_batched with backward="kernel"; checks the kernel's launch count,
@@ -26,9 +32,18 @@
    kernels' launch counts, finiteness and the feasible share, then the same
    solve with deriv="jvp", backward="sweep", and both in f64 at 6 iterations
    (us within 1e-7 of each lane's largest |u|, identical μ).
-6. times: each kernel vs its plain version at its main-path shape (CUDA
-   events, median of 20) and solves/s of both main paths (median of 3 after a
-   warm-up).
+6. full second-order DDP on the arm (benchmarks/arm_second_order.py's
+   recipe carried to panda7): phase 5's Gauss-Newton result warm-starts 4
+   full-DDP iterations on the second_order twin of the problem
+   (deriv="kernel": the second-order fd-derivatives kernel, backward="kernel":
+   the Riccati kernel with its rank-3 terms, forward="seq", n_linesearch=4),
+   and a cold 12-iteration full-DDP solve; checks both kernels' launch counts,
+   finiteness, the chain's feasible share against the Gauss-Newton stage's,
+   then the same stage through deriv="jvp", backward="sweep", and both in f64
+   at 2 iterations (us within 1e-7 of each lane's largest |u|, identical μ).
+7. times: each kernel vs its plain version at its main-path shape (CUDA
+   events, median of 20; the second-order fd plain version median of 5) and
+   solves/s of the main paths (median of 3 after a warm-up).
 
 Every phase prints one line; any failure raises and the exit code is not 0.
 The last lines are a JSON object describing the kernels and the JSON result
@@ -49,6 +64,7 @@ import torch
 from ddp_tpu_torch.convert import problem_from_numpy
 from ddp_tpu_torch.kernels import _build
 from ddp_tpu_torch.kernels import fd_derivs as fd
+from ddp_tpu_torch.kernels import fd_derivs2 as fd2
 from ddp_tpu_torch.kernels import riccati_small as rs
 from ddp_tpu_torch.models import robots
 from ddp_tpu_torch.models.base import state_pack
@@ -84,6 +100,13 @@ ARM_READY = (0.0, -0.785, 0.0, -2.356, 0.0, 1.571, 0.785)
 # FD_F32_VS_PLAIN times the plain f32 version's distance from the f64 kernel
 FD_BAR = {torch.float64: 1e-9, torch.float32: 2e-3}
 FD_F32_VS_PLAIN = 2.0
+# (the second-order kernel is held to the same bars: H of panda7 reaches 8e3
+# and its first f32 run gave 1.6e-4 of that, worst row 1.408× the plain
+# version's distance from the f64 kernel)
+# the full-DDP polish stage and the cold full-DDP solve of the arm
+DDP = SolverParams(max_iterations=4, threshold=1e-5, mu=1e4, inner_iters_max=1)
+DDP_COLD = DDP._replace(max_iterations=12)
+DDP_KW = dict(n_linesearch=4, forward="seq", matmul_precision="highest")
 # published peaks of one H100 SXM used for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12  # outside the tensor cores
@@ -131,9 +154,12 @@ def pendulum_inputs(Bk, dtype, bad_lane=None):
     return rs.pack_batch_last(derivs, val, jac), mu, reg
 
 
-def spd_inputs(Bk, Tk, n, m, e, dtype):
-    """Random Gauss-Newton blocks at arbitrary dims: fx near I, an SPD
-    stage-cost Hessian, non-trivial constraint rows and multipliers."""
+def spd_inputs(Bk, Tk, n, m, e, dtype, second_order=False, bad_lane=None):
+    """Random blocks at arbitrary dims: fx near I, an SPD stage-cost Hessian,
+    non-trivial constraint rows and multipliers; with ``second_order`` also
+    non-zero symmetric dynamics and constraint Hessian slabs (small against
+    the cost Hessian, so Quu stays PD), packed for the second-order sweep.
+    ``bad_lane``: that lane's luu is made negative definite."""
     rng = np.random.default_rng(3)
     nz = n + m
     G = rng.normal(size=(Bk, Tk, nz, nz)) / np.sqrt(nz)
@@ -153,13 +179,23 @@ def spd_inputs(Bk, Tk, n, m, e, dtype):
         lfx=rng.normal(size=(Bk, n)),
         lfxx=lfG @ np.swapaxes(lfG, -1, -2) + 0.1 * np.eye(n),
     )  # fmt: skip
+    if second_order:
+        for name, rows in (("f", n), ("eq", e)):
+            H = 2e-4 * rng.normal(size=(Bk, Tk, rows, nz, nz))
+            H = 0.5 * (H + np.swapaxes(H, -1, -2))
+            f[name + "xx"], f[name + "ux"], f[name + "uu"] = (
+                H[..., :n, :n], H[..., n:, :n], H[..., n:, n:]
+            )  # fmt: skip
+    if bad_lane is not None:
+        f["luu"] = f["luu"].copy()
+        f["luu"][bad_lane] = -10.0 * np.eye(m)
     kw = dict(dtype=dtype, device=DEV)
     derivs = Derivs(**{k: torch.tensor(np.ascontiguousarray(v), **kw) for k, v in f.items()})
     pe = torch.tensor(0.3 * rng.normal(size=(Bk, Tk, e)), **kw)
     pex = torch.tensor(0.01 * rng.normal(size=(Bk, Tk, e, n)), **kw)
     mu = torch.full((Bk,), 1e3, **kw)
     reg = torch.full((Bk,), 1e-6, **kw)
-    return rs.pack_batch_last(derivs, pe, pex), mu, reg
+    return rs.pack_batch_last(derivs, pe, pex, second_order=second_order), mu, reg
 
 
 def kernel_vs_plain(name, packed, mu, reg, Tk, n, m, e, rtol, atol):
@@ -196,60 +232,79 @@ def fd_inputs(model, N, dtype, seed=5):
     )
 
 
-def fd_kernel_vs_plain(name, model, N, dtype, model64=None):
-    """Run the fd-derivatives kernel and its plain version on the same card
-    tensors; raise unless each of (a, ∂a/∂q, ∂a/∂v, M⁻¹) agrees within
-    FD_BAR of the array's largest entry.  With ``model64`` (the same model in
-    f64) the f64 kernel on the same inputs is the truth: for every output
-    array and every row i of it (joint i's acceleration, its derivatives, its
-    row of M⁻¹; rows differ by orders of magnitude), the kernel's largest
-    error over samples and columns, relative to the row's largest entry, may
-    be at most FD_F32_VS_PLAIN times the plain version's.  So the f32 kernel
-    is held to what f32 conditioning explains and no more.  Returns (max abs
-    error over the four arrays, the inputs)."""
+def fd_kernel_vs_plain(name, model, N, dtype, model64=None, second=False):
+    """Run an fd-derivatives kernel (the second-order one with ``second``)
+    and its plain version on the same card tensors; raise unless each of
+    (a, ∂a/∂q, ∂a/∂v, M⁻¹[, H]) agrees within FD_BAR of the array's
+    largest entry.  With ``model64`` (the same model in f64) the f64 kernel
+    on the same inputs is the truth: for every output array and every row i
+    of it (joint i's acceleration, its derivatives, its row of M⁻¹, its
+    Hessian; rows differ by orders of magnitude), the kernel's largest error
+    over samples and columns, relative to the row's largest entry, may be at
+    most FD_F32_VS_PLAIN times the plain version's.  So
+    the f32 kernel is held to what f32 conditioning explains and no more.
+    The second-order kernel's H must be exactly symmetric, with exactly zero
+    ττ and vτ blocks.  Returns (max abs error over the arrays, the inputs)."""
+    mod, kernel, plain = (
+        (fd2, fd2.fd_derivs2, fd2.fd_derivs2_reference) if second
+        else (fd, fd.fd_derivs, fd.fd_derivs_reference)
+    )  # fmt: skip
+    bar, ratio_bar = FD_BAR, FD_F32_VS_PLAIN
+    labels = ("a", "da_dq", "da_dv", "Minv", "H")[: 5 if second else 4]
     q, v, tau = inputs = fd_inputs(model, N, dtype)
-    got = fd.fd_derivs(model, q, v, tau)
+    before = mod.LAUNCHES
+    got = kernel(model, q, v, tau)
     torch.cuda.synchronize()
-    ref = fd.fd_derivs_reference(model, q, v, tau)
-    err, rel = 0.0, 0.0
-    for g, r, label in zip(got, ref, ("a", "da_dq", "da_dv", "Minv")):
+    check(mod.LAUNCHES == before + 1, f"{name}: the wrapper did not launch its kernel")
+    ref = plain(model, q, v, tau)
+    err, rel, rels = 0.0, 0.0, {}
+    for g, r, label in zip(got, ref, labels):
         check(g.shape == r.shape, f"{name}: {label} shape {tuple(g.shape)}")
         check(bool(torch.isfinite(g).all()), f"{name}: non-finite {label}")
         e = float((g - r).abs().max())
         rel_e = e / float(r.abs().max())
-        check(rel_e <= FD_BAR[dtype], f"{name}: {label} rel err {rel_e:.3e}")
-        err, rel = max(err, e), max(rel, rel_e)
+        check(rel_e <= bar[dtype], f"{name}: {label} rel err {rel_e:.3e}")
+        err, rel, rels[label] = max(err, e), max(rel, rel_e), f"{rel_e:.3e}"
     extra = {}
+    if second:
+        H, nv = got[4], model.nv
+        check(H.shape == (N, nv, 3 * nv, 3 * nv), f"{name}: H shape {tuple(H.shape)}")
+        check(torch.equal(H, H.transpose(-1, -2)), f"{name}: H is not exactly symmetric")
+        check(float(H[:, :, 2 * nv :, 2 * nv :].abs().max()) == 0.0, f"{name}: ττ block not zero")
+        check(float(H[:, :, nv : 2 * nv, 2 * nv :].abs().max()) == 0.0, f"{name}: vτ block not zero")
+        check(float(H[:, :, :nv, 2 * nv :].abs().max()) > 0.0, f"{name}: qτ block is zero")
+        extra.update(H_max=f"{float(H.abs().max()):.3e}", H_rel_err=rels["H"], symmetric=True,
+                     tau_tau_zero=True)  # fmt: skip
     if model64 is not None:
-        truth = fd.fd_derivs(model64, q.double(), v.double(), tau.double())
+        truth = kernel(model64, q.double(), v.double(), tau.double())
         worst = {"kernel_vs_f64": 0.0, "plain_vs_f64": 0.0, "row_ratio": 0.0}
-        for g, r, w, label in zip(got, ref, truth, ("a", "da_dq", "da_dv", "Minv")):
-            # [N, nv] or [N, nv, nv] → [nv, N·cols]: one line per row i
+        for g, r, w, label in zip(got, ref, truth, labels):
+            # [N, nv, ...] → [nv, N·cols]: one line per row i
             rows = [x.double().reshape(N, model.nv, -1).transpose(0, 1).flatten(1)
                     for x in (g, r, w)]  # fmt: skip
             scale = rows[2].abs().amax(dim=1)
             k_row = (rows[0] - rows[2]).abs().amax(dim=1) / scale
             p_row = (rows[1] - rows[2]).abs().amax(dim=1) / scale
             ratio = float((k_row / p_row.clamp(min=1e-300)).max())
-            check(ratio <= FD_F32_VS_PLAIN,
+            check(ratio <= ratio_bar,
                   f"{name}: {label} rows {(k_row / p_row).tolist()} of the plain version's error")
             worst["row_ratio"] = max(worst["row_ratio"], ratio)
             for key, o in (("kernel_vs_f64", g), ("plain_vs_f64", r)):
                 worst[key] = max(worst[key], float((o - w).abs().max() / w.abs().max()))
-        extra = {k: f"{x:.3e}" for k, x in worst.items()}
-        extra["row_ratio_bar"] = FD_F32_VS_PLAIN
+        extra.update({k: f"{x:.3e}" for k, x in worst.items()})
+        extra["row_ratio_bar"] = ratio_bar
     say("kernel", case=name, max_abs_err=f"{err:.3e}", max_rel_err=f"{rel:.3e}",
-        bar=FD_BAR[dtype], **extra)  # fmt: skip
+        bar=bar[dtype], **extra)  # fmt: skip
     return err, inputs
 
 
 # ---------------------------------------------------------------- arm path
 
 
-def arm_problem(dtype):
+def arm_problem(dtype, second_order=False):
     """bench.py's 7-DoF row: Euler panda7 (dt = 0.01), ½‖u‖², the end
     effector at the pose of q_ready ⊕ 0.04·(1 … 7) two steps past the
-    horizon, Gauss-Newton; x0s = (q_ready, 0) + 0.05·N(0, 1) from
+    horizon, Gauss-Newton or (``second_order``) full DDP; x0s = (q_ready, 0) + 0.05·N(0, 1) from
     default_rng(0), us0 = gravity compensation tiled over the horizon."""
     kw = dict(dtype=dtype, device=DEV)
     arm = robots.panda7(**kw)
@@ -263,7 +318,7 @@ def arm_problem(dtype):
     )  # fmt: skip
     problem = Problem(
         dynamics=dyn, cost=costs.quad_control(1.0, **kw), constraint=con,
-        horizon=ARM_H, second_order=False,
+        horizon=ARM_H, second_order=second_order,
     )  # fmt: skip
     rng = np.random.default_rng(0)
     x0 = state_pack(q_ready, torch.zeros(arm.nv, **kw)).cpu().numpy()
@@ -284,7 +339,8 @@ def arm_solve(problem, x0s, us0, deriv, backward, params=ARM):
 def arm_main_path():
     """Phase 5: the fleet row through both kernels, its checks, and the
     jvp/sweep and f64 comparisons.  Returns (riccati launches, fd launches,
-    problem, x0s, us0)."""
+    problem, x0s, us0, and the four results: f32 kernel, f32 jvp/sweep, f64
+    kernel at 6 iterations, with its inputs)."""
     p32, x32, u32 = arm_problem(torch.float32)
     rs.LAUNCHES = fd.LAUNCHES = 0
     res_k = arm_solve(p32, x32, u32, "kernel", "kernel")
@@ -321,23 +377,136 @@ def arm_main_path():
     check(torch.equal(r64_k.mu, r64_j.mu), "arm f64 per-lane mu differs")
     say("arm_f64", iters=short.max_iterations, us_max_scaled_err=f"{err64:.3e}",
         mu_identical=True, mu_levels=sorted({float(v) for v in r64_k.mu}))  # fmt: skip
-    return rs_launches, fd_launches, p32, x32, u32
+    return rs_launches, fd_launches, p32, x32, u32, res_k, res_j, (r64_k, x64, u64)
+
+
+# ------------------------------------------------- arm path, full second order
+
+
+def ddp_stage(problem2, x0s, r1, deriv, backward, params=DDP):
+    """Full-DDP iterations on the second_order problem, warm-started on a
+    previous result's (us, mults, μ, reg, w, n)."""
+    res = solve_batched(
+        problem2, params, x0s, us_init=r1.us, mults_init=r1.mults, mu_init=r1.mu,
+        reg_init=r1.reg, w_init=r1.w, n_init=r1.n, deriv=deriv, backward=backward, **DDP_KW,
+    )  # fmt: skip
+    torch.cuda.synchronize()
+    return res
+
+
+def reset_launch_counts():
+    rs.LAUNCHES = rs.LAUNCHES_SECOND_ORDER = fd.LAUNCHES = fd2.LAUNCHES = 0
+
+
+def check_finite(res, what):
+    """Everything a caller uses of a full-DDP result is finite.  ``opt_lag``
+    is left out and counted instead: the recipe caps neither μ nor the
+    iteration count, so after 24 + 4 iterations in f32 μ has reached 1e16 to
+    1e28 and the multipliers 1e12 to 1e21 on lanes that are feasible, and the
+    stationarity measure's adjoint recursion overflows on some of them (the
+    same schedule, and the same overflow, in ddp_tpu).  Returns the number of
+    lanes whose ``opt_lag`` is not finite."""
+    for name in ("xs", "us", "fb_k", "fb_K", "opt_constr", "mu", "reg", "w", "n"):
+        check(bool(torch.isfinite(getattr(res, name)).all()), f"{what}: non-finite {name}")
+    check(bool(torch.isfinite(res.mults.val).all()), f"{what}: non-finite multipliers")
+    return int((~torch.isfinite(res.opt_lag)).sum())
+
+
+def arm_second_order_path(x32, u32, gn_k, gn_j, gn64):
+    """Phase 6: the Gauss-Newton results of phase 5 warm-start the full-DDP
+    polish through both new kernels; a cold full-DDP solve; the jvp/sweep
+    and f64 comparisons.  Returns (fd2 launches, second-order Riccati
+    launches, the second_order problem, the shares and wall times)."""
+    p2, _, _ = arm_problem(torch.float32, second_order=True)
+    frac_gn = float((gn_k.opt_constr < 1e-2).float().mean())
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res_k = ddp_stage(p2, x32, gn_k, "kernel", "kernel")
+    wall_k = time.perf_counter() - t0
+    fd2_launches, rs2_launches = fd2.LAUNCHES, rs.LAUNCHES_SECOND_ORDER
+    # one derivative pass before the loop, one per iteration, one for the
+    # final optimality; a backward pass before the loop and one per
+    # iteration, each a launch per level of the regularization ladder
+    fd2_expected = 1 + DDP.max_iterations + 1
+    rs2_expected = (1 + DDP.max_iterations) * ARM_REG_LEVELS
+    check(fd2_launches == fd2_expected, f"fd2 launches {fd2_launches} != {fd2_expected}")
+    check(rs2_launches == rs2_expected, f"2nd-order riccati launches {rs2_launches} != {rs2_expected}")
+    check(rs.LAUNCHES == rs2_expected and fd.LAUNCHES == 0,
+          f"first-order kernels ran in the full-DDP stage: {rs.LAUNCHES}, {fd.LAUNCHES}")  # fmt: skip
+    lag_overflow = check_finite(res_k, "arm chain")
+    check(res_k.us.shape == (ARM_B, ARM_H, 7) and res_k.xs.shape == (ARM_B, ARM_H + 1, 14),
+          "arm chain: result shapes")  # fmt: skip
+    frac_k = float((res_k.opt_constr < 1e-2).float().mean())
+    check(frac_k >= frac_gn - 0.01 and frac_k >= 0.90, f"chain share {frac_k} vs GN stage {frac_gn}")
+    t0 = time.perf_counter()
+    res_j = ddp_stage(p2, x32, gn_j, "jvp", "sweep")
+    wall_j = time.perf_counter() - t0
+    frac_j = float((res_j.opt_constr < 1e-2).float().mean())
+    check(abs(frac_k - frac_j) <= 0.02, f"chain feasible shares {frac_k} vs {frac_j}")
+    say("arm_chain_f32", B=ARM_B, H=ARM_H, gn_iters=ARM.max_iterations,
+        ddp_iters=DDP.max_iterations, fd2_launches=fd2_launches,
+        riccati2_launches=rs2_launches, frac_gn_stage=frac_gn, frac_chain_kernel=frac_k,
+        frac_chain_jvp_sweep=frac_j,
+        p99_eq=f"{float(torch.quantile(res_k.opt_constr, 0.99)):.3e}",
+        opt_lag_overflow_lanes=lag_overflow, mu_max=f"{float(res_k.mu.max()):.1e}",
+        median_opt_lag_gn=f"{float(gn_k.opt_lag.median()):.3e}",
+        median_opt_lag_chain=f"{float(res_k.opt_lag.median()):.3e}",
+        lanes_improved=int((res_k.opt_constr < 0.5 * gn_k.opt_constr).sum()),
+        us_moved=f"{float((res_k.us - gn_k.us).abs().max()):.3e}",
+        mu_equal=float((res_k.mu == res_j.mu).float().mean()),
+        first_stage_s_kernel=f"{wall_k:.3f}", stage_s_jvp_sweep=f"{wall_j:.3f}")  # fmt: skip
+
+    # cold: no warm start, so the kernels see states far from the optimum,
+    # where Quu is indefinite and the regularization ladder fires
+    reset_launch_counts()
+    cold = solve_batched(p2, DDP_COLD, x32, us_init=u32, deriv="kernel", backward="kernel", **DDP_KW)
+    torch.cuda.synchronize()
+    cold_fd2, cold_rs2 = fd2.LAUNCHES, rs.LAUNCHES_SECOND_ORDER
+    check(cold_fd2 == 1 + DDP_COLD.max_iterations + 1, f"cold fd2 launches {cold_fd2}")
+    check(cold_rs2 == (1 + DDP_COLD.max_iterations) * ARM_REG_LEVELS,
+          f"cold 2nd-order riccati launches {cold_rs2}")  # fmt: skip
+    cold_overflow = check_finite(cold, "arm cold full DDP")
+    frac_cold = float((cold.opt_constr < 1e-2).float().mean())
+    say("arm_cold_ddp_f32", iters=DDP_COLD.max_iterations, fd2_launches=cold_fd2,
+        riccati2_launches=cold_rs2, frac_feasible=frac_cold,
+        p99_eq=f"{float(torch.quantile(cold.opt_constr, 0.99)):.3e}",
+        lanes_with_reg=int((cold.reg > 0).sum()), opt_lag_overflow_lanes=cold_overflow,
+        mu_levels=sorted({float(v) for v in cold.mu}))  # fmt: skip
+
+    # f64: both paths from the same Gauss-Newton state
+    r64, x64, _ = gn64
+    p64, _, _ = arm_problem(torch.float64, second_order=True)
+    short = DDP._replace(max_iterations=2)
+    r64_k = ddp_stage(p64, x64, r64, "kernel", "kernel", short)
+    r64_j = ddp_stage(p64, x64, r64, "jvp", "sweep", short)
+    diff = (r64_k.us - r64_j.us).abs().amax(dim=(1, 2))
+    scale = r64_j.us.abs().amax(dim=(1, 2)).clamp(min=1.0)
+    err64 = float((diff / scale).max())
+    check(err64 <= 1e-7, f"arm chain f64 us max scaled err {err64}")
+    check(torch.equal(r64_k.mu, r64_j.mu), "arm chain f64 per-lane mu differs")
+    say("arm_chain_f64", ddp_iters=short.max_iterations, us_max_scaled_err=f"{err64:.3e}",
+        mu_identical=True, us_moved=f"{float((r64_k.us - r64.us).abs().max()):.3e}")  # fmt: skip
+    return fd2_launches, rs2_launches, p2, dict(
+        frac_gn=frac_gn, frac_chain=frac_k, frac_cold=frac_cold, wall_jvp_sweep=wall_j
+    )
 
 
 # ------------------------------------------------------------------ timing
 
 
-def riccati_bound_ms(Tk, n, m, e, Bk):
+def riccati_bound_ms(Tk, n, m, e, Bk, second_order=False):
     """Least time for one float32 sweep: every input and output element
     moved once at the card's memory rate, or its multiply-adds at the
     float32 peak."""
     item = 4
-    rows_in = sum(rs._rows(n, m, e).values())
+    rows_in = sum(rs._rows(n, m, e, second_order).values())
     elems = Tk * Bk * (rows_in + m + m * n) + Bk * (n + n * n + 2)
     bytes_ms = 1e3 * (elems * item + Bk) / HBM_BYTES_PER_S
     # per step: Vxx·[fx fu], [fx fu]ᵀ·(·), the e-row terms, Cholesky, solves
     macs = n * n * (n + m) + (n + m) * n * (n + m) + 2 * e * (n + m) * n
     macs += m**3 // 3 + (1 + n) * m * m + m * n * (1 + n)
+    if second_order:  # Vx·f.. and tmp·eq.. over the rank-3 slabs
+        macs += (n + e) * (n * n + m * n + m * m)
     ops_ms = 1e3 * 2 * macs * Tk * Bk / F32_FLOPS_PER_S
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
@@ -377,6 +546,45 @@ def fd_bound_ms(model, N):
     nv, item = model.nv, 4
     bytes_ms = 1e3 * N * (3 * nv + nv + 3 * nv * nv) * item / HBM_BYTES_PER_S
     ops_ms = 1e3 * fd_flops(tuple(model.parents)) * N / F32_FLOPS_PER_S
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def fd2_flops(parents):
+    """Floating-point operations the FUNCTION (q, v, τ) → (a, ∂a/∂q, ∂a/∂v,
+    M⁻¹, H) needs per sample, whatever a kernel does on top: ``fd_flops`` for
+    the first-order outputs, and for H
+
+    - the second derivatives of the chain, at four multiply-adds per
+      multiply-add of the primal (the product rule's h·b + t₁·t₂' + t₂·t₁' +
+      a·h'): the whole chain for each of the nv(nv+1)/2 (q, q) pairs, the
+      RNEA part alone for the nv² (q, v) and nv(nv+1)/2 (v, v) pairs (M does
+      not depend on v);
+    - the right-hand sides: (∂ij M)·a for (q, q) pairs, (∂i M)(∂j a) for
+      each q index of a pair, 2·nv² each;
+    - one forward/backward substitution of 2·nv² per pair, and for the τ
+      cross block nv² products and substitutions."""
+    nv = len(parents)
+    pairs = 0
+    for j in range(nv):
+        i = j
+        while i >= 0:
+            pairs, i = pairs + 1, parents[i]
+    rnea = nv * (260 + 6)
+    chain = nv * (210 + 180 + 42) + rnea + 2 * (36 * nv + 6 * pairs)
+    qq, qv = nv * (nv + 1) // 2, nv * nv
+    second = 4 * (qq * chain + (qv + qq) * rnea)
+    rhs = 2 * nv * nv * (qq + 2 * qq + qv)
+    solves = 2 * nv * nv * ((2 * qq + qv) + 2 * nv * nv)
+    return fd_flops(parents) + second + rhs + solves
+
+
+def fd2_bound_ms(model, N):
+    """Least time for one float32 call on N samples: 3·nv inputs and
+    nv + 3·nv² + nv·(3·nv)² outputs per sample moved once at the card's
+    memory rate, or ``fd2_flops`` at the float peak."""
+    nv, item = model.nv, 4
+    bytes_ms = 1e3 * N * (3 * nv + nv + 3 * nv * nv + 9 * nv**3) * item / HBM_BYTES_PER_S
+    ops_ms = 1e3 * fd2_flops(tuple(model.parents)) * N / F32_FLOPS_PER_S
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -446,31 +654,21 @@ def main_path():
     return launches, p32, x32
 
 
-def main():
-    # 1. device
-    if not torch.cuda.is_available():
-        raise RuntimeError("chip_smoke needs a CUDA card: torch.cuda.is_available() is False")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]  # fmt: skip
-    print(card, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    say("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-        torch=torch.__version__, cuda=torch.version.cuda,
-        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)  # fmt: skip
-
-    # 2. build: one nvcc per source, each under its own thread's load()
+def build_kernels():
+    """Phase 2: one nvcc per source, each under its own thread's load()."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for built in [pool.submit(rs._kernel_fn), pool.submit(fd._kernel_fn)]:
+    sources = (rs.SOURCE, fd.SOURCE, fd2.SOURCE)
+    with ThreadPoolExecutor(3) as pool:
+        for built in [pool.submit(m._kernel_fn) for m in (rs, fd, fd2)]:
             built.result()
-    say("build", sources=f"{rs.SOURCE},{fd.SOURCE}", wall_s=f"{time.perf_counter() - t0:.1f}",
-        nvcc_s=[f"{_build.build_seconds(x):.1f}" for x in (rs.SOURCE, fd.SOURCE)])  # fmt: skip
+    say("build", sources=",".join(sources), wall_s=f"{time.perf_counter() - t0:.1f}",
+        nvcc_s=[f"{_build.build_seconds(x):.1f}" for x in sources])  # fmt: skip
 
-    # 3. kernel vs plain version
+
+def kernel_checks():
+    """Phase 3: every kernel against its plain version on the card.  Returns
+    what the timing phase reuses: the f32 inputs at the main paths' shapes
+    and each kernel's largest f32 error."""
     f32_in = pendulum_inputs(B, torch.float32)
     err32, _ = kernel_vs_plain("headline_f32_B4096_T32", *f32_in, T, 2, 1, 1, 2e-4, 2e-5)
     kernel_vs_plain("headline_f64_B4096_T32", *pendulum_inputs(B, torch.float64),
@@ -495,14 +693,74 @@ def main():
     fd_kernel_vs_plain(f"cartpole_f64_N{N}", robots.cartpole(device=DEV, dtype=torch.float64),
                        N, torch.float64)  # fmt: skip
     fd_kernel_vs_plain("panda7_ragged_f64_N1000", panda64, 1000, torch.float64)
+    # … with the second-order terms, non-zero rank-3 slabs
+    kernel_vs_plain("so_headline_f32_B4096_T32",
+                    *spd_inputs(B, T, 2, 1, 1, torch.float32, second_order=True),
+                    T, 2, 1, 1, 2e-4, 2e-5)  # fmt: skip
+    kernel_vs_plain("so_headline_f64_B4096_T32",
+                    *spd_inputs(B, T, 2, 1, 1, torch.float64, second_order=True),
+                    T, 2, 1, 1, 1e-10, 1e-10)  # fmt: skip
+    kernel_vs_plain("so_n4m2e2_ragged_f64_B1000_T16",
+                    *spd_inputs(1000, 16, 4, 2, 2, torch.float64, second_order=True),
+                    16, 4, 2, 2, 1e-9, 1e-9)  # fmt: skip
+    _, ok = kernel_vs_plain("so_nonpd_lane3_f64_B1000",
+                            *spd_inputs(1000, 16, 4, 2, 2, torch.float64, True, bad_lane=3),
+                            16, 4, 2, 2, 1e-9, 1e-9)  # fmt: skip
+    check(not bool(ok[3]) and int(ok.sum()) == ok.numel() - 1, "only lane 3 may fail (2nd order)")
+    kernel_vs_plain("so_armdims_f64_B256_T16",
+                    *spd_inputs(ARM_B, ARM_H, 14, 7, 3, torch.float64, second_order=True),
+                    *arm_dims, 1e-9, 1e-9)  # fmt: skip
+    arm2_in = spd_inputs(ARM_B, ARM_H, 14, 7, 3, torch.float32, second_order=True)
+    rs2_err32, _ = kernel_vs_plain("so_armdims_f32_B256_T16", *arm2_in, *arm_dims, 2e-3, 2e-4)
+    fd2_err32, _ = fd_kernel_vs_plain(f"fd2_panda7_f32_N{N}", panda32, N, torch.float32,
+                                      panda64, second=True)  # fmt: skip
+    fd_kernel_vs_plain(f"fd2_panda7_f64_N{N}", panda64, N, torch.float64, second=True)
+    fd_kernel_vs_plain(f"fd2_cartpole_f64_N{N}", robots.cartpole(device=DEV, dtype=torch.float64),
+                       N, torch.float64, second=True)  # fmt: skip
+    fd_kernel_vs_plain("fd2_panda7_ragged_f64_N1000", panda64, 1000, torch.float64, second=True)
+
+    return dict(f32_in=f32_in, err32=err32, arm_in=arm_in, arm2_in=arm2_in, rs2_err32=rs2_err32,
+                panda32=panda32, panda64=panda64, fd_in=fd_in, fd_err32=fd_err32,
+                fd2_err32=fd2_err32)  # fmt: skip
+
+
+def main():
+    # 1. device
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke needs a CUDA card: torch.cuda.is_available() is False")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]  # fmt: skip
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+        torch=torch.__version__, cuda=torch.version.cuda,
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)  # fmt: skip
+
+    # 2. build
+    build_kernels()
+
+    # 3. kernel vs plain version
+    k3 = kernel_checks()
+    f32_in, err32, arm_in, arm2_in = k3["f32_in"], k3["err32"], k3["arm_in"], k3["arm2_in"]
+    panda32, panda64, fd_in = k3["panda32"], k3["panda64"], k3["fd_in"]
+    fd_err32, fd2_err32, rs2_err32 = k3["fd_err32"], k3["fd2_err32"], k3["rs2_err32"]
+    N = ARM_B * ARM_H
 
     # 4. pendulum main path
     launches, p32, x32 = main_path()
 
     # 5. arm main path
-    arm_rs_launches, arm_fd_launches, a32, ax32, au32 = arm_main_path()
+    arm_rs_launches, arm_fd_launches, a32, ax32, au32, gn_k, gn_j, gn64 = arm_main_path()
 
-    # 6. times
+    # 6. arm, full second-order DDP
+    fd2_launches, rs2_launches, a2_32, chain = arm_second_order_path(ax32, au32, gn_k, gn_j, gn64)
+    del gn64
+
+    # 7. times
     packed, mu, reg = f32_in
     ms = event_ms(lambda: rs.backward_sweep(packed, mu, reg, T=T, n=2, m=1, e=1))
     plain_ms = event_ms(
@@ -558,6 +816,40 @@ def main():
             solves_per_s=f"{ARM_B / arm_walls[deriv]:.1f}",
             peak_mem_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")  # fmt: skip
 
+    arm2_packed, arm2_mu, arm2_reg = arm2_in
+    rs2_ms = event_ms(lambda: rs.backward_sweep(arm2_packed, arm2_mu, arm2_reg, **arm_kw))
+    rs2_plain_ms = event_ms(
+        lambda: rs.backward_sweep_reference(arm2_packed, arm2_mu, arm2_reg, **arm_kw)
+    )
+    rs2_bound, rs2_bound_by = riccati_bound_ms(ARM_H, 14, 7, 3, ARM_B, second_order=True)
+    say("time_backward_2nd_order", card=f"'{card}'", shape=f"n14m7e3_T{ARM_H}_B{ARM_B}_f32",
+        kernel_ms=f"{rs2_ms:.4f}", plain_ms=f"{rs2_plain_ms:.4f}",
+        bound_ms=f"{rs2_bound:.5f}", bound_by=rs2_bound_by,
+        kernel_over_bound=f"{rs2_ms / rs2_bound:.1f}")  # fmt: skip
+    fd2_ms = event_ms(lambda: fd2.fd_derivs2(panda32, *fd_in))
+    fd2_plain_ms = event_ms(lambda: fd2.fd_derivs2_reference(panda32, *fd_in), reps=5)
+    fd2_bound, fd2_bound_by = fd2_bound_ms(panda32, N)
+    fd2_f64_in = tuple(x.double() for x in fd_in)
+    fd2_f64_ms = event_ms(lambda: fd2.fd_derivs2(panda64, *fd2_f64_in), reps=5)
+    say("time_fd_derivs2", card=f"'{card}'", shape=f"panda7_N{N}_f32", kernel_ms=f"{fd2_ms:.4f}",
+        plain_ms=f"{fd2_plain_ms:.4f}", bound_ms=f"{fd2_bound:.5f}", bound_by=fd2_bound_by,
+        flops_per_sample=fd2_flops(tuple(panda32.parents)),
+        kernel_over_bound=f"{fd2_ms / fd2_bound:.1f}", kernel_f64_ms=f"{fd2_f64_ms:.4f}")  # fmt: skip
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ddp_stage(a2_32, ax32, gn_k, "kernel", "kernel")
+        walls.append(time.perf_counter() - t0)
+    ddp_wall = statistics.median(walls)
+    say("time_arm_chain", card=f"'{card}'", deriv="kernel", backward="kernel", B=ARM_B,
+        ddp_stage_s=[f"{w:.4f}" for w in walls],
+        ddp_stage_solves_per_s=f"{ARM_B / ddp_wall:.1f}",
+        chain_solves_per_s=f"{ARM_B / (arm_walls['kernel'] + ddp_wall):.1f}",
+        ddp_stage_s_jvp_sweep=f"{chain['wall_jvp_sweep']:.4f}",
+        chain_solves_per_s_jvp_sweep=f"{ARM_B / (arm_walls['jvp'] + chain['wall_jvp_sweep']):.1f}",
+        peak_mem_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")  # fmt: skip
+
     print(json.dumps({"kernels": [
         {
             "name": "riccati_small_bwd", "route": "cuda",
@@ -577,6 +869,22 @@ def main():
             "replaces": "ddp_tpu/kernels/fd_derivs.py:500",
             "launches": arm_fd_launches, "max_abs_err": fd_err32, "ms": fd_ms,
             "plain_ms": fd_plain_ms, "bound_ms": fd_bound, "bound_by": fd_bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "fd_derivs2", "route": "cuda",
+            "source": "ddp_tpu_torch/csrc/fd_derivs2.cu",
+            "replaces": "ddp_tpu/kernels/fd_derivs2.py:357",
+            "launches": fd2_launches, "max_abs_err": fd2_err32, "ms": fd2_ms,
+            "plain_ms": fd2_plain_ms, "bound_ms": fd2_bound, "bound_by": fd2_bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "riccati_small_bwd_second_order", "route": "cuda",
+            "source": "ddp_tpu_torch/csrc/riccati_small.cu",
+            "replaces": "ddp_tpu/kernels/riccati_small.py:379",
+            "launches": rs2_launches, "max_abs_err": rs2_err32, "ms": rs2_ms,
+            "plain_ms": rs2_plain_ms, "bound_ms": rs2_bound, "bound_by": rs2_bound_by,
             "library_ms": None,
         },
     ]}))  # fmt: skip

@@ -11,6 +11,7 @@ from ddp_tpu_torch.models.pendulum import pendulum
 from ddp_tpu_torch.models.rigid_body import RobotModel
 from ddp_tpu_torch.ocp import constraints, costs, dynamics
 from ddp_tpu_torch.ocp.problem import Problem
+from ddp_tpu_torch.solver.al import AffineMults
 
 _ROBOT_ARRAYS = (
     "jp_rot", "jp_trans", "axes", "inertias", "gravity", "frame_rot",
@@ -70,3 +71,18 @@ def problem_from_numpy(spec: dict, *, device, dtype: torch.dtype) -> Problem:
         horizon=int(spec["horizon"]),
         second_order=bool(spec["second_order"]),
     )
+
+
+def warm_start_from_numpy(state: dict, *, device, dtype: torch.dtype) -> dict:
+    """``solve_batched``'s warm-start keyword arguments from a previous
+    result's state as numpy arrays: ``us`` [B, T, nu], ``mults`` (a dict of
+    ``val`` [B, T, ne], ``jac`` [B, T, ne, ndx], ``origin`` [B, T, nx]) and
+    the per-lane schedule state ``mu``, ``reg``, ``w``, ``n`` [B] — so a
+    solve of either package can be continued in the other."""
+
+    def tt(x):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+    kw = {f"{k}_init": tt(state[k]) for k in ("us", "mu", "reg", "w", "n")}
+    kw["mults_init"] = AffineMults(**{k: tt(state["mults"][k]) for k in AffineMults._fields})
+    return kw

@@ -1,9 +1,19 @@
-// Batched small-dimension Riccati backward sweep, Gauss-Newton form with
-// augmented-Lagrangian terms, for NVIDIA Hopper (sm_90a).
+// Batched small-dimension Riccati backward sweep with augmented-Lagrangian
+// terms, Gauss-Newton or full second order, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel ddp_tpu/kernels/riccati_small.py
 // (_bwd_kernel, launched by _sweep_call's pl.pallas_call) on the
 // backward="kernel" path of ddp_tpu_torch.solver.batched.solve_batched.
+//
+// Second order (template flag SO): six rank-3 slabs fxx [T, n*n*n, B],
+// fux [T, n*m*n, B], fuu [T, n*m*m, B], eqxx, equx, equu (e in place of the
+// leading n), row (o*r + i)*c + j, add  sum_o Vx[o]*f..[o][i][j] +
+// sum_a tmp[a]*eq..[a][i][j]  to Qxx, Qux, Quu.  They are streamed: every
+// entry is read once, coalesced over lanes, and folded into the accumulator
+// it belongs to, so the second-order sweep keeps the first-order sweep's
+// per-thread state.  With true Hessians Quu is indefinite far from an
+// optimum; the NaN-gains / ok = false behaviour below is what the caller's
+// regularization ladder relies on.
 //
 // Layout: every per-step input is [T, rows, B] (matrices flattened row-major
 // into the middle axis), the batch last.  One thread owns one batch lane and
@@ -40,7 +50,7 @@ __device__ __forceinline__ bool positive_finite(S x) {
   return x > S(0) && x < S(INFINITY);
 }
 
-template <typename S, int N, int M, int E>
+template <typename S, int N, int M, int E, bool SO>
 __global__ void __launch_bounds__(128) riccati_bwd_kernel(
     const S* __restrict__ lx, const S* __restrict__ lu,
     const S* __restrict__ lxx, const S* __restrict__ lux,
@@ -50,6 +60,9 @@ __global__ void __launch_bounds__(128) riccati_bwd_kernel(
     const S* __restrict__ pe, const S* __restrict__ pex,
     const S* __restrict__ mu_in, const S* __restrict__ reg_in,
     const S* __restrict__ lfx, const S* __restrict__ lfxx,
+    const S* __restrict__ fxx, const S* __restrict__ fux,
+    const S* __restrict__ fuu, const S* __restrict__ eqxx,
+    const S* __restrict__ equx, const S* __restrict__ equu,
     S* __restrict__ k_out, S* __restrict__ K_out, bool* __restrict__ ok_out,
     int T, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -108,8 +121,8 @@ __global__ void __launch_bounds__(128) riccati_bwd_kernel(
         Vfu[o][j] = s;
       }
     }
-    // Qxx = lxx + fxᵀ(Vxx fx) + eqxᵀtmp2 + pexᵀeqx; written into Vxx,
-    // which is not read again this step
+    // Qxx = lxx + fxᵀ(Vxx fx) + eqxᵀtmp2 + pexᵀeqx [+ Vx·fxx + tmp·eqxx];
+    // written into Vxx, which is not read again this step
     for (int i = 0; i < N; ++i) {
       for (int j = 0; j < N; ++j) {
         S s = at(lxx, N * N, t, i * N + j);
@@ -117,10 +130,15 @@ __global__ void __launch_bounds__(128) riccati_bwd_kernel(
         for (int a = 0; a < E; ++a)
           s = s + at(eqx, E * N, t, a * N + i) * tmp2[a][j] +
               at(pex, E * N, t, a * N + i) * at(eqx, E * N, t, a * N + j);
+        if constexpr (SO) {
+          for (int o = 0; o < N; ++o) s = s + Vx[o] * at(fxx, N * N * N, t, (o * N + i) * N + j);
+          for (int a = 0; a < E; ++a) s = s + tmp[a] * at(eqxx, E * N * N, t, (a * N + i) * N + j);
+        }
         Vxx[i][j] = s;
       }
     }
-    // Quu = luu + fuᵀ(Vxx fu) + μ·equᵀequ, factored in place below
+    // Quu = luu + fuᵀ(Vxx fu) + μ·equᵀequ [+ Vx·fuu + tmp·equu], factored
+    // in place below
     S L[M][M];
     for (int i = 0; i < M; ++i) {
       for (int j = 0; j < M; ++j) {
@@ -128,16 +146,24 @@ __global__ void __launch_bounds__(128) riccati_bwd_kernel(
         for (int o = 0; o < N; ++o) s = s + at(fu, N * M, t, o * M + i) * Vfu[o][j];
         for (int a = 0; a < E; ++a)
           s = s + mu * at(equ, E * M, t, a * M + i) * at(equ, E * M, t, a * M + j);
+        if constexpr (SO) {
+          for (int o = 0; o < N; ++o) s = s + Vx[o] * at(fuu, N * M * M, t, (o * M + i) * M + j);
+          for (int a = 0; a < E; ++a) s = s + tmp[a] * at(equu, E * M * M, t, (a * M + i) * M + j);
+        }
         L[i][j] = s;
       }
     }
-    // Qux = lux + fuᵀ(Vxx fx) + equᵀtmp2
+    // Qux = lux + fuᵀ(Vxx fx) + equᵀtmp2 [+ Vx·fux + tmp·equx]
     S Qux[M][N];
     for (int i = 0; i < M; ++i) {
       for (int j = 0; j < N; ++j) {
         S s = at(lux, M * N, t, i * N + j);
         for (int o = 0; o < N; ++o) s = s + at(fu, N * M, t, o * M + i) * Vfx[o][j];
         for (int a = 0; a < E; ++a) s = s + at(equ, E * M, t, a * M + i) * tmp2[a][j];
+        if constexpr (SO) {
+          for (int o = 0; o < N; ++o) s = s + Vx[o] * at(fux, N * M * N, t, (o * M + i) * N + j);
+          for (int a = 0; a < E; ++a) s = s + tmp[a] * at(equx, E * M * N, t, (a * M + i) * N + j);
+        }
         Qux[i][j] = s;
       }
     }
@@ -190,39 +216,54 @@ __global__ void __launch_bounds__(128) riccati_bwd_kernel(
   ok_out[b] = ok;
 }
 
-template <typename S, int N, int M, int E>
+template <typename S, int N, int M, int E, bool SO>
 int launch(const void* const* in, void* k, void* K, void* ok, int T, int B,
            cudaStream_t stream) {
-  const S* p[16];
-  for (int i = 0; i < 16; ++i) p[i] = static_cast<const S*>(in[i]);
+  const S* p[22];
+  for (int i = 0; i < 22; ++i) p[i] = (i < 16 || SO) ? static_cast<const S*>(in[i]) : nullptr;
   const int threads = 128;
   const int blocks = (B + threads - 1) / threads;
-  riccati_bwd_kernel<S, N, M, E><<<blocks, threads, 0, stream>>>(
+  riccati_bwd_kernel<S, N, M, E, SO><<<blocks, threads, 0, stream>>>(
       p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10], p[11],
-      p[12], p[13], p[14], p[15], static_cast<S*>(k), static_cast<S*>(K),
-      static_cast<bool*>(ok), T, B);
+      p[12], p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[20], p[21],
+      static_cast<S*>(k), static_cast<S*>(K), static_cast<bool*>(ok), T, B);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int N, int M, int E, bool SO>
+int launch_dtype(int is_double, const void* const* in, void* k, void* K,
+                 void* ok, int T, int B, cudaStream_t s) {
+  return is_double ? launch<double, N, M, E, SO>(in, k, K, ok, T, B, s)
+                   : launch<float, N, M, E, SO>(in, k, K, ok, T, B, s);
 }
 
 }  // namespace
 
 // Plain C entry point, loaded through ctypes.  ``in`` points at 16 device
 // pointers in the order lx, lu, lxx, lux, luu, fx, fu, eq, eqx, equ, pe,
-// pex, mu, reg, lfx, lfxx.  Returns cudaGetLastError() after the launch;
-// -1 for dims or a dtype this build does not instantiate.
-extern "C" int ddp_riccati_small_bwd(int is_double, int n, int m, int e, int T,
-                                     int B, const void* const* in, void* k,
-                                     void* K, void* ok, void* stream) {
+// pex, mu, reg, lfx, lfxx, followed with ``second_order`` by fxx, fux, fuu,
+// eqxx, equx, equu.  Returns cudaGetLastError() after the launch; -1 for
+// dims, an order or a dtype this build does not instantiate.
+extern "C" int ddp_riccati_small_bwd(int is_double, int second_order, int n,
+                                     int m, int e, int T, int B,
+                                     const void* const* in, void* k, void* K,
+                                     void* ok, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0) return 0;  // an empty grid is not a valid launch
+  if (second_order) {
+    if (n == 2 && m == 1 && e == 1)
+      return launch_dtype<2, 1, 1, true>(is_double, in, k, K, ok, T, B, s);
+    if (n == 4 && m == 2 && e == 2)
+      return launch_dtype<4, 2, 2, true>(is_double, in, k, K, ok, T, B, s);
+    if (n == 14 && m == 7 && e == 3)
+      return launch_dtype<14, 7, 3, true>(is_double, in, k, K, ok, T, B, s);
+    return -1;
+  }
   if (n == 2 && m == 1 && e == 1)
-    return is_double ? launch<double, 2, 1, 1>(in, k, K, ok, T, B, s)
-                     : launch<float, 2, 1, 1>(in, k, K, ok, T, B, s);
+    return launch_dtype<2, 1, 1, false>(is_double, in, k, K, ok, T, B, s);
   if (n == 12 && m == 6 && e == 6)
-    return is_double ? launch<double, 12, 6, 6>(in, k, K, ok, T, B, s)
-                     : launch<float, 12, 6, 6>(in, k, K, ok, T, B, s);
+    return launch_dtype<12, 6, 6, false>(is_double, in, k, K, ok, T, B, s);
   if (n == 14 && m == 7 && e == 3)
-    return is_double ? launch<double, 14, 7, 3>(in, k, K, ok, T, B, s)
-                     : launch<float, 14, 7, 3>(in, k, K, ok, T, B, s);
+    return launch_dtype<14, 7, 3, false>(is_double, in, k, K, ok, T, B, s);
   return -1;
 }

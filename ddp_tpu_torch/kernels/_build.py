@@ -2,9 +2,10 @@
 a plain C interface → ctypes).
 
 Each source in ``ddp_tpu_torch/csrc/`` is compiled on first use into
-``ddp_tpu_torch/_build/``, under a name that carries the hash of the source
-and the flags, so an edited source is rebuilt and a stale library is never
-loaded.  Importing this module builds nothing.
+``ddp_tpu_torch/_build/``, under a name that carries the hash of the source,
+of the headers beside it (``csrc/*.cuh``) and of the flags, so an edited
+source is rebuilt and a stale library is never loaded.  Importing this module
+builds nothing.
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ def load(source: str) -> ctypes.CDLL:
         return _LOADED[source][0]
     src = CSRC / source
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     lib_path = BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
     seconds = 0.0
     if not lib_path.exists():

@@ -9,8 +9,10 @@ of the tangent-space local maps
     eq̃(dx, du) = eq(t, x ⊕ dx, u + du)
 
 under ``vmap`` over the batch, with the dynamics Jacobians assembled from the
-Euler-step structure (``EulerDynamics.jacobians``).  Only the Gauss-Newton
-mode is ported; full second-order DDP is ROADMAP slice C.
+Euler-step structure (``EulerDynamics.jacobians``).  With
+``second_order=True`` (full DDP) the dynamics Hessian is ``jacfwd`` of that
+assembled Jacobian and the constraint Hessian ``jacfwd∘jacfwd`` at the active
+steps; with ``second_order=False`` (Gauss-Newton) both are zero.
 """
 
 from __future__ import annotations
@@ -23,6 +25,13 @@ from torch import nn
 from torch.func import jacfwd, vmap
 
 from ddp_tpu_torch.models.base import state_integrate
+from ddp_tpu_torch.ocp.dynamics import _vector_space_config
+
+
+# samples per vmap call of the dynamics-Hessian pass: nz forward directions
+# over the assembled Jacobian (itself 2·nv directions of RNEA) are live at
+# once for every sample of a chunk
+_HESSIAN_CHUNK = 1024
 
 
 class Derivs(NamedTuple):
@@ -108,25 +117,36 @@ class Problem(nn.Module):
             xs.append(x)
         return torch.stack(xs, dim=-2)
 
-    def derivatives(self, xs: torch.Tensor, us: torch.Tensor, fx_fu=None) -> Derivs:
+    def derivatives(
+        self, xs: torch.Tensor, us: torch.Tensor, fx_fu=None, f_hess=None
+    ) -> Derivs:
         """All first/second-order derivatives along (xs [B, T+1, nx],
-        us [B, T, nu]), Gauss-Newton mode.
+        us [B, T, nu]).
 
         Cost derivatives and assembled Euler Jacobians at every step; the
-        constraint's value and Jacobian only at the statically-active steps
-        (``active_ts``), scattered into the dense [B, T, …] arrays.
+        constraint's value, Jacobian and (``second_order``) Hessian only at
+        the statically-active steps (``active_ts``), scattered into the dense
+        [B, T, …] arrays.  With ``second_order`` the dynamics Hessian is the
+        forward derivative of the assembled Jacobian, exact on vector-space
+        configurations (charts are translations, so ∂(J at z)/∂z is the
+        local map's Hessian); without it the f and eq Hessians are zero.
 
         ``fx_fu``: optional precomputed tangent-space dynamics Jacobians
         (fx [B, T, ndx, ndx], fu [B, T, ndx, nu]) — e.g. from the batched
-        fd-derivatives kernel (kernels/fd_derivs.py) — which replace the
-        ``dynamics.jacobians`` call; only cost and constraint derivatives
-        remain."""
-        if self.second_order:
-            raise NotImplementedError(
-                "second_order=True (full DDP Hessians) is still to be ported "
-                "(ROADMAP slice C); build the Problem with second_order=False"
-            )
+        fd-derivatives kernels (kernels/fd_derivs.py, kernels/fd_derivs2.py)
+        — which replace the ``dynamics.jacobians`` call; ``f_hess``: with
+        them, the dynamics Hessian [B, T, ndx, nz, nz] over z = (dx, du),
+        which a ``second_order`` problem needs.  Only cost and constraint
+        derivatives remain."""
         analytic_ok = getattr(self.dynamics, "analytic_jacobians_ok", False)
+        if fx_fu is not None and self.second_order and f_hess is None:
+            raise ValueError(
+                "precomputed fx_fu without f_hess is first-order (GN) only; "
+                "full-DDP callers must supply the dynamics Hessian tensor "
+                "(e.g. from kernels/fd_derivs2.py)"
+            )
+        if f_hess is not None and fx_fu is None:
+            raise ValueError("f_hess requires matching fx_fu")
         if fx_fu is not None and not analytic_ok:
             raise ValueError(
                 "fx_fu requires dynamics.analytic_jacobians_ok "
@@ -137,6 +157,12 @@ class Problem(nn.Module):
             raise NotImplementedError(
                 "the generic JVP derivative path (models without assembled "
                 "fd_derivatives) is still to be ported (ROADMAP slice B)"
+            )
+        if self.second_order and fx_fu is None and not _vector_space_config(self.model):
+            raise NotImplementedError(
+                "second_order=True on manifold configurations needs the "
+                "generic jacfwd∘jacfwd path through the manifold difference, "
+                "still to be ported (ROADMAP slice B)"
             )
         model = self.model
         ndx, nu, ne, T = self.ndx, self.nu, self.ne, self.horizon
@@ -156,16 +182,38 @@ class Problem(nn.Module):
 
         lz = vmap(jacfwd(c), in_dims=(None, 0, 0, 0))(z0, ts, x, u)
         lzz = vmap(jacfwd(jacfwd(c)), in_dims=(None, 0, 0, 0))(z0, ts, x, u)
+        fzz = None  # stays None in Gauss-Newton mode: zero Hessian
         if fx_fu is not None:
             fx, fu = fx_fu
+            fzz = f_hess
         else:
             _, fx, fu = self.dynamics.jacobians(ts, x, u)
+            if self.second_order:
+                # forward-over-assembled-analytic (≙ the analytic2 branch)
+                def jac_flat(z, t, x_, u_):
+                    _, fx_, fu_ = self.dynamics.jacobians(
+                        t, state_integrate(model, x_, z[:ndx]), u_ + z[ndx:]
+                    )
+                    return torch.cat([fx_, fu_], dim=-1)
+
+                hess = vmap(jacfwd(jac_flat), in_dims=(None, 0, 0, 0))
+                fzz = torch.cat(
+                    [
+                        hess(z0, ts[i : i + _HESSIAN_CHUNK], x[i : i + _HESSIAN_CHUNK],
+                             u[i : i + _HESSIAN_CHUNK])
+                        for i in range(0, B * T, _HESSIAN_CHUNK)
+                    ]
+                )  # fmt: skip
+        if fzz is None:
+            fzz = torch.zeros(B, T, ndx, nz, nz, **kw)
+        fzz = fzz.reshape(B, T, ndx, nz, nz)
         lz = lz.reshape(B, T, nz)
         lzz = lzz.reshape(B, T, nz, nz)
 
         # ---- constraint: statically-active timesteps only ----
         eq0 = torch.zeros(B, T, ne, **kw)
         eqz = torch.zeros(B, T, ne, nz, **kw)
+        eqzz = torch.zeros(B, T, ne, nz, nz, **kw)
         for t in self.active_ts():
 
             def h(z, x_, u_, t=t):
@@ -179,6 +227,10 @@ class Problem(nn.Module):
             )
             eq0[:, t] = val
             eqz[:, t] = jac
+            if self.second_order:
+                eqzz[:, t] = vmap(
+                    jacfwd(jacfwd(lambda *a: h(*a)[0])), in_dims=(None, 0, 0)
+                )(z0, xs[:, t], us[:, t])
 
         def lfg(dx, xT):
             return self.cost.terminal(state_integrate(model, xT, dx))
@@ -190,6 +242,7 @@ class Problem(nn.Module):
         sx = slice(None, ndx)
         su = slice(ndx, None)
         m1 = mask[:, :, None]
+        m2 = mask[:, :, None, None]
         return Derivs(
             lx=lz[..., sx],
             lu=lz[..., su],
@@ -198,15 +251,15 @@ class Problem(nn.Module):
             luu=lzz[..., su, su],
             fx=fx.reshape(B, T, ndx, ndx),
             fu=fu.reshape(B, T, ndx, nu),
-            fxx=torch.zeros(B, T, ndx, ndx, ndx, **kw),
-            fux=torch.zeros(B, T, ndx, nu, ndx, **kw),
-            fuu=torch.zeros(B, T, ndx, nu, nu, **kw),
+            fxx=fzz[..., sx, sx],
+            fux=fzz[..., su, sx],
+            fuu=fzz[..., su, su],
             eq=eq0 * mask,
             eqx=eqz[..., sx] * m1,
             equ=eqz[..., su] * m1,
-            eqxx=torch.zeros(B, T, ne, ndx, ndx, **kw),
-            equx=torch.zeros(B, T, ne, nu, ndx, **kw),
-            equu=torch.zeros(B, T, ne, nu, nu, **kw),
+            eqxx=eqzz[..., sx, sx] * m2,
+            equx=eqzz[..., su, sx] * m2,
+            equu=eqzz[..., su, su] * m2,
             lfx=lfx,
             lfxx=lfxx,
         )

@@ -14,19 +14,22 @@ The batch is the leading dim of every tensor; the backward pass is either a
 batched PyTorch sweep (``backward="sweep"``) or the Riccati kernel over the
 whole batch (``backward="kernel"``, ``kernels/riccati_small.py``); the
 dynamics Jacobians come from ``Problem.derivatives`` (``deriv="jvp"``) or
-from the fd-derivatives kernel over all B·T samples (``deriv="kernel"``,
-``kernels/fd_derivs.py``); the line search is the parallel sweep
+from the fd-derivatives kernels over all B·T samples (``deriv="kernel"``:
+``kernels/fd_derivs.py``, and ``kernels/fd_derivs2.py`` with the dynamics
+Hessian for a ``second_order`` problem); the line search is the parallel sweep
 (``forward="sweep"``) or the early-exit ladder (``forward="seq"``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import NamedTuple
 
 import torch
 
 from ddp_tpu_torch.kernels.fd_derivs import fd_derivs
+from ddp_tpu_torch.kernels.fd_derivs2 import fd_derivs2
 from ddp_tpu_torch.kernels.riccati_small import backward_sweep, pack_batch_last
 from ddp_tpu_torch.ocp.dynamics import EulerDynamics, _vector_space_config
 from ddp_tpu_torch.solver import al as al_mod
@@ -121,13 +124,16 @@ def _backward_multi_reg(derivs, mult_val, mult_jac, mu, reg, n_levels):
     return ks, Ks, oks.any(dim=0), levels[idx, lane]
 
 
-def _backward_kernel_levels(derivs, mult_val, mult_jac, mu, reg, n_levels):
+def _backward_kernel_levels(
+    derivs, mult_val, mult_jac, mu, reg, n_levels, second_order=False
+):
     """The Riccati kernel over the whole batch, one launch per reg level,
-    keeping per lane the first level that factorized.  Returns batch-major
+    keeping per lane the first level that factorized; ``second_order`` packs
+    the rank-3 slabs for the full-DDP sweep.  Returns batch-major
     (k [B,T,m], K [B,T,m,n], ok [B], reg_used [B])."""
     B, T = derivs.lx.shape[0], derivs.lx.shape[1]
     n, m, e = derivs.lx.shape[-1], derivs.lu.shape[-1], derivs.eq.shape[-1]
-    packed = pack_batch_last(derivs, mult_val, mult_jac)
+    packed = pack_batch_last(derivs, mult_val, mult_jac, second_order=second_order)
     k = K = None
     ok_acc = torch.zeros(B, dtype=torch.bool, device=mu.device)
     reg_used = reg
@@ -219,14 +225,12 @@ def _kernel_derivatives(problem):
 
         fx = [[I, dt·I], [dt·∂a/∂q, I + dt·∂a/∂v]],  fu = [[0], [dt·M⁻¹]]
 
-    and handed to ``Problem.derivatives`` as ``fx_fu``."""
+    and handed to ``Problem.derivatives`` as ``fx_fu``.  For a
+    ``second_order`` problem the second-order kernel also gives the
+    acceleration Hessian H over ζ = (q, v, τ) ≡ z = (dq, dv, du), and the
+    Euler local map f(z) = [dq + dt·(v + dv); dv + dt·a(ζ + z)] has zero
+    Hessian in its q-rows and dt·H in its v-rows (``f_hess``)."""
     model, dyn = problem.model, problem.dynamics
-    if problem.second_order:
-        raise NotImplementedError(
-            "deriv='kernel' with second_order=True needs the second-order "
-            "fd-derivatives kernel, which is still to be ported (ROADMAP slice C; "
-            "Queue 2, kernel 3)"
-        )
     if not (
         isinstance(dyn, EulerDynamics)
         and dyn.analytic_jacobians_ok
@@ -239,20 +243,36 @@ def _kernel_derivatives(problem):
             "deriv='kernel' needs Euler dynamics on a revolute/prismatic RobotModel"
         )
     nq, nv, nu, ndx = model.nq, model.nv, problem.nu, problem.ndx
+    if problem.second_order and nu != nv:
+        raise ValueError(
+            "deriv='kernel' full DDP needs direct torque actuation "
+            "(nu == nv); use deriv='jvp'"
+        )
 
     def derivatives(xs, us):
         B, T = us.shape[0], us.shape[1]
         kw = dict(dtype=xs.dtype, device=xs.device)
         q = xs[:, :-1, :nq].reshape(B * T, nq)
         v = xs[:, :-1, nq:].reshape(B * T, nv)
-        _, A, Bv, Mi = fd_derivs(model, q, v, us.reshape(B * T, nu))
+        tau = us.reshape(B * T, nu)
+        if problem.second_order:
+            _, A, Bv, Mi, H = fd_derivs2(model, q, v, tau)
+        else:
+            _, A, Bv, Mi = fd_derivs(model, q, v, tau)
         dt = dyn.dt
         I = torch.eye(nv, **kw).expand(B * T, nv, nv)
         top = torch.cat([I, dt * I], dim=2)
         bot = torch.cat([dt * A, I + dt * Bv], dim=2)
         fx = torch.cat([top, bot], dim=1).reshape(B, T, ndx, ndx)
         fu = torch.cat([torch.zeros(B * T, nv, nu, **kw), dt * Mi], dim=1)
-        return problem.derivatives(xs, us, fx_fu=(fx, fu.reshape(B, T, ndx, nu)))
+        fx_fu = (fx, fu.reshape(B, T, ndx, nu))
+        if not problem.second_order:
+            return problem.derivatives(xs, us, fx_fu=fx_fu)
+        nz = ndx + nu
+        fzz = torch.cat([torch.zeros(B * T, nv, nz, nz, **kw), dt * H], dim=1)
+        return problem.derivatives(
+            xs, us, fx_fu=fx_fu, f_hess=fzz.reshape(B, T, ndx, nz, nz)
+        )
 
     return derivatives
 
@@ -316,28 +336,41 @@ def solve_batched(
     deriv: str = "jvp",
     # "jvp": Problem.derivatives (assembled Euler Jacobians from the model's
     #   fd_derivatives)
-    # "kernel": the fd-derivatives kernel (kernels/fd_derivs.py) over all B·T
-    #   samples; Euler dynamics on a revolute/prismatic RobotModel, Gauss-Newton
+    # "kernel": the fd-derivatives kernel over all B·T samples
+    #   (kernels/fd_derivs.py; kernels/fd_derivs2.py with the dynamics Hessian
+    #   when problem.second_order, which needs nu == nv); Euler dynamics on a
+    #   revolute/prismatic RobotModel
     n_reg_levels: int = 4,  # parallel regularization ladder depth (≥1)
     matmul_precision: str | None = None,
     # None → the process setting | "highest" → full-float32 matmuls |
     # "high"/"default" → TF32 matmuls allowed on the card for this call
+    mults_init: al_mod.AffineMults | None = None,  # [B, T, …] warm-start multipliers
+    mu_init: torch.Tensor | float | None = None,  # [B] (or scalar) warm-start μ
+    reg_init: torch.Tensor | float | None = None,  # [B] (or scalar) warm-start reg
+    w_init: torch.Tensor | float | None = None,  # [B] inner-gate tolerance state
+    n_init: torch.Tensor | float | None = None,  # [B] progress-gate tolerance state
 ) -> BatchSolveResult:
     """Fixed-budget batched AL-DDP: exactly ``params.max_iterations`` outer
     iterations for every lane (converged lanes no-op through the line search
     keeping their trajectory).  The problem's buffers and ``x0s`` must share
-    one device and dtype."""
+    one device and dtype.
+
+    The ``*_init`` arguments warm-start a solve from a previous result's
+    (mults, mu, reg, w, n) — e.g. a Gauss-Newton solve to feasibility followed
+    by a few full-DDP iterations on the ``second_order`` twin of the problem;
+    the multipliers are re-anchored at the new initial rollout."""
     _check_backends(backward, forward, deriv)
     with _matmul_precision(matmul_precision):
         return _solve_batched(
             problem, params, x0s, us_init, method, n_linesearch, backward,
             forward, deriv, n_reg_levels,
+            (mults_init, mu_init, reg_init, w_init, n_init),
         )  # fmt: skip
 
 
 def _solve_batched(
     problem, params, x0s, us_init, method, n_linesearch, backward, forward,
-    deriv, n_reg_levels,
+    deriv, n_reg_levels, warm,
 ):  # fmt: skip
     T, nu = problem.horizon, problem.nu
     model = problem.model
@@ -368,18 +401,37 @@ def _solve_batched(
     def constrain_jac(jac):
         return jac if affine else torch.zeros_like(jac)
 
-    run_backward = _backward_kernel_levels if backward == "kernel" else _backward_multi_reg
+    if backward == "kernel":
+        run_backward = functools.partial(
+            _backward_kernel_levels, second_order=problem.second_order
+        )
+    else:
+        run_backward = _backward_multi_reg
     linesearch = _linesearch_seq if forward == "seq" else _linesearch_sweep
     derivatives = _kernel_derivatives(problem) if deriv == "kernel" else problem.derivatives
 
     # --- pre-loop backward/forward ---
     xs = problem.rollout(x0s, us_init)
     us = us_init
-    mults = al_mod.init_multipliers(problem, xs)
-    mu = torch.full((B,), params.mu, **kw)
-    reg = torch.full((B,), params.reg, **kw)
-    w = torch.full((B,), params.w if params.w is not None else 1.0 / params.mu, **kw)
-    n = torch.full((B,), params.n if params.n is not None else 1.0 / params.mu**0.1, **kw)
+    mults_init, mu_init, reg_init, w_init, n_init = warm
+
+    def lane_state(init, default):
+        """A [B] schedule state: the warm-start value (scalar or [B]) or the
+        params' default."""
+        if init is None:
+            return torch.full((B,), default, **kw)
+        return torch.as_tensor(init, **kw).expand(B).contiguous()
+
+    if mults_init is None:
+        mults = al_mod.init_multipliers(problem, xs)
+    else:
+        # warm start: re-express the affine functions about the new rollout
+        mults = al_mod.update_origin(model, mults_init, xs)
+        mults = mults._replace(jac=constrain_jac(mults.jac))
+    mu = lane_state(mu_init, params.mu)
+    reg = lane_state(reg_init, params.reg)
+    w = lane_state(w_init, params.w if params.w is not None else 1.0 / params.mu)
+    n = lane_state(n_init, params.n if params.n is not None else 1.0 / params.mu**0.1)
 
     derivs = derivatives(xs, us)
     k, K, ok, reg_u = run_backward(derivs, mults.val, mults.jac, mu, reg, n_reg_levels)

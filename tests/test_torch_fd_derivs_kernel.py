@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity_helpers import both_robots, t
+from torch_parity_helpers import both_robots, branched_tree, t
 
 from ddp_tpu.kernels.fd_derivs import fd_derivs_pallas
 from ddp_tpu.models import robots as jrobots
@@ -24,26 +24,6 @@ from ddp_tpu_torch.kernels import fd_derivs as fd
 jax.config.update("jax_enable_x64", True)
 
 OUTPUTS = ("a", "da_dq", "da_dv", "Minv")
-
-
-def branched_tree(dtype=jnp.float64):
-    """A two-branch tree mixing revolute and prismatic joints: body 0 carries
-    the chains 1→3 and 2→4→5, so parent ≠ i − 1 and M has structural zeros."""
-
-    def J(i, **kw):
-        return dict(mass=1.0 + 0.3 * i, com=[0.02, -0.03, 0.1],
-                    inertia=np.diag([0.02, 0.03, 0.01]), **kw)  # fmt: skip
-
-    joints = [
-        J(0, type="revolute", parent=-1, axis=[0, 0, 1], placement_trans=[0, 0, 0.2]),
-        J(1, type="revolute", parent=0, axis=[0, 1, 0], placement_trans=[0.1, 0, 0.3]),
-        J(2, type="prismatic", parent=0, axis=[1, 0, 0], placement_trans=[-0.1, 0.2, 0]),
-        J(3, type="revolute", parent=1, axis=[1, 0, 0], placement_trans=[0, 0, 0.25]),
-        J(4, type="revolute", parent=2, axis=[0, 1, 1], placement_trans=[0, 0.1, 0.1],
-          placement_rot=np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])),
-        J(5, type="prismatic", parent=4, axis=[0, 0, 1], placement_trans=[0.05, 0, 0.1]),
-    ]  # fmt: skip
-    return jbuild_model(joints, name="branched", dtype=dtype)
 
 
 MAKERS = {

@@ -14,9 +14,11 @@ import torch
 from ddp_tpu.kernels.riccati_small import backward_sweep_pallas
 from ddp_tpu.kernels.riccati_small import pack_batch_last as jax_pack
 from ddp_tpu.solver import al as jal
+from ddp_tpu.solver import batched as jbatched
 from ddp_tpu.solver.batched import _backward_sweep as jax_backward_sweep
 from ddp_tpu_torch.kernels import riccati_small as rs
 from ddp_tpu_torch.ocp.problem import Derivs as TDerivs
+from ddp_tpu_torch.solver import batched as tbatched
 
 from torch_parity_helpers import (
     TORCH_DTYPE,
@@ -28,12 +30,14 @@ from torch_parity_helpers import (
 )
 
 
-def pendulum_batch(B, H, np_dtype, bad_lane=None):
+def pendulum_batch(B, H, np_dtype, bad_lane=None, second_order=False):
     """Pendulum derivatives along numpy-seeded rollouts with non-trivial
     multipliers (≙ tests/test_pallas_riccati.py::make_batch), as the JAX
     Derivs plus (val, jac)."""
     rng = np.random.default_rng(7)
-    problem = jax_pendulum_problem(H, jnp.dtype(np_dtype), target=2.0)
+    problem = jax_pendulum_problem(
+        H, jnp.dtype(np_dtype), target=2.0, second_order=second_order
+    )
     x0s = jnp.asarray(0.4 * rng.normal(size=(B, 2)), np_dtype)
     us = jnp.asarray(0.3 * rng.normal(size=(B, H, 1)), np_dtype)
     xs = jax.jit(jax.vmap(problem.rollout))(x0s, us)
@@ -49,11 +53,11 @@ def pendulum_batch(B, H, np_dtype, bad_lane=None):
     return derivs, val, jac
 
 
-def pallas_sweep(packed, mu, reg, H):
+def pallas_sweep(packed, mu, reg, H, n=2, m=1, e=1):
     """The Pallas kernel in interpret mode, jitted (one trace per shape)."""
     fn = jax.jit(
         lambda p, m_, r_: backward_sweep_pallas(
-            p, m_, r_, T=H, n=2, m=1, e=1, block_b=mu.shape[0], interpret=True
+            p, m_, r_, T=H, n=n, m=m, e=e, block_b=mu.shape[0], interpret=True
         )
     )
     return fn(packed, jnp.asarray(mu), jnp.asarray(reg))
@@ -154,12 +158,135 @@ def test_wrapper_on_cpu_runs_the_plain_version_without_a_launch():
 
 
 def test_second_order_terms_are_not_ported():
+    """… at dims the CUDA source does not instantiate with them: the launch
+    gate raises before any build.  The packing carries the six rank-3 slabs
+    (it used to raise), and on CPU tensors the wrapper runs them through the
+    plain version."""
     B, H = 2, 4
     fields, pe, pex = random_spd_derivs(B, H, 2, 1, 1, seed=0)
-    tderivs = to_torch_derivs(fields)
-    with pytest.raises(NotImplementedError, match="slice C"):
-        rs.pack_batch_last(tderivs, t(pe), t(pex), second_order=True)
-    packed = rs.pack_batch_last(tderivs, t(pe), t(pex))
-    packed["fxx"] = torch.zeros(H, 8, B, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="slice C"):
-        rs.backward_sweep(packed, t(np.ones(B)), t(np.zeros(B)), T=H, n=2, m=1, e=1)
+    packed = rs.pack_batch_last(to_torch_derivs(fields), t(pe), t(pex), second_order=True)
+    assert set(packed) - set(rs.pack_batch_last(to_torch_derivs(fields), t(pe), t(pex))) == set(
+        rs._INPUTS_SECOND_ORDER
+    )
+    assert packed["fxx"].shape == (H, 8, B) and packed["equu"].shape == (H, 1, B)
+    k, K, ok = rs.backward_sweep(packed, t(np.ones(B)), t(np.zeros(B)), T=H, n=2, m=1, e=1)
+    assert bool(ok.all()) and k.shape == (H, 1, B) and K.shape == (H, 2, B)
+    f12, pe12, pex12 = second_order_fields(B, H, 12, 6, 6, seed=0)
+    packed12 = rs.pack_batch_last(to_torch_derivs(f12), t(pe12), t(pex12), second_order=True)
+    with pytest.raises(ValueError, match=r"\(12, 6, 6\) with second-order terms"):
+        rs._launch(packed12, t(np.ones(B)), t(np.zeros(B)), T=H, n=12, m=6, e=6)
+    assert (12, 6, 6) in rs.KERNEL_DIMS  # … while its Gauss-Newton form is there
+
+
+# ------------------------------------------------------------- second order
+
+
+def second_order_fields(B, T, n, m, e, seed, scale=2e-4):
+    """``random_spd_derivs`` with non-zero, symmetric dynamics and constraint
+    Hessians (small against the SPD cost Hessian, so Quu stays PD)."""
+    fields, pe, pex = random_spd_derivs(B, T, n, m, e, seed)
+    rng = np.random.default_rng(seed + 100)
+    nz = n + m
+    for name, rows in (("f", n), ("eq", e)):
+        G = scale * rng.normal(size=(B, T, rows, nz, nz))
+        G = 0.5 * (G + np.swapaxes(G, -1, -2))
+        fields[f"{name}xx"] = np.ascontiguousarray(G[..., :n, :n])
+        fields[f"{name}ux"] = np.ascontiguousarray(G[..., n:, :n])
+        fields[f"{name}uu"] = np.ascontiguousarray(G[..., n:, n:])
+    return fields, pe, pex
+
+
+@pytest.mark.parametrize(
+    "np_dtype,rtol,atol",
+    [(np.float64, 1e-10, 1e-10), (np.float32, 2e-4, 2e-5)],
+    ids=["f64", "f32"],
+)
+def test_second_order_reference_matches_pallas_and_sweeps(np_dtype, rtol, atol):
+    """Full-DDP mode on the pendulum
+    (≙ test_pallas_riccati.py::test_pallas_backward_second_order_matches_xla):
+    the plain version's rank-3 terms against the Pallas kernel in interpret
+    mode, against ddp_tpu's XLA sweep and against the port's own sweep."""
+    B, H = 8, 12
+    derivs, val, jac = pendulum_batch(B, H, np_dtype, second_order=True)
+    # tensor terms must be nonzero for this test to mean anything
+    assert float(jnp.max(jnp.abs(derivs.fxx))) > 0 and float(jnp.max(jnp.abs(derivs.eqxx))) > 0
+    mu = np.full((B,), 1e3, np_dtype)
+    reg = np.zeros((B,), np_dtype)
+    packed = jax_pack(derivs, val, jac, second_order=True)
+    k_p, K_p, ok_p = pallas_sweep(packed, mu, reg, H)
+    k_x, K_x, ok_x = jax.vmap(jax_backward_sweep)(derivs, val, jac, jnp.asarray(mu), jnp.asarray(reg))
+    tderivs = TDerivs(*[t(x) for x in derivs])
+    tpacked = rs.pack_batch_last(tderivs, t(val), t(jac), second_order=True)
+    for key in packed:
+        np.testing.assert_array_equal(tpacked[key].numpy(), np.asarray(packed[key]), err_msg=key)
+    k_t, K_t, ok_t = rs.backward_sweep_reference(tpacked, t(mu), t(reg), T=H, n=2, m=1, e=1)
+    assert k_t.dtype == TORCH_DTYPE[np_dtype] and bool(ok_t.all())
+    np.testing.assert_allclose(k_t.numpy(), np.asarray(k_p), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(K_t.numpy(), np.asarray(K_p), rtol=rtol, atol=atol)
+    np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_p))
+    k_bt, K_bt = k_t.permute(2, 0, 1), K_t.reshape(H, 1, 2, B).permute(3, 0, 1, 2)
+    np.testing.assert_allclose(k_bt.numpy(), np.asarray(k_x), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(K_bt.numpy(), np.asarray(K_x), rtol=rtol, atol=atol)
+    k_s, K_s, ok_s = tbatched._backward_sweep(tderivs, t(val), t(jac), t(mu), t(reg))
+    np.testing.assert_allclose(k_bt.numpy(), k_s.numpy(), rtol=rtol, atol=atol)
+    np.testing.assert_allclose(K_bt.numpy(), K_s.numpy(), rtol=rtol, atol=atol)
+    assert bool(ok_s.all())
+    # … and the terms matter: the Gauss-Newton sweep of the same blocks differs
+    k_gn, _, _ = rs.backward_sweep_reference(
+        rs.pack_batch_last(tderivs, t(val), t(jac)), t(mu), t(reg), T=H, n=2, m=1, e=1
+    )
+    assert float((k_gn - k_t).abs().max()) > 1e-6
+
+
+@pytest.mark.parametrize("dims", [(4, 2, 2), (14, 7, 3)], ids=["n4m2e2", "n14m7e3"])
+def test_second_order_reference_matches_xla_sweep_random_blocks(dims):
+    """The kernel's other second-order instantiations, with dense random
+    Hessian slabs (every index order of fxx/fux/fuu/eqxx/equx/equu matters):
+    the plain version against ddp_tpu's XLA sweep, 1e-9."""
+    n, m, e = dims
+    B, T = 3, 5
+    fields, pe, pex = second_order_fields(B, T, n, m, e, seed=4)
+    mu, reg = np.full((B,), 1e3), np.full((B,), 1e-6)
+    k_j, K_j, ok_j = jax.vmap(jax_backward_sweep)(
+        to_jax_derivs(fields), jnp.asarray(pe), jnp.asarray(pex),
+        jnp.asarray(mu), jnp.asarray(reg),
+    )  # fmt: skip
+    packed = rs.pack_batch_last(to_torch_derivs(fields), t(pe), t(pex), second_order=True)
+    k_t, K_t, ok_t = rs.backward_sweep(packed, t(mu), t(reg), T=T, n=n, m=m, e=e)
+    assert bool(np.all(ok_j)) and bool(ok_t.all())
+    np.testing.assert_allclose(
+        k_t.permute(2, 0, 1).numpy(), np.asarray(k_j), rtol=1e-9, atol=1e-9
+    )
+    np.testing.assert_allclose(
+        K_t.reshape(T, m, n, B).permute(3, 0, 1, 2).numpy(),
+        np.asarray(K_j), rtol=1e-9, atol=1e-9,
+    )  # fmt: skip
+
+
+def test_second_order_ladder_picks_the_sweep_backends_level():
+    """With true Hessians Quu is indefinite away from an optimum: a lane
+    whose fuu term makes it so fails at reg = 0 with NaN gains, only its own
+    ok flag flips, and both ladder backends pick the same level, gains and
+    reg for it as ddp_tpu's sweep ladder."""
+    Bl, T, n, m, e = 4, 6, 4, 2, 2
+    fields, pe, pex = second_order_fields(Bl, T, n, m, e, seed=5)
+    fields["fuu"][1] = -40.0 * np.eye(m)  # Vx·fuu swamps luu on lane 1
+    mu, reg = np.full((Bl,), 1e3), np.zeros(Bl)
+    packed = rs.pack_batch_last(to_torch_derivs(fields), t(pe), t(pex), second_order=True)
+    k0, _, ok0 = rs.backward_sweep(packed, t(mu), t(reg), T=T, n=n, m=m, e=e)
+    assert ok0.tolist() == [True, False, True, True]
+    assert bool(torch.isnan(k0[..., 1]).any()) and bool(torch.isfinite(k0[..., [0, 2, 3]]).all())
+    k_j, K_j, ok_j, reg_j = jax.vmap(
+        lambda d, v, j, m_, r: jbatched._backward_multi_reg(d, v, j, m_, r, n_levels=4)
+    )(to_jax_derivs(fields), pe, pex, mu, reg)
+    assert bool(np.all(ok_j)) and np.asarray(reg_j)[1] > 0 and np.asarray(reg_j)[0] == 0
+    args = (to_torch_derivs(fields), t(pe), t(pex), t(mu), t(reg), 4)
+    for backend, kw in (
+        (tbatched._backward_multi_reg, {}),
+        (tbatched._backward_kernel_levels, dict(second_order=True)),
+    ):
+        k, K, ok, reg_u = backend(*args, **kw)
+        np.testing.assert_array_equal(ok.numpy(), np.asarray(ok_j))
+        np.testing.assert_array_equal(reg_u.numpy(), np.asarray(reg_j))
+        np.testing.assert_allclose(k.numpy(), np.asarray(k_j), rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(K.numpy(), np.asarray(K_j), rtol=1e-9, atol=1e-9)

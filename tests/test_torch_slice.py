@@ -92,6 +92,9 @@ def test_problem_from_numpy_carries_the_problem(traj):
     np.testing.assert_array_equal(tp.eq_mask(), jp.eq_mask())
     assert tp.active_ts() == jp.active_ts() == (H - 2,)
     assert not tp.second_order
+    assert problem_from_numpy(
+        dict(spec_of(jp), second_order=True), device="cpu", dtype=torch.float64
+    ).second_order
 
 
 def test_rollout(traj):
@@ -354,11 +357,17 @@ def test_bad_inputs_raise(traj):
         tbatched.solve_batched(tp, SolverParams(**HEADLINE), t(x0s), backward="pallas")
     with pytest.raises(ValueError, match="float32"):
         tbatched.solve_batched(tp, SolverParams(**HEADLINE), t(x0s).float())
+    # a second-order problem's derivatives work (they used to raise); what
+    # raises is precomputed Jacobians without the dynamics Hessian
     second = problem_from_numpy(
         dict(spec_of(jp), second_order=True), device="cpu", dtype=torch.float64
     )
-    with pytest.raises(NotImplementedError, match="slice C"):
-        second.derivatives(t(xs), t(us))
+    d2 = second.derivatives(t(xs), t(us))
+    d1 = tp.derivatives(t(xs), t(us))
+    assert float(d2.fxx.abs().max()) > 0 and float(d1.fxx.abs().max()) == 0
+    assert torch.equal(d2.fx, d1.fx) and torch.equal(d2.lxx, d1.lxx)
+    with pytest.raises(ValueError, match="without f_hess"):
+        second.derivatives(t(xs), t(us), fx_fu=(d1.fx, d1.fu))
 
 
 def test_port_imports_no_jax_and_builds_nothing():
@@ -370,7 +379,8 @@ def test_port_imports_no_jax_and_builds_nothing():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'triton', 'ddp_tpu')]\n"
         "assert not bad, bad\n"
         "assert not _build._LOADED\n"
-        "for m in ('ops.lie', 'models.rigid_body', 'models.robots', 'kernels.fd_derivs'):\n"
+        "for m in ('ops.lie', 'models.rigid_body', 'models.robots', 'kernels.fd_derivs',\n"
+        "          'kernels.fd_derivs2'):\n"
         "    assert 'ddp_tpu_torch.' + m in sys.modules, m\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

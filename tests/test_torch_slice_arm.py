@@ -224,8 +224,23 @@ def test_kernel_deriv_gates(acrobot):
     second = problem_from_numpy(
         dict(spec_of(jp), second_order=True), device="cpu", dtype=torch.float64
     )
-    with pytest.raises(NotImplementedError, match="slice C"):
-        tbatched.solve_batched(second, SolverParams(**ROW), t(x0s), deriv="kernel")
+    # a second-order problem runs through deriv="kernel" (it used to raise) …
+    one = SolverParams(**dict(ROW, max_iterations=1))
+    kw = dict(us_init=t(us0), n_linesearch=2)
+    r_k = tbatched.solve_batched(second, one, t(x0s), deriv="kernel", **kw)
+    r_j = tbatched.solve_batched(second, one, t(x0s), deriv="jvp", **kw)
+    assert bool(torch.isfinite(r_k.us).all())
+    np.testing.assert_allclose(r_k.us.numpy(), r_j.us.numpy(), rtol=0, atol=1e-9)
+    # … unless the model is not torque-actuated joint by joint
+    import copy
+
+    class Underactuated(type(second)):
+        nu = property(lambda self: self.model.nv - 1)
+
+    under = copy.copy(second)
+    under.__class__ = Underactuated
+    with pytest.raises(ValueError, match="nu == nv"):
+        tbatched._kernel_derivatives(under)
     pend = torch_problem(jax_pendulum_problem(8, jnp.float64))
     with pytest.raises(ValueError, match="revolute/prismatic RobotModel"):
         tbatched.solve_batched(pend, SolverParams(**ROW), torch.zeros(2, 2, dtype=torch.float64),

@@ -11,6 +11,7 @@ from ddp_tpu.models import base as jbase
 from ddp_tpu.models import robots as jrobots
 from ddp_tpu.models.pendulum import pendulum
 from ddp_tpu.models.rigid_body import RobotModel as JRobotModel
+from ddp_tpu.models.rigid_body import build_model
 from ddp_tpu.ocp import constraints, costs, dynamics
 from ddp_tpu.ocp.problem import Derivs as JDerivs
 from ddp_tpu.ocp.problem import Problem
@@ -20,9 +21,10 @@ from ddp_tpu_torch.ocp.problem import Derivs as TDerivs
 TORCH_DTYPE = {np.float32: torch.float32, np.float64: torch.float64}
 
 
-def jax_pendulum_problem(horizon, dtype, target=3.14):
+def jax_pendulum_problem(horizon, dtype, target=3.14, second_order=False):
     """The headline problem (bench.py): Euler pendulum, ½‖u‖² cost, a
-    configuration target at the horizon advanced twice, Gauss-Newton."""
+    configuration target at the horizon advanced twice, Gauss-Newton unless
+    ``second_order``."""
     model = pendulum(1.0, 1.0, dtype=dtype)
     dyn = dynamics.euler(model, 0.01)
     con = constraints.advance_time(
@@ -37,7 +39,29 @@ def jax_pendulum_problem(horizon, dtype, target=3.14):
         cost=costs.quad_control(1.0, dtype=dtype),
         constraint=con,
         horizon=horizon,
-        second_order=False,
+        second_order=second_order,
+    )
+
+
+def jax_config_problem(model, target, horizon, second_order=False):
+    """A robot reaching a target configuration at the horizon, advanced
+    twice: Euler dt = 0.01, ½‖u‖² (the problem of
+    tests/test_fd_derivs2_kernel.py's full-DDP solve)."""
+    dtype = model.dtype
+    dyn = dynamics.euler(model, 0.01)
+    con = constraints.advance_time(
+        constraints.ConfigTarget(
+            model=model, target=jnp.asarray(target, dtype), active_ts=(horizon,)
+        ),
+        dyn,
+        times=2,
+    )
+    return Problem(
+        dynamics=dyn,
+        cost=costs.quad_control(1.0, dtype=dtype),
+        constraint=con,
+        horizon=horizon,
+        second_order=second_order,
     )
 
 
@@ -54,6 +78,26 @@ def robot_leaves(model) -> dict:
     for k in ("joint_types", "parents", "frame_bodies", "frame_names", "name"):
         leaves[k] = getattr(model, k)
     return leaves
+
+
+def branched_tree(dtype=jnp.float64):
+    """A two-branch tree mixing revolute and prismatic joints: body 0 carries
+    the chains 1→3 and 2→4→5, so parent ≠ i − 1 and M has structural zeros."""
+
+    def J(i, **kw):
+        return dict(mass=1.0 + 0.3 * i, com=[0.02, -0.03, 0.1],
+                    inertia=np.diag([0.02, 0.03, 0.01]), **kw)  # fmt: skip
+
+    joints = [
+        J(0, type="revolute", parent=-1, axis=[0, 0, 1], placement_trans=[0, 0, 0.2]),
+        J(1, type="revolute", parent=0, axis=[0, 1, 0], placement_trans=[0.1, 0, 0.3]),
+        J(2, type="prismatic", parent=0, axis=[1, 0, 0], placement_trans=[-0.1, 0.2, 0]),
+        J(3, type="revolute", parent=1, axis=[1, 0, 0], placement_trans=[0, 0, 0.25]),
+        J(4, type="revolute", parent=2, axis=[0, 1, 1], placement_trans=[0, 0.1, 0.1],
+          placement_rot=np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])),
+        J(5, type="prismatic", parent=4, axis=[0, 0, 1], placement_trans=[0.05, 0, 0.1]),
+    ]  # fmt: skip
+    return build_model(joints, name="branched", dtype=dtype)
 
 
 def both_robots(jmodel):
@@ -88,11 +132,11 @@ def spec_of(problem) -> dict:
     return spec
 
 
-def jax_arm_problem(model, frame_name, q_ready, horizon):
+def jax_arm_problem(model, frame_name, q_ready, horizon, second_order=False):
     """The fleet row's problem (bench.py's 7-DoF row) for any revolute/
     prismatic arm: Euler dt = 0.01, ½‖u‖², a FrameTarget at the pose reached
     from ``q_ready`` by 0.04·(1 … nv), active at the horizon and advanced
-    twice, Gauss-Newton."""
+    twice, Gauss-Newton unless ``second_order``."""
     dtype = model.dtype
     dyn = dynamics.euler(model, 0.01)
     fid = jrobots.ee_frame_id(model, frame_name)
@@ -107,7 +151,7 @@ def jax_arm_problem(model, frame_name, q_ready, horizon):
     )  # fmt: skip
     return Problem(
         dynamics=dyn, cost=costs.quad_control(1.0, dtype=dtype),
-        constraint=con, horizon=horizon, second_order=False,
+        constraint=con, horizon=horizon, second_order=second_order,
     )  # fmt: skip
 
 
@@ -127,6 +171,25 @@ def arm_inputs(model, q_ready, B, horizon, np_dtype=np.float64):
 
 
 PANDA_READY = (0.0, -0.785, 0.0, -2.356, 0.0, 1.571, 0.785)
+
+
+def warm_state_of(result) -> dict:
+    """The warm-start state of either package's ``BatchSolveResult`` as
+    numpy: ``warm_start_from_numpy``'s input in the port, and (through
+    ``jax_warm_start``) ``ddp_tpu``'s ``_init`` arguments."""
+    out = {k: np.asarray(getattr(result, k)) for k in ("us", "mu", "reg", "w", "n")}
+    out["mults"] = {k: np.asarray(getattr(result.mults, k)) for k in ("val", "jac", "origin")}
+    return out
+
+
+def jax_warm_start(state: dict) -> dict:
+    """``ddp_tpu.solver.batched.solve_batched``'s warm-start keyword
+    arguments from ``warm_state_of``'s numpy state."""
+    from ddp_tpu.solver.al import AffineMults
+
+    kw = {f"{k}_init": jnp.asarray(state[k]) for k in ("us", "mu", "reg", "w", "n")}
+    kw["mults_init"] = AffineMults(**{k: jnp.asarray(v) for k, v in state["mults"].items()})
+    return kw
 
 
 def both_problems(horizon, np_dtype, **kw):
