@@ -5,9 +5,10 @@
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA versions;
    TF32 off for matmuls and cuDNN.
-2. build: compiles csrc/riccati_small.cu, csrc/fd_derivs.cu and
-   csrc/fd_derivs2.cu with nvcc (sm_90a), each loaded from a thread of its
-   own so all three compile at once.
+2. build: compiles csrc/riccati_small.cu, csrc/fd_derivs.cu,
+   csrc/fd_derivs2.cu, csrc/linesearch_flat.cu and csrc/flat_solve.cu with
+   nvcc (sm_90a), each loaded from a thread of its own so all five compile at
+   once.
 3. kernels vs their plain versions on the card, numpy-seeded inputs.
    Riccati: (n, m, e) = (2, 1, 1) at B=4096, T=32 in f32 and f64, (12, 6, 6)
    at B=512, T=16 in f64, (14, 7, 3) at B=256, T=16 in f64 and f32, a ragged
@@ -20,12 +21,30 @@
    multiple of the f32 plain version's distance from the f64 kernel; the
    second-order kernel's H must be exactly symmetric with exactly zero ττ
    and vτ blocks.
+   Fused line search (kernel and plain version on a numpy-seeded state whose
+   lanes accept different steps, B=4096, T=32): f64 constrained with 4 and 7
+   candidates (xs, us within 1e-10 of the array's largest entry, every step
+   equal), f32 constrained (2e-5; at least 99% of lanes on the same step),
+   unconstrained (e = 0), a ragged B=1000, and anti-descent gains (step 0
+   everywhere, the trajectory back bit for bit).  Whole solve on the headline
+   problem, the plain version once per case: f64 at B=4096 (every field
+   within 1e-9 of its array's largest entry, identical μ and reg), f32 (≥ 99%
+   of lanes agree on us within 1e-3 of their largest |u|, feasible shares
+   within 0.005), a ragged B=1000, the unconstrained twin, and one lane
+   started at a NaN state, which keeps its controls while the others solve.
 4. pendulum main path: bench.py's headline (4096 constrained pendulum
    swing-ups, T=32, f32, 8 AL iterations, inner_iters_max=1) through
    solve_batched with backward="kernel"; checks the kernel's launch count,
    finiteness and feasibility, then the same solve with backward="sweep"
    (lanes agree on us within 1e-3 of their largest |u|), and both again in
-   f64 (1e-8, identical μ).
+   f64 (1e-8, identical μ).  Then the two flat-lane paths of the same
+   headline, each with every launch count set to 0 before and read after:
+   path A, solve_batched(forward="kernel", backward="kernel") — 9 launches of
+   the line-search kernel and 9 of the Riccati kernel, no other — and path B,
+   kernels.flat_solve.solve_flat — 1 launch of the whole-solve kernel, no
+   other; each is checked for finiteness, a feasible share ≥ 0.99, agreement
+   with the sweep solve by the same lane-scaled bar, and in f64 1e-8 with
+   identical μ.
 5. arm main path: bench.py's 7-DoF fleet row (256 panda7 arms reaching an
    end-effector target, H=16, f32, 24 AL iterations) through solve_batched
    with deriv="kernel", backward="kernel", forward="seq"; checks both
@@ -42,8 +61,10 @@
    then the same stage through deriv="jvp", backward="sweep", and both in f64
    at 2 iterations (us within 1e-7 of each lane's largest |u|, identical μ).
 7. times: each kernel vs its plain version at its main-path shape (CUDA
-   events, median of 20; the second-order fd plain version median of 5) and
-   solves/s of the main paths (median of 3 after a warm-up).
+   events, median of 20; the second-order fd and the line search's plain
+   versions median of 5; the whole solve's plain version is the one run of
+   phase 3), each beside its bound, and solves/s of the main paths, paths A
+   and B included (median of 3 after a warm-up).
 
 Every phase prints one line; any failure raises and the exit code is not 0.
 The last lines are a JSON object describing the kernels and the JSON result
@@ -65,6 +86,8 @@ from ddp_tpu_torch.convert import problem_from_numpy
 from ddp_tpu_torch.kernels import _build
 from ddp_tpu_torch.kernels import fd_derivs as fd
 from ddp_tpu_torch.kernels import fd_derivs2 as fd2
+from ddp_tpu_torch.kernels import flat_solve as fs
+from ddp_tpu_torch.kernels import linesearch_flat as lsf
 from ddp_tpu_torch.kernels import riccati_small as rs
 from ddp_tpu_torch.models import robots
 from ddp_tpu_torch.models.base import state_pack
@@ -72,7 +95,7 @@ from ddp_tpu_torch.ocp import constraints, costs, dynamics
 from ddp_tpu_torch.ocp.problem import Problem
 from ddp_tpu_torch.ocp.problem import Derivs
 from ddp_tpu_torch.solver import al
-from ddp_tpu_torch.solver.batched import solve_batched
+from ddp_tpu_torch.solver.batched import _backward_sweep, solve_batched
 from ddp_tpu_torch.solver.solve import SolverParams
 
 B, T = 4096, 32
@@ -298,6 +321,180 @@ def fd_kernel_vs_plain(name, model, N, dtype, model64=None, second=False):
     return err, inputs
 
 
+# per-lane factors on the line-search inputs' feed-forward gains: overlong
+# steps, so that lanes accept different rungs of the ladder and some none
+GAIN_SCALES = (1.5, 2.5, 5.0, 7.0, 11.0, 13.0, 100.0, 1000.0)
+RESULT_FIELDS = ("xs", "us", "fb_k", "fb_K", "opt_constr", "opt_lag", "mu", "reg", "w", "n")
+
+
+def linesearch_inputs(Bk, dtype, constrained=True, anti_descent=False):
+    """A line-search state on the card (≙ tests/test_pallas_linesearch.py's
+    make_state, numpy-seeded): the pendulum with a target of 2.0 (or
+    unconstrained), a rollout from random x0s and us, random multipliers
+    anchored at it, μ = 1e3, the gains of a backward sweep at reg = 0 with
+    lane i's k times GAIN_SCALES[i % 8]; ``anti_descent``: k = 1e3, K = 0.
+    Returns (problem, (xs, us, k, K, mult_val, mult_jac, mu))."""
+    rng = np.random.default_rng(7)
+    spec = dict(SPEC, target=np.array([2.0]) if constrained else None)
+    problem = problem_from_numpy(spec, device=DEV, dtype=dtype)
+    kw = dict(dtype=dtype, device=DEV)
+    x0s = torch.tensor(0.5 * rng.normal(size=(Bk, 2)), **kw)
+    us = torch.tensor(0.2 * rng.normal(size=(Bk, T, 1)), **kw)
+    xs = problem.rollout(x0s, us)
+    mults = al.init_multipliers(problem, xs)
+    val = torch.tensor(0.3 * rng.normal(size=mults.val.shape), **kw)
+    jac = torch.tensor(0.1 * rng.normal(size=mults.jac.shape), **kw)
+    mu = torch.full((Bk,), 1e3, **kw)
+    k, K, ok = _backward_sweep(problem.derivatives(xs, us), val, jac, mu, torch.zeros(Bk, **kw))
+    check(bool(ok.all()), "line-search inputs: the backward sweep failed")
+    k = k * torch.tensor(np.resize(GAIN_SCALES, Bk), **kw)[:, None, None]
+    if anti_descent:
+        k, K = torch.full_like(k, 1e3), torch.zeros_like(K)
+    return problem, (xs, us, k.contiguous(), K.contiguous(), val, jac, mu)
+
+
+def linesearch_vs_plain(name, problem, state, n_cand, bar, min_same_step):
+    """Run the line-search kernel and its plain version on the same card
+    tensors; raise unless at least ``min_same_step`` of the lanes chose the
+    same step and, on those, xs and us agree within ``bar`` of the array's
+    largest entry.  Returns (max abs error, share of lanes with equal step)."""
+    before = lsf.LAUNCHES
+    got = lsf.linesearch(problem, *state, n_cand)
+    torch.cuda.synchronize()
+    check(lsf.LAUNCHES == before + 1, f"{name}: the wrapper did not launch its kernel")
+    ref = lsf.linesearch_reference(problem, *state, n_cand)
+    same = got[2] == ref[2]
+    share = float(same.float().mean())
+    check(share >= min_same_step, f"{name}: only {share} of lanes chose the plain version's step")
+    err = 0.0
+    for g, r, label in zip(got[:2], ref[:2], ("xs", "us")):
+        check(g.shape == r.shape, f"{name}: {label} shape {tuple(g.shape)}")
+        check(bool(torch.isfinite(g).all()), f"{name}: non-finite {label}")
+        e = float((g - r)[same].abs().max())
+        check(e <= bar * max(1.0, float(r.abs().max())), f"{name}: {label} max err {e:.3e}")
+        err = max(err, e)
+    steps = sorted({float(v) for v in got[2]})
+    say("kernel", case=name, max_abs_err=f"{err:.3e}", bar_rel=bar, lanes_same_step=share,
+        min_same_step=min_same_step, steps=steps,
+        rejected_lanes=int((got[2] == 0).sum()))  # fmt: skip
+    return err, share
+
+
+def linesearch_checks():
+    """Kernel #4 against its plain version at B=4096, T=32.  Returns the f32
+    inputs and error for the timing phase."""
+    for n_cand in (4, 7):
+        linesearch_vs_plain(f"linesearch_f64_B{B}_T{T}_C{n_cand}",
+                            *linesearch_inputs(B, torch.float64), n_cand, 1e-10, 1.0)  # fmt: skip
+    p32, s32 = linesearch_inputs(B, torch.float32)
+    # float32: sinf and the fused multiply-adds of the kernel are not bit-equal
+    # to the plain version's, so a lane whose two costs tie may take another
+    # rung of the ladder; the lanes that chose the same step must agree
+    err32, _ = linesearch_vs_plain(f"linesearch_f32_B{B}_T{T}_C4", p32, s32, 4, 2e-5, 0.99)
+    linesearch_vs_plain(f"linesearch_e0_f64_B{B}_T{T}_C4",
+                        *linesearch_inputs(B, torch.float64, constrained=False), 4, 1e-10, 1.0)  # fmt: skip
+    linesearch_vs_plain("linesearch_ragged_f64_B1000_C4",
+                        *linesearch_inputs(1000, torch.float64), 4, 1e-10, 1.0)  # fmt: skip
+    for dtype in (torch.float64, torch.float32):
+        problem, state = linesearch_inputs(B, dtype, anti_descent=True)
+        xs_o, us_o, step = lsf.linesearch(problem, *state, 4)
+        torch.cuda.synchronize()
+        check(float(step.abs().max()) == 0.0, "anti-descent: a lane accepted a step")
+        check(torch.equal(xs_o, state[0]) and torch.equal(us_o, state[1]),
+              "anti-descent: the incumbent did not come back bit for bit")  # fmt: skip
+        say("kernel", case=f"linesearch_anti_descent_{str(dtype)[6:]}_B{B}", step_max=0.0,
+            incumbent_bit_exact=True)  # fmt: skip
+    return p32, s32, err32
+
+
+def lane_agreement(a, b):
+    """Share of lanes whose controls agree within 1e-3 of the lane's largest
+    |u| (at least 1), and the largest such scaled difference."""
+    diff = (a.us - b.us).abs().amax(dim=(1, 2))
+    scale = b.us.abs().amax(dim=(1, 2)).clamp(min=1.0)
+    return float((diff <= 1e-3 * scale).float().mean()), float((diff / scale).max())
+
+
+def flat_solve_vs_plain(name, dtype, Bk, constrained=True, bad_lane=None):
+    """Run the whole-solve kernel and its plain version on the headline
+    problem (or its unconstrained twin, from random controls) at the same
+    inputs.  float64: every field within 1e-9 of its array's largest entry
+    (opt_lag, a residual of terms the size of the controls, of the largest
+    |u|), identical μ and reg.  float32: the share of lanes agreeing on us by
+    ``lane_agreement`` ≥ 0.99 and feasible shares within 0.005.
+    ``bad_lane`` starts that lane at a NaN state: it must keep its controls
+    and escalate its reg while the others are held to the bars above.
+    Returns (the largest abs error on us, the plain version's seconds)."""
+    spec = SPEC if constrained else dict(SPEC, target=None)
+    problem = problem_from_numpy(spec, device=DEV, dtype=dtype)
+    x0s = headline_x0s(dtype)[:Bk].clone()
+    us0 = None
+    if not constrained:
+        rng = np.random.default_rng(11)
+        us0 = torch.tensor(0.5 * rng.normal(size=(Bk, T, 1)), dtype=dtype, device=DEV)
+    lanes = torch.ones(Bk, dtype=torch.bool, device=DEV)
+    if bad_lane is not None:
+        x0s[bad_lane, 0] = float("nan")
+        lanes[bad_lane] = False
+    kw = dict(us_init=us0, n_linesearch=HEADLINE_KW["n_linesearch"])
+    before = fs.LAUNCHES
+    got = fs.solve_flat(problem, HEADLINE, x0s, **kw)
+    torch.cuda.synchronize()
+    check(fs.LAUNCHES == before + 1, f"{name}: the wrapper did not launch its kernel")
+    t0 = time.perf_counter()
+    ref = fs.solve_flat_reference(problem, HEADLINE, x0s, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    fields = [(n, getattr(got, n), getattr(ref, n)) for n in RESULT_FIELDS]
+    fields += [("mults." + n, getattr(got.mults, n), getattr(ref.mults, n)) for n in ("val", "jac")]
+    for label, g, r in fields:
+        check(g.shape == r.shape, f"{name}: {label} shape {tuple(g.shape)}")
+        check(bool(torch.isfinite(g[lanes]).all()), f"{name}: non-finite {label}")
+    if bad_lane is not None:
+        check(bool((got.us[bad_lane] == 0).all()) and float(got.reg[bad_lane]) > 0,
+              f"{name}: the bad lane moved or kept its reg")  # fmt: skip
+        check(torch.equal(got.reg[bad_lane], ref.reg[bad_lane]), f"{name}: the bad lane's reg")
+    us_err = float((got.us - ref.us)[lanes].abs().max())
+    feas = [float((r.opt_constr[lanes] < 1e-2).float().mean()) for r in (got, ref)]
+    out = dict(us_max_err=f"{us_err:.3e}", feasible_kernel=feas[0], feasible_plain=feas[1],
+               plain_s=f"{plain_s:.2f}")  # fmt: skip
+    if dtype == torch.float64:
+        u_scale = max(1.0, float(ref.us[lanes].abs().max()))
+        worst = 0.0
+        for label, g, r in fields:
+            if g.numel() == 0:
+                continue
+            scale = u_scale if label == "opt_lag" else max(1.0, float(r[lanes].abs().max()))
+            rel = float((g - r)[lanes].abs().max()) / scale
+            check(rel <= 1e-9, f"{name}: {label} differs by {rel:.3e} of its scale")
+            worst = max(worst, rel)
+        check(torch.equal(got.mu[lanes], ref.mu[lanes]), f"{name}: per-lane mu differs")
+        check(torch.equal(got.reg[lanes], ref.reg[lanes]), f"{name}: per-lane reg differs")
+        out.update(worst_rel_err=f"{worst:.3e}", bar_rel=1e-9, mu_identical=True,
+                   reg_identical=True, mu_levels=sorted({float(v) for v in got.mu[lanes]}))  # fmt: skip
+    else:
+        sel_got = got._replace(us=got.us[lanes])
+        agree, worst = lane_agreement(sel_got, ref._replace(us=ref.us[lanes]))
+        check(agree >= 0.99, f"{name}: only {agree} of lanes agree on us to 1e-3 of their scale")
+        check(abs(feas[0] - feas[1]) <= 0.005, f"{name}: feasible shares {feas}")
+        out.update(lanes_us_agree=agree, us_max_scaled_err=f"{worst:.3e}",
+                   mu_equal=float((got.mu == ref.mu)[lanes].float().mean()))  # fmt: skip
+    say("kernel", case=name, **out)
+    return us_err, plain_s
+
+
+def flat_solve_checks():
+    """Kernel #5 against its plain version on the headline problem, the plain
+    version once per case.  Returns the f32 error on us and the f32 plain
+    version's seconds at B=4096."""
+    flat_solve_vs_plain(f"flat_solve_f64_B{B}_T{T}", torch.float64, B)
+    err32, plain_s = flat_solve_vs_plain(f"flat_solve_f32_B{B}_T{T}", torch.float32, B)
+    flat_solve_vs_plain("flat_solve_ragged_f64_B1000", torch.float64, 1000)
+    flat_solve_vs_plain("flat_solve_e0_f64_B1000", torch.float64, 1000, constrained=False)
+    flat_solve_vs_plain("flat_solve_bad_lane3_f64_B1000", torch.float64, 1000, bad_lane=3)
+    return err32, plain_s
+
+
 # ---------------------------------------------------------------- arm path
 
 
@@ -396,6 +593,12 @@ def ddp_stage(problem2, x0s, r1, deriv, backward, params=DDP):
 
 def reset_launch_counts():
     rs.LAUNCHES = rs.LAUNCHES_SECOND_ORDER = fd.LAUNCHES = fd2.LAUNCHES = 0
+    lsf.LAUNCHES = fs.LAUNCHES = 0
+
+
+def launch_counts():
+    return dict(riccati=rs.LAUNCHES, fd=fd.LAUNCHES, fd2=fd2.LAUNCHES,
+                linesearch=lsf.LAUNCHES, flat_solve=fs.LAUNCHES)  # fmt: skip
 
 
 def check_finite(res, what):
@@ -508,6 +711,57 @@ def riccati_bound_ms(Tk, n, m, e, Bk, second_order=False):
     if second_order:  # Vx·f.. and tmp·eq.. over the rank-3 slabs
         macs += (n + e) * (n * n + m * n + m * m)
     ops_ms = 1e3 * 2 * macs * Tk * Bk / F32_FLOPS_PER_S
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+# operations of one Euler step of the pendulum class with its stage cost:
+# a = -(g/l) sin q + u/m (4), q' and v' (4), the cost (c/2) u² and its sum (3)
+STEP_FLOPS = 11
+
+
+def linesearch_bound_ms(Tk, nx, m, e, Bk, n_cand):
+    """Least time for one float32 line search: every input (xs, us, k, K, the
+    multipliers, mu) and output (xs, us, step) element moved once at the
+    card's memory rate, or the operations of the FUNCTION — the n_cand
+    candidate rollouts and the incumbent's cost, no second rollout — at the
+    float32 peak."""
+    item = 4
+    per_lane = (Tk + 1) * nx + Tk * (2 * m + m * nx + e + e * nx) + 1
+    per_lane += (Tk + 1) * nx + Tk * m + 1
+    bytes_ms = 1e3 * per_lane * Bk * item / HBM_BYTES_PER_S
+    step = nx + 2 * m * (1 + nx) + STEP_FLOPS  # x - xs, the feedback law, the step
+    flops = Bk * (n_cand + 1) * (Tk * step + e * (2 * STEP_FLOPS + 4 * nx + 6))
+    ops_ms = 1e3 * flops / F32_FLOPS_PER_S
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def flat_solve_chain_steps(Tk, n_iters, n_ls):
+    """Length of one lane's dependent chain in the whole-solve program, in
+    step evaluations: the initial rollout, then per pass the backward sweep,
+    the incumbent's cost, n_ls candidate rollouts and the accepted one, per
+    iteration also the adjoint sweep, and the final adjoint sweep."""
+    return Tk * (1 + (n_iters + 1) * (n_ls + 3) + n_iters + 1)
+
+
+def flat_solve_bound_ms(Tk, nx, m, e, Bk, n_iters, n_ls):
+    """Least time for one float32 whole solve: x0, us0 and the schedule state
+    read once and the result (us, xs, fb_k, fb_K, six stats, multipliers)
+    written once at the card's memory rate, or the operations of the FUNCTION
+    at the float32 peak: per pass and step the derivatives (3 Jacobian columns
+    of the step, the cost's gradient and Hessian: ~40), the Riccati step
+    (``riccati_bound_ms``'s count), n_ls + 1 closed-loop cost evaluations, and
+    per iteration the two adjoints (~2·nx·(nx + m) multiply-adds each)."""
+    item = 4
+    per_lane = nx + Tk * m + 4
+    per_lane += Tk * m + (Tk + 1) * nx + Tk * m + Tk * m * nx + 6 + Tk * e * (1 + nx)
+    bytes_ms = 1e3 * per_lane * Bk * item / HBM_BYTES_PER_S
+    macs = nx * nx * (nx + m) + (nx + m) * nx * (nx + m) + 2 * e * (nx + m) * nx
+    macs += m**3 // 3 + (1 + nx) * m * m + m * nx * (1 + nx)
+    rollout_step = nx + 2 * m * (1 + nx) + STEP_FLOPS
+    per_pass = Tk * (40 + 2 * macs + (n_ls + 1) * rollout_step)
+    per_iter = Tk * (40 + 2 * 2 * 2 * nx * (nx + m))
+    flops = Bk * (Tk * STEP_FLOPS + (n_iters + 1) * per_pass + (n_iters + 1) * per_iter)
+    ops_ms = 1e3 * flops / F32_FLOPS_PER_S
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -651,15 +905,71 @@ def main_path():
     feas64 = float((r64_k.opt_constr < 1e-2).float().mean())
     say("main_f64", us_max_err=f"{err64:.3e}", mu_identical=True, feasible_kernel=feas64,
         mu_levels=sorted({float(v) for v in r64_k.mu}))  # fmt: skip
-    return launches, p32, x32
+    return launches, p32, x32, res_s, (p64, x64, r64_s)
+
+
+def flat_lane_paths(p32, x32, res_s, f64):
+    """Phase 4, paths A and B: the headline through the fused line-search
+    kernel with the Riccati kernel (``forward="kernel"``, ``backward="kernel"``)
+    and through the one-launch whole solve (``solve_flat``).  Each is held to
+    its launch counts, finiteness, the feasible share, the sweep solve
+    ``res_s`` (lanes agree on us within 1e-3 of their largest |u|) and, in
+    f64, to the sweep solve within 1e-8 with identical μ.  Returns the launch
+    counts of path A (line search, Riccati) and of path B."""
+    p64, x64, r64_s = f64
+    feas_s = float((res_s.opt_constr < 1e-2).float().mean())
+
+    def run_a(problem, x0s):
+        res = solve_batched(problem, HEADLINE, x0s, backward="kernel", forward="kernel",
+                            **HEADLINE_KW)  # fmt: skip
+        torch.cuda.synchronize()
+        return res
+
+    def run_b(problem, x0s):
+        res = fs.solve_flat(problem, HEADLINE, x0s, n_linesearch=HEADLINE_KW["n_linesearch"])
+        torch.cuda.synchronize()
+        return res
+
+    out = {}
+    for path, run, expected in (
+        ("A", run_a, dict(riccati=EXPECTED_LAUNCHES, fd=0, fd2=0,
+                          linesearch=EXPECTED_LAUNCHES, flat_solve=0)),
+        ("B", run_b, dict(riccati=0, fd=0, fd2=0, linesearch=0, flat_solve=1)),
+    ):  # fmt: skip
+        reset_launch_counts()
+        res = run(p32, x32)
+        counts = launch_counts()
+        check(counts == expected, f"path {path}: launches {counts} != {expected}")
+        for name in RESULT_FIELDS:
+            check(bool(torch.isfinite(getattr(res, name)).all()), f"path {path}: non-finite {name}")
+        check(bool(torch.isfinite(res.mults.val).all() and torch.isfinite(res.mults.jac).all()),
+              f"path {path}: non-finite multipliers")  # fmt: skip
+        check(res.us.shape == (B, T, 1) and res.xs.shape == (B, T + 1, 2), f"path {path}: shapes")
+        feas = float((res.opt_constr < 1e-2).float().mean())
+        check(feas >= 0.99, f"path {path}: f32 feasible fraction {feas}")
+        check(abs(feas - feas_s) <= 0.005, f"path {path}: feasible fractions {feas} vs {feas_s}")
+        agree, worst = lane_agreement(res, res_s)
+        check(agree >= 0.99, f"path {path}: only {agree} of lanes agree with the sweep solve")
+        r64 = run(p64, x64)
+        err64 = float((r64.us - r64_s.us).abs().max())
+        check(err64 <= 1e-8, f"path {path}: f64 us max err {err64}")
+        check(torch.equal(r64.mu, r64_s.mu), f"path {path}: f64 per-lane mu differs")
+        say(f"path_{path}", B=B, T=T, launches=counts, feasible=feas, feasible_sweep=feas_s,
+            lanes_us_agree=agree, us_max_scaled_err=f"{worst:.3e}",
+            mu_equal=float((res.mu == res_s.mu).float().mean()),
+            p99_eq=f"{float(torch.quantile(res.opt_constr, 0.99)):.3e}",
+            f64_us_max_err=f"{err64:.3e}", f64_mu_identical=True)  # fmt: skip
+        out[path] = counts
+    return out["A"]["linesearch"], out["A"]["riccati"], out["B"]["flat_solve"]
 
 
 def build_kernels():
     """Phase 2: one nvcc per source, each under its own thread's load()."""
     t0 = time.perf_counter()
-    sources = (rs.SOURCE, fd.SOURCE, fd2.SOURCE)
-    with ThreadPoolExecutor(3) as pool:
-        for built in [pool.submit(m._kernel_fn) for m in (rs, fd, fd2)]:
+    modules = (rs, fd, fd2, lsf, fs)
+    sources = tuple(m.SOURCE for m in modules)
+    with ThreadPoolExecutor(len(modules)) as pool:
+        for built in [pool.submit(m._kernel_fn) for m in modules]:
             built.result()
     say("build", sources=",".join(sources), wall_s=f"{time.perf_counter() - t0:.1f}",
         nvcc_s=[f"{_build.build_seconds(x):.1f}" for x in sources])  # fmt: skip
@@ -719,9 +1029,14 @@ def kernel_checks():
                        N, torch.float64, second=True)  # fmt: skip
     fd_kernel_vs_plain("fd2_panda7_ragged_f64_N1000", panda64, 1000, torch.float64, second=True)
 
+    # … the fused line search and the whole solve of the flat-lane class
+    ls_problem, ls_state, ls_err32 = linesearch_checks()
+    fs_err32, fs_plain_s = flat_solve_checks()
+
     return dict(f32_in=f32_in, err32=err32, arm_in=arm_in, arm2_in=arm2_in, rs2_err32=rs2_err32,
                 panda32=panda32, panda64=panda64, fd_in=fd_in, fd_err32=fd_err32,
-                fd2_err32=fd2_err32)  # fmt: skip
+                fd2_err32=fd2_err32, ls_problem=ls_problem, ls_state=ls_state,
+                ls_err32=ls_err32, fs_err32=fs_err32, fs_plain_s=fs_plain_s)  # fmt: skip
 
 
 def main():
@@ -751,7 +1066,9 @@ def main():
     N = ARM_B * ARM_H
 
     # 4. pendulum main path
-    launches, p32, x32 = main_path()
+    launches, p32, x32, res_s, f64 = main_path()
+    ls_launches, ls_rs_launches, fs_launches = flat_lane_paths(p32, x32, res_s, f64)
+    del res_s, f64
 
     # 5. arm main path
     arm_rs_launches, arm_fd_launches, a32, ax32, au32, gn_k, gn_j, gn64 = arm_main_path()
@@ -781,6 +1098,55 @@ def main():
     say("time_solve", card=f"'{card}'", backward="kernel", B=B,
         solve_s=[f"{w:.4f}" for w in walls], solves_per_s=f"{B / wall:.1f}",
         peak_mem_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")  # fmt: skip
+
+    # the fused line search: the kernel on packed arrays, the wrapper's whole
+    # call (its transposing copies included), the plain version
+    ls_problem, ls_state = k3["ls_problem"], k3["ls_state"]
+    n_ls = HEADLINE_KW["n_linesearch"]
+    ls_flat, ls_packed = lsf.pack_batch_last(ls_problem, *ls_state)
+    ls_ms = event_ms(lambda: lsf.linesearch_packed(ls_flat, ls_packed, n_ls))
+    ls_call_ms = event_ms(lambda: lsf.linesearch(ls_problem, *ls_state, n_ls))
+    ls_plain_ms = event_ms(lambda: lsf.linesearch_reference(ls_problem, *ls_state, n_ls), reps=5)
+    ls_bound, ls_bound_by = linesearch_bound_ms(T, 2, 1, 1, B, n_ls)
+    say("time_linesearch", card=f"'{card}'", shape=f"n2m1e1_T{T}_B{B}_C{n_ls}_f32",
+        kernel_ms=f"{ls_ms:.4f}", wrapper_call_ms=f"{ls_call_ms:.4f}",
+        plain_ms=f"{ls_plain_ms:.4f}", bound_ms=f"{ls_bound:.5f}", bound_by=ls_bound_by,
+        kernel_over_bound=f"{ls_ms / ls_bound:.1f}")  # fmt: skip
+    # the whole solve in one launch (the plain version was timed once, in
+    # phase 3)
+    fs_plan = fs.plan_launch(p32, HEADLINE, x32, n_linesearch=n_ls)
+    fs_ms = event_ms(lambda: fs.launch_plan(fs_plan))
+    fs_call_ms = event_ms(lambda: fs.solve_flat(p32, HEADLINE, x32, n_linesearch=n_ls))
+    p64 = problem_from_numpy(SPEC, device=DEV, dtype=torch.float64)
+    fs_plan64 = fs.plan_launch(p64, HEADLINE, headline_x0s(torch.float64), n_linesearch=n_ls)
+    fs_f64_ms = event_ms(lambda: fs.launch_plan(fs_plan64), reps=5)
+    fs_plain_ms = 1e3 * k3["fs_plain_s"]
+    fs_bound, fs_bound_by = flat_solve_bound_ms(T, 2, 1, 1, B, HEADLINE.max_iterations, n_ls)
+    say("time_flat_solve", card=f"'{card}'", shape=f"n2m1e1_T{T}_B{B}_C{n_ls}_f32",
+        kernel_ms=f"{fs_ms:.4f}", wrapper_call_ms=f"{fs_call_ms:.4f}",
+        kernel_f64_ms=f"{fs_f64_ms:.4f}", plain_ms=f"{fs_plain_ms:.1f}", bound_ms=f"{fs_bound:.5f}", bound_by=fs_bound_by,
+        kernel_over_bound=f"{fs_ms / fs_bound:.1f}",
+        chain_step_evaluations=flat_solve_chain_steps(T, HEADLINE.max_iterations, n_ls),
+        us_per_chain_step=f"{1e3 * fs_ms / flat_solve_chain_steps(T, HEADLINE.max_iterations, n_ls):.4f}")  # fmt: skip
+    for path, run in (
+        ("A_forward_kernel_backward_kernel",
+         lambda: solve_batched(p32, HEADLINE, x32, backward="kernel", forward="kernel",
+                               **HEADLINE_KW)),
+        ("B_solve_flat", lambda: fs.solve_flat(p32, HEADLINE, x32, n_linesearch=n_ls)),
+    ):  # fmt: skip
+        run()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        say("time_solve", card=f"'{card}'", path=path, B=B,
+            solve_s=[f"{w:.5f}" for w in walls],
+            solves_per_s=f"{B / statistics.median(walls):.1f}",
+            peak_mem_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")  # fmt: skip
 
     arm_packed, arm_mu, arm_reg = arm_in
     arm_kw = dict(T=ARM_H, n=14, m=7, e=3)
@@ -886,6 +1252,23 @@ def main():
             "launches": rs2_launches, "max_abs_err": rs2_err32, "ms": rs2_ms,
             "plain_ms": rs2_plain_ms, "bound_ms": rs2_bound, "bound_by": rs2_bound_by,
             "library_ms": None,
+        },
+        {
+            "name": "linesearch_flat", "route": "cuda",
+            "source": "ddp_tpu_torch/csrc/linesearch_flat.cu",
+            "replaces": "ddp_tpu/kernels/linesearch_flat.py:321",
+            "launches": ls_launches, "max_abs_err": k3["ls_err32"], "ms": ls_ms,
+            "plain_ms": ls_plain_ms, "bound_ms": ls_bound, "bound_by": ls_bound_by,
+            "library_ms": None, "wrapper_call_ms": ls_call_ms,
+            "riccati_launches_on_its_path": ls_rs_launches,
+        },
+        {
+            "name": "flat_solve", "route": "cuda",
+            "source": "ddp_tpu_torch/csrc/flat_solve.cu",
+            "replaces": "ddp_tpu/kernels/flat_solve.py:690",
+            "launches": fs_launches, "max_abs_err": k3["fs_err32"], "ms": fs_ms,
+            "plain_ms": fs_plain_ms, "bound_ms": fs_bound, "bound_by": fs_bound_by,
+            "library_ms": None, "wrapper_call_ms": fs_call_ms,
         },
     ]}))  # fmt: skip
     print(json.dumps({"ok": True, "device": {

@@ -50,7 +50,8 @@ def problem_from_numpy(spec: dict, *, device, dtype: torch.dtype) -> Problem:
     - ``c``: the control-cost weight (l = ½·c·‖u‖²);
     - the constraint, wrapped in ``advance_times`` AdvanceTime layers:
       ``target`` [3] with ``frame_id`` is a FrameTarget, ``target`` [nq]
-      alone a ConfigTarget, either at ``active_ts``;
+      alone a ConfigTarget, either at ``active_ts``; ``target`` None (or
+      absent) is NoConstraint, whatever ``advance_times`` says;
     - ``horizon``, ``second_order``: the Problem's.
     """
     if "robot" in spec:
@@ -58,16 +59,20 @@ def problem_from_numpy(spec: dict, *, device, dtype: torch.dtype) -> Problem:
     else:
         model = pendulum(float(spec["mass"]), float(spec["length"]), device=device, dtype=dtype)
     dyn = dynamics.euler(model, float(spec["dt"]))
-    target = torch.tensor(np.asarray(spec["target"]), dtype=dtype, device=device)
-    active_ts = tuple(int(t) for t in spec["active_ts"])
-    if "frame_id" in spec:
-        inner = constraints.FrameTarget(model, target, int(spec["frame_id"]), active_ts)
+    if spec.get("target") is None:
+        constraint = constraints.NoConstraint()
     else:
-        inner = constraints.ConfigTarget(model, target, active_ts)
+        target = torch.tensor(np.asarray(spec["target"]), dtype=dtype, device=device)
+        active_ts = tuple(int(t) for t in spec["active_ts"])
+        if "frame_id" in spec:
+            inner = constraints.FrameTarget(model, target, int(spec["frame_id"]), active_ts)
+        else:
+            inner = constraints.ConfigTarget(model, target, active_ts)
+        constraint = constraints.advance_time(inner, dyn, times=int(spec["advance_times"]))
     return Problem(
         dynamics=dyn,
         cost=costs.quad_control(float(spec["c"]), device=device, dtype=dtype),
-        constraint=constraints.advance_time(inner, dyn, times=int(spec["advance_times"])),
+        constraint=constraint,
         horizon=int(spec["horizon"]),
         second_order=bool(spec["second_order"]),
     )

@@ -1,0 +1,210 @@
+"""Fused line search of the batched solver for flat-lane problems
+(≙ ddp_tpu/kernels/linesearch_flat.py).
+
+``linesearch`` does the whole line search of one solver iteration: every
+candidate step 2^-c rolls out the closed loop u = us + step·k + K·(x ⊖ xs) and
+sums the augmented-Lagrangian cost l + p(x)·eq + (μ/2)‖eq‖²; one more row at
+step 0 follows the stored trajectory and its cost is the incumbent's; each
+lane takes the largest step whose cost did not rise, and keeps its
+trajectory, bit for bit, with step 0 where none did.  Same semantics as
+``solver/batched.py::_linesearch_sweep``.
+
+On CUDA tensors it launches ``csrc/linesearch_flat.cu`` (one launch; the
+problem's dynamics, cost and constraint run inside the kernel as the device
+functions of its class, ``kernels/flat_problem.py``); on CPU tensors it runs
+``linesearch_reference``, the plain PyTorch version of the kernel's per-lane
+program.  The multipliers must be anchored at the trajectory
+(``origin == xs[:, :-1]``): the kernel evaluates p = val + jac·(x ⊖ xs).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ddp_tpu_torch.kernels import _build
+from ddp_tpu_torch.kernels.flat_problem import KERNEL_DIMS, pack_problem
+from ddp_tpu_torch.models.base import state_difference
+
+SOURCE = "linesearch_flat.cu"
+# the kernel's block is 32 lanes × (candidates + the step-0 row) ≤ 1024 threads
+MAX_CANDIDATES = 31
+# kernel launches since import (or since a caller reset it)
+LAUNCHES = 0
+
+
+def linesearch_reference(
+    problem,
+    xs,  # [B, T+1, nx]
+    us,  # [B, T, m]
+    k,  # [B, T, m]
+    K,  # [B, T, m, ndx]
+    mult_val,  # [B, T, e]   (origin == xs[:, :-1])
+    mult_jac,  # [B, T, e, ndx]
+    mu,  # [B]
+    n_candidates: int = 7,
+):
+    """Plain PyTorch version of the kernel: the same per-lane program on
+    [rows, B] slabs, through the problem's own modules.
+
+    The cost of a row is summed step by step, t = 0 … T−1 in turn and the
+    terminal cost last, each step as ((l + p·ce) + ((½μ)·ce)·ce) per
+    constraint row: the order the kernel keeps, since it decides ties in the
+    acceptance test Δcost ≤ 0.  Returns (xs_new, us_new, step [B])."""
+    B, T, m = us.shape
+    e, ndx = mult_val.shape[-1], K.shape[-1]
+    C = n_candidates
+    model = problem.model
+    kw = dict(dtype=xs.dtype, device=xs.device)
+    mask = torch.as_tensor(problem.eq_mask(), **kw)  # [T, e]
+    active = set(problem.active_ts())
+
+    def feedback_u(t, dx, step):
+        cols = []
+        for i in range(m):
+            s = us[:, t, i] + step * k[:, t, i]
+            for j in range(ndx):
+                s = s + K[:, t, i, j] * dx[..., j]
+            cols.append(s)
+        return torch.stack(cols, dim=-1)
+
+    def rollout(step):
+        """step [R, 1] or [1, B] → (cost [R, B], xs [R, B, T+1, nx], us)."""
+        R = step.shape[0]
+        x = xs[:, 0].expand(R, B, xs.shape[-1])
+        cost = torch.zeros((R, B), **kw)
+        xs_r, us_r = [x], []
+        for t in range(T):
+            dx = state_difference(model, xs[:, t], x)
+            u = feedback_u(t, dx, step)
+            ct = problem.cost.stage(t, x, u)
+            if e and t in active:
+                ce = problem.constraint.value(t, x, u) * mask[t]
+                for a in range(e):
+                    p = mult_val[:, t, a]
+                    for j in range(ndx):
+                        p = p + mult_jac[:, t, a, j] * dx[..., j]
+                    ct = ct + p * ce[..., a] + 0.5 * mu * ce[..., a] * ce[..., a]
+            cost = cost + ct
+            x = problem.dynamics(t, x, u)
+            xs_r.append(x)
+            us_r.append(u)
+        cost = cost + problem.cost.terminal(x)
+        return cost, torch.stack(xs_r, dim=2), torch.stack(us_r, dim=2)
+
+    # the step ladder 1, ½, …, 2^-(C-1), and the step-0 row: the incumbent
+    steps = torch.tensor([2.0**-c for c in range(C)] + [0.0], **kw)
+    costs, _, _ = rollout(steps[:, None])
+    cost0 = costs[C]
+    chosen = torch.zeros(B, **kw)
+    taken = torch.zeros(B, dtype=torch.bool, device=xs.device)
+    for c in range(C):
+        acc = costs[c] - cost0 <= 0
+        chosen = torch.where(acc & ~taken, steps[c], chosen)
+        taken = taken | acc
+    # second rollout at the lane's chosen step; rejected lanes keep their own
+    _, xs_c, us_c = rollout(chosen[None, :])
+    xs_new = torch.where(taken[:, None, None], xs_c[0], xs)
+    us_new = torch.where(taken[:, None, None], us_c[0], us)
+    return xs_new, us_new, chosen
+
+
+def linesearch(problem, xs, us, k, K, mult_val, mult_jac, mu, n_candidates: int = 7):
+    """Batch-major fused line search: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.  Returns (xs_new [B, T+1, nx],
+    us_new [B, T, m], step [B]).
+
+    ``n_candidates`` ≥ 1 is the depth of the step ladder 1, ½, …; the kernel
+    takes up to 31 (ddp_tpu's TPU kernel takes 7: its eight sublanes carry the
+    ladder and the step-0 row)."""
+    if n_candidates < 1:
+        raise ValueError(f"n_candidates must be >= 1, got {n_candidates}")
+    if xs.device.type == "cpu":
+        return linesearch_reference(
+            problem, xs, us, k, K, mult_val, mult_jac, mu, n_candidates
+        )
+    return _launch(problem, xs, us, k, K, mult_val, mult_jac, mu, n_candidates)
+
+
+def _batch_last(a, rows):
+    """[B, T, …] → contiguous [T, rows, B]."""
+    return a.reshape(a.shape[0], a.shape[1], rows).permute(1, 2, 0).contiguous()
+
+
+def pack_batch_last(problem, xs, us, k, K, mult_val, mult_jac, mu):
+    """Check the batch-major inputs against the problem's flat-lane class and
+    return what ``linesearch_packed`` takes: (the packed problem, the kernel's
+    eight input arrays: xs [T+1, nx, B], us, k [T, m, B], K [T, m·nx, B],
+    pe [T, e, B], pex [T, e·nx, B], the mask [T, e], mu [B])."""
+    flat = pack_problem(problem)
+    B, Tp1, nx = xs.shape
+    T, m, e = Tp1 - 1, us.shape[-1], mult_val.shape[-1]
+    dtype, dev = xs.dtype, xs.device
+    if (nx, m, e) not in KERNEL_DIMS or (nx, m, e) != (flat.nx, flat.m, flat.e):
+        raise ValueError(
+            f"no CUDA instantiation for (nx, m, e)={(nx, m, e)}; have {KERNEL_DIMS}"
+        )
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kernel takes float32 or float64, got {dtype}")
+    expected = dict(
+        xs=(B, T + 1, nx), us=(B, T, m), k=(B, T, m), K=(B, T, m, nx),
+        mult_val=(B, T, e), mult_jac=(B, T, e, nx), mu=(B,), consts=(5,),
+    )  # fmt: skip
+    given = dict(xs=xs, us=us, k=k, K=K, mult_val=mult_val, mult_jac=mult_jac, mu=mu,
+                 consts=flat.consts)  # fmt: skip
+    for name, x in given.items():
+        if x.device != dev or x.dtype != dtype:
+            raise ValueError(f"{name}: {x.dtype} on {x.device}, expected {dtype} on {dev}")
+        if tuple(x.shape) != expected[name]:
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {expected[name]}")
+    if T != flat.horizon:
+        raise ValueError(f"trajectory of {T} steps for a problem of horizon {flat.horizon}")
+    return flat, [
+        _batch_last(xs, nx), _batch_last(us, m), _batch_last(k, m), _batch_last(K, m * nx),
+        _batch_last(mult_val, e), _batch_last(mult_jac, e * nx),
+        torch.as_tensor(flat.mask, dtype=dtype, device=dev).contiguous(), mu.contiguous(),
+    ]  # fmt: skip
+
+
+def linesearch_packed(flat, inputs, n_candidates):
+    """Launch the kernel on ``pack_batch_last``'s arrays.  Returns the
+    batch-last (xs [T+1, nx, B], us [T, m, B], step [B])."""
+    global LAUNCHES
+    if not 1 <= n_candidates <= MAX_CANDIDATES:
+        raise ValueError(
+            f"the kernel takes 1 to {MAX_CANDIDATES} candidates, got {n_candidates}"
+        )
+    xs, us = inputs[0], inputs[1]
+    (Tp1, nx, B), m, e = xs.shape, us.shape[1], flat.e
+    dtype, dev = xs.dtype, xs.device
+    xs_o = torch.empty((Tp1, nx, B), dtype=dtype, device=dev)
+    us_o = torch.empty((Tp1 - 1, m, B), dtype=dtype, device=dev)
+    step = torch.empty((B,), dtype=dtype, device=dev)
+    tensors = list(inputs) + [xs_o, us_o, step]
+    ptrs = (ctypes.c_void_p * len(tensors))(*[x.data_ptr() for x in tensors])
+    fn = _kernel_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            int(dtype == torch.float64), flat.class_id, nx, m, e, Tp1 - 1, B, n_candidates,
+            flat.advance, ctypes.cast(ptrs, ctypes.c_void_p), flat.consts.data_ptr(), stream,
+        )  # fmt: skip
+    if rc != 0:
+        raise RuntimeError(f"linesearch_flat kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return xs_o, us_o, step
+
+
+def _launch(problem, xs, us, k, K, mult_val, mult_jac, mu, n_candidates):
+    flat, inputs = pack_batch_last(problem, xs, us, k, K, mult_val, mult_jac, mu)
+    xs_o, us_o, step = linesearch_packed(flat, inputs, n_candidates)
+    return xs_o.permute(2, 0, 1), us_o.permute(2, 0, 1), step
+
+
+def _kernel_fn():
+    lib = _build.load(SOURCE)
+    fn = lib.ddp_linesearch_flat
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return fn

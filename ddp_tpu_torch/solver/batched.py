@@ -17,7 +17,9 @@ dynamics Jacobians come from ``Problem.derivatives`` (``deriv="jvp"``) or
 from the fd-derivatives kernels over all B·T samples (``deriv="kernel"``:
 ``kernels/fd_derivs.py``, and ``kernels/fd_derivs2.py`` with the dynamics
 Hessian for a ``second_order`` problem); the line search is the parallel sweep
-(``forward="sweep"``) or the early-exit ladder (``forward="seq"``).
+(``forward="sweep"``), the early-exit ladder (``forward="seq"``) or, for a
+flat-lane problem, the fused line-search kernel (``forward="kernel"``,
+``kernels/linesearch_flat.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ import torch
 
 from ddp_tpu_torch.kernels.fd_derivs import fd_derivs
 from ddp_tpu_torch.kernels.fd_derivs2 import fd_derivs2
+from ddp_tpu_torch.kernels.flat_problem import pack_problem
+from ddp_tpu_torch.kernels.linesearch_flat import linesearch as linesearch_flat
 from ddp_tpu_torch.kernels.riccati_small import backward_sweep, pack_batch_last
 from ddp_tpu_torch.ocp.dynamics import EulerDynamics, _vector_space_config
 from ddp_tpu_torch.solver import al as al_mod
@@ -218,6 +222,15 @@ def _linesearch_seq(problem, xs, us, k, K, mults, mu, n_candidates):
     return xs_b, us_b, step_b
 
 
+def _linesearch_kernel(problem, xs, us, k, K, mults, mu, n_candidates):
+    """The fused line-search kernel (``kernels/linesearch_flat.py``): one launch
+    for all candidates, the incumbent row and the accepted rollout.  It reads
+    the multipliers as anchored at ``xs`` (``mults.origin == xs[:, :-1]``),
+    which holds at both call sites: ``init_multipliers``/``update_origin``
+    anchor them there just before.  Returns (xs, us, step [B])."""
+    return linesearch_flat(problem, xs, us, k, K, mults.val, mults.jac, mu, n_candidates)
+
+
 def _kernel_derivatives(problem):
     """``deriv="kernel"``: the derivative pass with the dynamics Jacobians
     from one fd-derivatives kernel call over all B·T samples, assembled into
@@ -301,11 +314,10 @@ def _check_backends(backward, forward, deriv):
     deferred = {
         ("backward", "assoc"): "ROADMAP slice H",
         ("backward", "tf"): "ROADMAP slice G",
-        ("forward", "pallas"): "ROADMAP Queue 2, kernel 4 (linesearch_flat)",
     }
     supported = {
         "backward": ("sweep", "kernel"),
-        "forward": ("sweep", "seq"),
+        "forward": ("sweep", "seq", "kernel"),
         "deriv": ("jvp", "kernel"),
     }
     for knob, value in (("backward", backward), ("forward", forward), ("deriv", deriv)):
@@ -314,7 +326,10 @@ def _check_backends(backward, forward, deriv):
                 f"{knob}={value!r} is still to be ported ({deferred[knob, value]})"
             )
         if value not in supported[knob]:
-            raise ValueError(f"unknown {knob} backend {value!r}; have {supported[knob]}")
+            hint = '; ddp_tpu\'s "pallas" backend is "kernel" here' if value == "pallas" else ""
+            raise ValueError(
+                f"unknown {knob} backend {value!r}; have {supported[knob]}{hint}"
+            )
 
 
 def solve_batched(
@@ -333,6 +348,10 @@ def solve_batched(
     # "seq": early-exit ladder, largest step first, until every lane has
     #   accepted; the same accepted step as "sweep", ~1 rollout per iteration
     #   near convergence — for models whose rollout is heavy (arms)
+    # "kernel": the fused line-search kernel (kernels/linesearch_flat.py), one
+    #   launch per iteration, for a flat-lane problem (kernels/flat_problem.py;
+    #   anything else raises ValueError); any n_linesearch from 1 to 31, where
+    #   ddp_tpu's forward="pallas" clamps to 7
     deriv: str = "jvp",
     # "jvp": Problem.derivatives (assembled Euler Jacobians from the model's
     #   fd_derivatives)
@@ -407,7 +426,11 @@ def _solve_batched(
         )
     else:
         run_backward = _backward_multi_reg
-    linesearch = _linesearch_seq if forward == "seq" else _linesearch_sweep
+    if forward == "kernel":
+        pack_problem(problem)  # raises for a problem outside the flat-lane class
+    linesearch = {
+        "sweep": _linesearch_sweep, "seq": _linesearch_seq, "kernel": _linesearch_kernel,
+    }[forward]  # fmt: skip
     derivatives = _kernel_derivatives(problem) if deriv == "kernel" else problem.derivatives
 
     # --- pre-loop backward/forward ---

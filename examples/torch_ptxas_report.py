@@ -29,19 +29,28 @@ from ddp_tpu_torch.kernels import _build  # noqa: E402
 ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 REGS = re.compile(r"Used (\d+) registers")
-# the Itanium mangling of `name<float|double, ints..., bools...>`
-# (as a lookahead, so that every start position is tried: the length prefix
-# must equal the name's length)
-MANGLED = re.compile(r"(?=(\d{1,2})(\w+_kernel)I([fd])((?:L[ib]\d+E)+)E)")
+# the Itanium mangling of `name<float|double, [policy<float|double>,] ints...,
+# bools...>` (as a lookahead, so that every start position is tried: the
+# length prefix must equal the name's length)
+MANGLED = re.compile(
+    r"(?=(\d{1,2})(\w+_kernel)I([fd])((?:NS_\d+[A-Za-z_]\w*?I[fd]EE|L[ib]\d+E)+)E)"
+)
+ARG = re.compile(r"NS_(\d+)([A-Za-z_]\w*?)I([fd])EE|L([ib])(\d+)E")
+SCALAR = {"f": "float", "d": "double"}
 
 
 def describe(mangled: str) -> str:
     for m in MANGLED.finditer(mangled):
         if int(m.group(1)) != len(m.group(2)):
             continue
-        args = re.findall(r"L([ib])(\d+)E", m.group(4))
-        shown = ", ".join(v if k == "i" else str(bool(int(v))).lower() for k, v in args)
-        return f"{m.group(2)}<{'float' if m.group(3) == 'f' else 'double'}, {shown}>"
+        shown = []
+        for a in ARG.finditer(m.group(4)):
+            if a.group(2):  # a problem-class policy struct, itself a template
+                shown.append(f"{a.group(2)}<{SCALAR[a.group(3)]}>")
+            else:
+                v = a.group(5)
+                shown.append(v if a.group(4) == "i" else str(bool(int(v))).lower())
+        return f"{m.group(2)}<{SCALAR[m.group(3)]}, {', '.join(shown)}>"
     return mangled
 
 

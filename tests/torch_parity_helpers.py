@@ -24,16 +24,19 @@ TORCH_DTYPE = {np.float32: torch.float32, np.float64: torch.float64}
 def jax_pendulum_problem(horizon, dtype, target=3.14, second_order=False):
     """The headline problem (bench.py): Euler pendulum, ½‖u‖² cost, a
     configuration target at the horizon advanced twice, Gauss-Newton unless
-    ``second_order``."""
+    ``second_order``; ``target`` None is the unconstrained twin."""
     model = pendulum(1.0, 1.0, dtype=dtype)
     dyn = dynamics.euler(model, 0.01)
-    con = constraints.advance_time(
-        constraints.ConfigTarget(
-            model=model, target=jnp.asarray([target], dtype), active_ts=(horizon,)
-        ),
-        dyn,
-        times=2,
-    )
+    if target is None:
+        con = constraints.NoConstraint()
+    else:
+        con = constraints.advance_time(
+            constraints.ConfigTarget(
+                model=model, target=jnp.asarray([target], dtype), active_ts=(horizon,)
+            ),
+            dyn,
+            times=2,
+        )
     return Problem(
         dynamics=dyn,
         cost=costs.quad_control(1.0, dtype=dtype),
@@ -112,11 +115,12 @@ def spec_of(problem) -> dict:
     con, times = problem.constraint, 0
     while isinstance(con, constraints.AdvanceTime):
         con, times = con.inner, times + 1
+    unconstrained = isinstance(con, constraints.NoConstraint)
     spec = dict(
         dt=np.asarray(problem.dynamics.dt),
         c=np.asarray(problem.cost.c),
-        target=np.asarray(con.target),
-        active_ts=con.active_ts,
+        target=None if unconstrained else np.asarray(con.target),
+        active_ts=() if unconstrained else con.active_ts,
         advance_times=times,
         horizon=problem.horizon,
         second_order=problem.second_order,
@@ -254,3 +258,45 @@ def to_jax_derivs(fields):
 
 def to_torch_derivs(fields):
     return TDerivs(**{k: t(v) for k, v in fields.items()})
+
+
+# per-lane factors on the feed-forward gains of ``linesearch_state``: overlong
+# steps, so that lanes accept different rungs of the ladder and some none
+GAIN_SCALES = (1.5, 2.5, 5.0, 7.0, 11.0, 13.0, 100.0, 1000.0)
+
+
+def linesearch_state(B, H, np_dtype, constrained=True, seed=0, scale_gains=True):
+    """A line-search state made with numpy for both packages (≙
+    tests/test_pallas_linesearch.py::make_state): the pendulum problem with a
+    target of 2.0 (or unconstrained), a rollout from random x0s and us, random
+    multipliers anchored at it, μ = 1e3, and the gains of ddp_tpu's backward
+    sweep at reg = 0, lane i's k times ``GAIN_SCALES[i % 8]`` unless
+    ``scale_gains`` is off (then every lane accepts the full step).  Returns (jax problem, the port's problem, a dict of
+    numpy arrays xs, us, k, K, val, jac, mu)."""
+    import jax
+
+    from ddp_tpu.solver import al as jal
+    from ddp_tpu.solver.batched import _backward_sweep
+
+    dtype = jnp.dtype(np_dtype)
+    jp = jax_pendulum_problem(H, dtype, target=2.0 if constrained else None)
+    rng = np.random.default_rng(seed)
+    x0s = jnp.asarray(0.5 * rng.standard_normal((B, 2)), dtype)
+    us = jnp.asarray(0.2 * rng.standard_normal((B, H, 1)), dtype)
+    xs = jax.vmap(jp.rollout)(x0s, us)
+    derivs = jax.vmap(jp.derivatives)(xs, us)
+    mults = jax.vmap(lambda x: jal.init_multipliers(jp, x))(xs)
+    if constrained:
+        mults = mults._replace(
+            val=jnp.asarray(0.3 * rng.standard_normal(mults.val.shape), dtype),
+            jac=jnp.asarray(0.1 * rng.standard_normal(mults.jac.shape), dtype),
+        )
+    mu = jnp.full((B,), 1e3, dtype)
+    k, K, _ = jax.vmap(_backward_sweep)(
+        derivs, mults.val, mults.jac, mu, jnp.zeros((B,), dtype)
+    )
+    if scale_gains:
+        factors = np.resize(np.asarray(GAIN_SCALES), B)[:, None, None]
+        k = k * jnp.asarray(factors, dtype)
+    arrays = dict(xs=xs, us=us, k=k, K=K, val=mults.val, jac=mults.jac, mu=mu)
+    return jp, torch_problem(jp, np_dtype), {k_: np.asarray(v) for k_, v in arrays.items()}
