@@ -10,11 +10,17 @@
    nvcc (sm_90a), each loaded from a thread of its own so all five compile at
    once.
 3. kernels vs their plain versions on the card, numpy-seeded inputs.
-   Riccati: (n, m, e) = (2, 1, 1) at B=4096, T=32 in f32 and f64, (12, 6, 6)
-   at B=512, T=16 in f64, (14, 7, 3) at B=256, T=16 in f64 and f32, a ragged
-   B=1000, and one lane forced non-PD; with the second-order terms (non-zero
+   Riccati, the whole reg ladder in one launch (ok and reg_used equal, gains
+   within the bars): (n, m, e) = (2, 1, 1) at B=4096, T=32 in f32 and f64
+   with one level, a ragged B=1000, one lane forced non-PD; (12, 6, 6) at
+   B=512, T=16 and (14, 7, 3) at B=256, T=16 in f64 and f32 with 4 levels,
+   (14, 7, 3) at a ragged B=1000; with the second-order terms (non-zero
    rank-3 slabs) (2, 1, 1) at B=4096, T=32, (4, 2, 2) at a ragged B=1000,
-   (14, 7, 3) at B=256, T=16 in f64 and f32, and one lane forced non-PD.
+   (14, 7, 3) at B=256, T=16 in f64 and f32, one lane forced non-PD; and the
+   ladder itself at (14, 7, 3) both orders and (4, 2, 2): a lane that fails
+   at reg and at the first escalation takes the second level, bit for bit
+   what a launch at that level alone gives, and a lane no level saves keeps
+   level 0's NaN gains and reg.
    fd-derivatives, first and second order: panda7 at N=4096 in f32 and f64,
    cartpole at N=4096 in f64, a ragged N=1000; each output array is held to
    a bar relative to its largest entry, and the f32 kernel, row by row, to a
@@ -48,22 +54,29 @@
 5. arm main path: bench.py's 7-DoF fleet row (256 panda7 arms reaching an
    end-effector target, H=16, f32, 24 AL iterations) through solve_batched
    with deriv="kernel", backward="kernel", forward="seq"; checks both
-   kernels' launch counts, finiteness and the feasible share, then the same
-   solve with deriv="jvp", backward="sweep", and both in f64 at 6 iterations
-   (us within 1e-7 of each lane's largest |u|, identical μ).
+   kernels' launch counts (26 fd, 25 Riccati sweeping 4 levels each),
+   finiteness and the feasible share, prints the share under
+   matmul_precision="high" beside "highest" (no bar: TF32 outside the pinned
+   stages costs lanes, ROADMAP Queue 3) and checks that the pinned stages
+   give the same bits with TF32 allowed around them, then the same solve with
+   deriv="jvp", backward="sweep", and both in f64 at 6 iterations (us within
+   1e-7 of each lane's largest |u|, identical μ).
 6. full second-order DDP on the arm (benchmarks/arm_second_order.py's
    recipe carried to panda7): phase 5's Gauss-Newton result warm-starts 4
    full-DDP iterations on the second_order twin of the problem
    (deriv="kernel": the second-order fd-derivatives kernel, backward="kernel":
    the Riccati kernel with its rank-3 terms, forward="seq", n_linesearch=4),
-   and a cold 12-iteration full-DDP solve; checks both kernels' launch counts,
+   and a cold 12-iteration full-DDP solve; checks both kernels' launch counts
+   (6 fd2 and 5 Riccati sweeping 4 levels each per stage),
    finiteness, the chain's feasible share against the Gauss-Newton stage's,
    then the same stage through deriv="jvp", backward="sweep", and both in f64
    at 2 iterations (us within 1e-7 of each lane's largest |u|, identical μ).
 7. times: each kernel vs its plain version at its main-path shape (CUDA
    events, median of 20; the second-order fd and the line search's plain
    versions median of 5; the whole solve's plain version is the one run of
-   phase 3), each beside its bound, and solves/s of the main paths, paths A
+   phase 3), each beside its bound — the Riccati ladder at (2, 1, 1), at
+   (14, 7, 3) in both orders and types and at (12, 6, 6) in f64, on a launch
+   plan and through its wrapper — and solves/s of the main paths, paths A
    and B included (median of 3 after a warm-up).
 
 Every phase prints one line; any failure raises and the exit code is not 0.
@@ -95,7 +108,7 @@ from ddp_tpu_torch.ocp import constraints, costs, dynamics
 from ddp_tpu_torch.ocp.problem import Problem
 from ddp_tpu_torch.ocp.problem import Derivs
 from ddp_tpu_torch.solver import al
-from ddp_tpu_torch.solver.batched import _backward_sweep, solve_batched
+from ddp_tpu_torch.solver.batched import _backward_sweep, _reg_levels, solve_batched
 from ddp_tpu_torch.solver.solve import SolverParams
 
 B, T = 4096, 32
@@ -133,6 +146,7 @@ DDP_KW = dict(n_linesearch=4, forward="seq", matmul_precision="highest")
 # published peaks of one H100 SXM used for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12  # outside the tensor cores
+F64_FLOPS_PER_S = 34e12  # outside the tensor cores (NVIDIA's H100 SXM data sheet)
 
 
 def say(phase, **fields):
@@ -156,8 +170,8 @@ def headline_x0s(dtype):
 
 def pendulum_inputs(Bk, dtype, bad_lane=None):
     """Pendulum derivatives along a numpy-seeded rollout with non-trivial
-    multipliers, packed [T, rows, B] (≙ tests/test_pallas_riccati.py's
-    make_batch)."""
+    multipliers (≙ tests/test_pallas_riccati.py's make_batch): ((derivs,
+    mult_val, mult_jac), mu, reg), batch-major."""
     rng = np.random.default_rng(1)
     problem = problem_from_numpy(dict(SPEC, target=np.array([2.0])), device=DEV, dtype=dtype)
     kw = dict(dtype=dtype, device=DEV)
@@ -174,15 +188,18 @@ def pendulum_inputs(Bk, dtype, bad_lane=None):
         derivs = derivs._replace(luu=luu)
     mu = torch.full((Bk,), 1e3, **kw)
     reg = torch.zeros(Bk, **kw)
-    return rs.pack_batch_last(derivs, val, jac), mu, reg
+    return (derivs, val, jac), mu, reg
 
 
-def spd_inputs(Bk, Tk, n, m, e, dtype, second_order=False, bad_lane=None):
+def spd_inputs(Bk, Tk, n, m, e, dtype, second_order=False, bad_lane=None, ladder=False):
     """Random blocks at arbitrary dims: fx near I, an SPD stage-cost Hessian,
     non-trivial constraint rows and multipliers; with ``second_order`` also
     non-zero symmetric dynamics and constraint Hessian slabs (small against
-    the cost Hessian, so Quu stays PD), packed for the second-order sweep.
-    ``bad_lane``: that lane's luu is made negative definite."""
+    the cost Hessian, so Quu stays PD).  ``bad_lane``: that lane's luu is made
+    negative definite.  ``ladder``: lane 1's luu is −5e3·I, so at μ = 1e3 it
+    fails at reg and at the ladder's first escalation (2e3) and holds at its
+    second (3.2e4), and lane 2's is −1e9·I, which no level saves.  Returns
+    ((derivs, mult_val, mult_jac), mu, reg), batch-major."""
     rng = np.random.default_rng(3)
     nz = n + m
     G = rng.normal(size=(Bk, Tk, nz, nz)) / np.sqrt(nz)
@@ -209,39 +226,50 @@ def spd_inputs(Bk, Tk, n, m, e, dtype, second_order=False, bad_lane=None):
             f[name + "xx"], f[name + "ux"], f[name + "uu"] = (
                 H[..., :n, :n], H[..., n:, :n], H[..., n:, n:]
             )  # fmt: skip
+    f["luu"] = f["luu"].copy()
     if bad_lane is not None:
-        f["luu"] = f["luu"].copy()
         f["luu"][bad_lane] = -10.0 * np.eye(m)
+    if ladder:
+        f["luu"][1] = -5e3 * np.eye(m)
+        f["luu"][2] = -1e9 * np.eye(m)
     kw = dict(dtype=dtype, device=DEV)
     derivs = Derivs(**{k: torch.tensor(np.ascontiguousarray(v), **kw) for k, v in f.items()})
     pe = torch.tensor(0.3 * rng.normal(size=(Bk, Tk, e)), **kw)
     pex = torch.tensor(0.01 * rng.normal(size=(Bk, Tk, e, n)), **kw)
     mu = torch.full((Bk,), 1e3, **kw)
     reg = torch.full((Bk,), 1e-6, **kw)
-    return rs.pack_batch_last(derivs, pe, pex, second_order=second_order), mu, reg
+    return (derivs, pe, pex), mu, reg
 
 
-def kernel_vs_plain(name, packed, mu, reg, Tk, n, m, e, rtol, atol):
-    """Run the kernel and the plain version on the same card tensors; raise
-    unless k, K agree within (rtol, atol) and the ok vectors are equal.
-    Returns the max abs error and the ok vector."""
-    got = rs.backward_sweep(packed, mu, reg, T=Tk, n=n, m=m, e=e)
+def kernel_vs_plain(name, inputs, mu, reg, n_levels, rtol, atol, second_order=False):
+    """Run the Riccati ladder kernel (``n_levels`` levels of
+    ``_reg_levels``, one launch) and its plain version on the same card
+    tensors; raise unless ok and reg_used are equal and k, K agree within
+    (rtol, atol) on the lanes some level saved.  Returns the max abs error,
+    the ok vector and the kernel's outputs."""
+    levels = torch.stack(_reg_levels(mu, reg, n_levels))
+    before = (rs.LAUNCHES, rs.LEVELS_SWEPT)
+    got = rs.backward_ladder(*inputs, mu, levels, second_order)
     torch.cuda.synchronize()
-    ref = rs.backward_sweep_reference(packed, mu, reg, T=Tk, n=n, m=m, e=e)
+    check((rs.LAUNCHES, rs.LEVELS_SWEPT) == (before[0] + 1, before[1] + n_levels),
+          f"{name}: the wrapper did not launch its kernel once")  # fmt: skip
+    ref = rs.backward_ladder_reference(*inputs, mu, levels, second_order)
     check(torch.equal(got[2], ref[2]), f"{name}: ok vectors differ")
+    check(torch.equal(got[3], ref[3]), f"{name}: reg_used differs")
     err = 0.0
     for a, b, label in zip(got[:2], ref[:2], ("k", "K")):
-        keep = ref[2]  # failed lanes are NaN in both
-        a, b = a[..., keep], b[..., keep]
+        keep = ref[2]  # lanes no level saved are NaN in both
+        a, b = a[keep], b[keep]
         check(bool(torch.isfinite(a).all()), f"{name}: non-finite {label}")
         check(
             torch.allclose(a, b, rtol=rtol, atol=atol),
             f"{name}: {label} max err {float((a - b).abs().max())}",
         )
         err = max(err, float((a - b).abs().max()))
-    say("kernel", case=name, max_abs_err=f"{err:.3e}", rtol=rtol, atol=atol,
-        ok_lanes=f"{int(got[2].sum())}/{got[2].numel()}")  # fmt: skip
-    return err, got[2]
+    say("kernel", case=name, levels=n_levels, max_abs_err=f"{err:.3e}", rtol=rtol, atol=atol,
+        ok_lanes=f"{int(got[2].sum())}/{got[2].numel()}",
+        lanes_per_level=torch.bincount((levels == got[3]).int().argmax(0), minlength=n_levels).tolist())  # fmt: skip
+    return err, got[2], got
 
 
 def fd_inputs(model, N, dtype, seed=5):
@@ -533,22 +561,57 @@ def arm_solve(problem, x0s, us0, deriv, backward, params=ARM):
     return res
 
 
+def tf32_guard_parity(problem, res):
+    """The stages ``al.full_fp32_matmuls`` pins (the sweep backward, the
+    optimality adjoints, update_origin) must give the same bits with TF32
+    allowed around them as with it off, on the arm's finished solve.  Also
+    reports whether the same stages without the guard change under TF32 at
+    all (cuBLAS may take a non-tensor-core kernel for such small products,
+    and then the guard has nothing to undo at these shapes)."""
+    derivs = problem.derivatives(res.xs, res.us)
+    mults, mu, reg = res.mults, res.mu, res.reg
+
+    def stages(unwrap=lambda f: f):
+        return (
+            *unwrap(_backward_sweep)(derivs, mults.val, mults.jac, mu, reg),
+            unwrap(al._adjoint_scores)(derivs, mults.val, mults.jac, mu),
+            *unwrap(al.update_origin)(problem.model, mults, res.xs),
+        )
+
+    def same(xs, ys):  # NaN where both are
+        return all(a.shape == b.shape and bool(((a == b) | (a != a) & (b != b)).all())
+                   for a, b in zip(xs, ys))  # fmt: skip
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        full = stages()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        guarded = stages()
+        unguarded = stages(lambda f: f.__wrapped__)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    check(same(full, guarded), "a pinned stage changed with TF32 allowed around it")
+    return dict(pinned_stages_bit_exact=True, unguarded_stages_change_under_tf32=not same(full, unguarded))
+
+
 def arm_main_path():
     """Phase 5: the fleet row through both kernels, its checks, and the
-    jvp/sweep and f64 comparisons.  Returns (riccati launches, fd launches,
+    jvp/sweep and f64 comparisons.  Returns ((riccati launches, levels swept), fd launches,
     problem, x0s, us0, and the four results: f32 kernel, f32 jvp/sweep, f64
     kernel at 6 iterations, with its inputs)."""
     p32, x32, u32 = arm_problem(torch.float32)
-    rs.LAUNCHES = fd.LAUNCHES = 0
+    reset_launch_counts()
     res_k = arm_solve(p32, x32, u32, "kernel", "kernel")
-    rs_launches, fd_launches = rs.LAUNCHES, fd.LAUNCHES
+    rs_launches, fd_launches, rs_levels = rs.LAUNCHES, fd.LAUNCHES, rs.LEVELS_SWEPT
     # one derivative pass before the loop, one per iteration, one for the
     # final optimality; one backward pass before the loop and one per
-    # iteration, each a launch per level of the regularization ladder
+    # iteration, each one launch for the whole regularization ladder
     fd_expected = 1 + ARM.max_iterations + 1
-    rs_expected = (1 + ARM.max_iterations) * ARM_REG_LEVELS
+    rs_expected = 1 + ARM.max_iterations
     check(fd_launches == fd_expected, f"fd launches {fd_launches} != {fd_expected}")
     check(rs_launches == rs_expected, f"riccati launches {rs_launches} != {rs_expected}")
+    check(rs_levels == rs_expected * ARM_REG_LEVELS, f"riccati levels swept {rs_levels}")
     for name in ("xs", "us", "fb_k", "fb_K", "opt_constr", "opt_lag", "mu", "reg", "w", "n"):
         check(bool(torch.isfinite(getattr(res_k, name)).all()), f"arm: non-finite {name}")
     check(res_k.us.shape == (ARM_B, ARM_H, 7) and res_k.xs.shape == (ARM_B, ARM_H + 1, 14),
@@ -558,8 +621,20 @@ def arm_main_path():
     res_j = arm_solve(p32, x32, u32, "jvp", "sweep")
     frac_j = float((res_j.opt_constr < 1e-2).float().mean())
     check(abs(frac_k - frac_j) <= 0.02, f"arm feasible shares {frac_k} vs {frac_j}")
+    # TF32 allowed for the solve (the gate-critical stages stay in full
+    # float32 whatever the setting)
+    res_h = solve_batched(p32, ARM, x32, us_init=u32, deriv="kernel", backward="kernel",
+                          **dict(ARM_KW, matmul_precision="high"))  # fmt: skip
+    torch.cuda.synchronize()
+    frac_h = float((res_h.opt_constr < 1e-2).float().mean())
+    check(bool(torch.isfinite(res_h.us).all()), "arm f32 under matmul_precision='high': non-finite us")
+    guard = tf32_guard_parity(p32, res_k)
+    say("arm_f32_matmul_precision", frac_main_highest=frac_k, frac_main_high=frac_h,
+        us_max_diff=f"{float((res_h.us - res_k.us).abs().max()):.3e}",
+        mu_equal=float((res_h.mu == res_k.mu).float().mean()), **guard)  # fmt: skip
     say("arm_f32", B=ARM_B, H=ARM_H, iters=ARM.max_iterations, fd_launches=fd_launches,
-        riccati_launches=rs_launches, frac_main_kernel=frac_k, frac_main_jvp_sweep=frac_j,
+        riccati_launches=rs_launches, riccati_levels_swept=rs_levels,
+        frac_main_kernel=frac_k, frac_main_jvp_sweep=frac_j,
         p99_eq=f"{float(torch.quantile(res_k.opt_constr, 0.99)):.3e}",
         mu_equal=float((res_k.mu == res_j.mu).float().mean()))  # fmt: skip
 
@@ -574,7 +649,7 @@ def arm_main_path():
     check(torch.equal(r64_k.mu, r64_j.mu), "arm f64 per-lane mu differs")
     say("arm_f64", iters=short.max_iterations, us_max_scaled_err=f"{err64:.3e}",
         mu_identical=True, mu_levels=sorted({float(v) for v in r64_k.mu}))  # fmt: skip
-    return rs_launches, fd_launches, p32, x32, u32, res_k, res_j, (r64_k, x64, u64)
+    return (rs_launches, rs_levels), fd_launches, p32, x32, u32, res_k, res_j, (r64_k, x64, u64)
 
 
 # ------------------------------------------------- arm path, full second order
@@ -592,7 +667,7 @@ def ddp_stage(problem2, x0s, r1, deriv, backward, params=DDP):
 
 
 def reset_launch_counts():
-    rs.LAUNCHES = rs.LAUNCHES_SECOND_ORDER = fd.LAUNCHES = fd2.LAUNCHES = 0
+    rs.LAUNCHES = rs.LAUNCHES_SECOND_ORDER = rs.LEVELS_SWEPT = fd.LAUNCHES = fd2.LAUNCHES = 0
     lsf.LAUNCHES = fs.LAUNCHES = 0
 
 
@@ -618,22 +693,24 @@ def check_finite(res, what):
 def arm_second_order_path(x32, u32, gn_k, gn_j, gn64):
     """Phase 6: the Gauss-Newton results of phase 5 warm-start the full-DDP
     polish through both new kernels; a cold full-DDP solve; the jvp/sweep
-    and f64 comparisons.  Returns (fd2 launches, second-order Riccati
-    launches, the second_order problem, the shares and wall times)."""
+    and f64 comparisons.  Returns (fd2 launches, (second-order Riccati
+    launches, levels swept), the second_order problem, the shares and wall
+    times)."""
     p2, _, _ = arm_problem(torch.float32, second_order=True)
     frac_gn = float((gn_k.opt_constr < 1e-2).float().mean())
     reset_launch_counts()
     t0 = time.perf_counter()
     res_k = ddp_stage(p2, x32, gn_k, "kernel", "kernel")
     wall_k = time.perf_counter() - t0
-    fd2_launches, rs2_launches = fd2.LAUNCHES, rs.LAUNCHES_SECOND_ORDER
+    fd2_launches, rs2_launches, rs2_levels = fd2.LAUNCHES, rs.LAUNCHES_SECOND_ORDER, rs.LEVELS_SWEPT
     # one derivative pass before the loop, one per iteration, one for the
     # final optimality; a backward pass before the loop and one per
-    # iteration, each a launch per level of the regularization ladder
+    # iteration, each one launch for the whole regularization ladder
     fd2_expected = 1 + DDP.max_iterations + 1
-    rs2_expected = (1 + DDP.max_iterations) * ARM_REG_LEVELS
+    rs2_expected = 1 + DDP.max_iterations
     check(fd2_launches == fd2_expected, f"fd2 launches {fd2_launches} != {fd2_expected}")
     check(rs2_launches == rs2_expected, f"2nd-order riccati launches {rs2_launches} != {rs2_expected}")
+    check(rs2_levels == rs2_expected * ARM_REG_LEVELS, f"2nd-order riccati levels swept {rs2_levels}")
     check(rs.LAUNCHES == rs2_expected and fd.LAUNCHES == 0,
           f"first-order kernels ran in the full-DDP stage: {rs.LAUNCHES}, {fd.LAUNCHES}")  # fmt: skip
     lag_overflow = check_finite(res_k, "arm chain")
@@ -648,7 +725,7 @@ def arm_second_order_path(x32, u32, gn_k, gn_j, gn64):
     check(abs(frac_k - frac_j) <= 0.02, f"chain feasible shares {frac_k} vs {frac_j}")
     say("arm_chain_f32", B=ARM_B, H=ARM_H, gn_iters=ARM.max_iterations,
         ddp_iters=DDP.max_iterations, fd2_launches=fd2_launches,
-        riccati2_launches=rs2_launches, frac_gn_stage=frac_gn, frac_chain_kernel=frac_k,
+        riccati2_launches=rs2_launches, riccati2_levels_swept=rs2_levels, frac_gn_stage=frac_gn, frac_chain_kernel=frac_k,
         frac_chain_jvp_sweep=frac_j,
         p99_eq=f"{float(torch.quantile(res_k.opt_constr, 0.99)):.3e}",
         opt_lag_overflow_lanes=lag_overflow, mu_max=f"{float(res_k.mu.max()):.1e}",
@@ -666,8 +743,8 @@ def arm_second_order_path(x32, u32, gn_k, gn_j, gn64):
     torch.cuda.synchronize()
     cold_fd2, cold_rs2 = fd2.LAUNCHES, rs.LAUNCHES_SECOND_ORDER
     check(cold_fd2 == 1 + DDP_COLD.max_iterations + 1, f"cold fd2 launches {cold_fd2}")
-    check(cold_rs2 == (1 + DDP_COLD.max_iterations) * ARM_REG_LEVELS,
-          f"cold 2nd-order riccati launches {cold_rs2}")  # fmt: skip
+    check(cold_rs2 == 1 + DDP_COLD.max_iterations, f"cold 2nd-order riccati launches {cold_rs2}")
+    check(rs.LEVELS_SWEPT == cold_rs2 * ARM_REG_LEVELS, f"cold levels swept {rs.LEVELS_SWEPT}")
     cold_overflow = check_finite(cold, "arm cold full DDP")
     frac_cold = float((cold.opt_constr < 1e-2).float().mean())
     say("arm_cold_ddp_f32", iters=DDP_COLD.max_iterations, fd2_launches=cold_fd2,
@@ -689,7 +766,7 @@ def arm_second_order_path(x32, u32, gn_k, gn_j, gn64):
     check(torch.equal(r64_k.mu, r64_j.mu), "arm chain f64 per-lane mu differs")
     say("arm_chain_f64", ddp_iters=short.max_iterations, us_max_scaled_err=f"{err64:.3e}",
         mu_identical=True, us_moved=f"{float((r64_k.us - r64.us).abs().max()):.3e}")  # fmt: skip
-    return fd2_launches, rs2_launches, p2, dict(
+    return fd2_launches, (rs2_launches, rs2_levels), p2, dict(
         frac_gn=frac_gn, frac_chain=frac_k, frac_cold=frac_cold, wall_jvp_sweep=wall_j
     )
 
@@ -697,20 +774,34 @@ def arm_second_order_path(x32, u32, gn_k, gn_j, gn64):
 # ------------------------------------------------------------------ timing
 
 
-def riccati_bound_ms(Tk, n, m, e, Bk, second_order=False):
-    """Least time for one float32 sweep: every input and output element
-    moved once at the card's memory rate, or its multiply-adds at the
-    float32 peak."""
-    item = 4
+def riccati_macs(n, m, e, second_order=False, levels=1):
+    """Multiply-adds one lane's step of the ladder needs: the terms that do
+    not depend on V (tmp, tmp2, the e-row products of Qx, Qu, Qxx, Quu, Qux
+    and, with ``second_order``, tmp·eq.. over the rank-3 slabs) once, and for
+    each of ``levels`` levels fxᵀVx, fuᵀVx, Vxx·[fx fu], the Qxx, Quu and Qux
+    blocks of [fx fu]ᵀ·(·) (Qxu = Quxᵀ is not formed again), Vx·f.. with
+    ``second_order``, the Cholesky of Quu, the 1 + n solves and the V
+    update."""
+    free = e + e * n + 2 * e * n + e * m + 2 * e * n * n + e * m * m + e * m * n
+    per_level = n * (n + m) + n * n * (n + m) + n * (n * n + n * m + m * m)
+    per_level += m**3 // 3 + (1 + n) * m * m + m * n * (1 + n)
+    if second_order:
+        free += e * (n * n + m * n + m * m)
+        per_level += n * (n * n + m * n + m * m)
+    return free + levels * per_level
+
+
+def riccati_bound_ms(Tk, n, m, e, Bk, second_order=False, levels=1, item=4):
+    """Least time for one call of the ladder: every input element (the
+    per-step blocks, the terminal Vx, Vxx, μ and the levels) read once and
+    every output element (k, K, ok, reg_used) written once at the card's
+    memory rate, or ``riccati_macs`` at the peak of the type (``item`` bytes
+    a value)."""
     rows_in = sum(rs._rows(n, m, e, second_order).values())
-    elems = Tk * Bk * (rows_in + m + m * n) + Bk * (n + n * n + 2)
+    elems = Tk * Bk * (rows_in + m + m * n) + Bk * (n + n * n + 2 + levels)
     bytes_ms = 1e3 * (elems * item + Bk) / HBM_BYTES_PER_S
-    # per step: Vxx·[fx fu], [fx fu]ᵀ·(·), the e-row terms, Cholesky, solves
-    macs = n * n * (n + m) + (n + m) * n * (n + m) + 2 * e * (n + m) * n
-    macs += m**3 // 3 + (1 + n) * m * m + m * n * (1 + n)
-    if second_order:  # Vx·f.. and tmp·eq.. over the rank-3 slabs
-        macs += (n + e) * (n * n + m * n + m * m)
-    ops_ms = 1e3 * 2 * macs * Tk * Bk / F32_FLOPS_PER_S
+    peak = F32_FLOPS_PER_S if item == 4 else F64_FLOPS_PER_S
+    ops_ms = 1e3 * 2 * riccati_macs(n, m, e, second_order, levels) * Tk * Bk / peak
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -832,13 +923,15 @@ def fd2_flops(parents):
     return fd_flops(parents) + second + rhs + solves
 
 
-def fd2_bound_ms(model, N):
-    """Least time for one float32 call on N samples: 3·nv inputs and
+def fd2_bound_ms(model, N, item=4):
+    """Least time for one call on N samples: 3·nv inputs and
     nv + 3·nv² + nv·(3·nv)² outputs per sample moved once at the card's
-    memory rate, or ``fd2_flops`` at the float peak."""
-    nv, item = model.nv, 4
+    memory rate, or ``fd2_flops`` at the peak of the type (``item`` bytes a
+    value)."""
+    nv = model.nv
     bytes_ms = 1e3 * N * (3 * nv + nv + 3 * nv * nv + 9 * nv**3) * item / HBM_BYTES_PER_S
-    ops_ms = 1e3 * fd2_flops(tuple(model.parents)) * N / F32_FLOPS_PER_S
+    peak = F32_FLOPS_PER_S if item == 4 else F64_FLOPS_PER_S
+    ops_ms = 1e3 * fd2_flops(tuple(model.parents)) * N / peak
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -857,6 +950,27 @@ def event_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def time_ladder(card, label, triplet, n_levels, shape, second_order=False):
+    """The ladder kernel on a launch plan (the kernel alone), the wrapper's
+    whole call (its checks, layout copies and allocations included) and the
+    plain version on phase 3's inputs (CUDA events, median of 20, 20 and 5),
+    beside the bound of the call."""
+    inputs, mu, reg = triplet
+    levels = torch.stack(_reg_levels(mu, reg, n_levels))
+    plan = rs.plan_launch(*inputs, mu, levels, second_order)
+    ms = event_ms(lambda: rs.launch_plan(plan))
+    call_ms = event_ms(lambda: rs.backward_ladder(*inputs, mu, levels, second_order))
+    plain_ms = event_ms(lambda: rs.backward_ladder_reference(*inputs, mu, levels, second_order), reps=5)
+    item = mu.element_size()
+    bound, bound_by = riccati_bound_ms(*shape, second_order, n_levels, item)
+    Tk, *_, Bk = shape
+    say("time_backward" + ("_2nd_order" if second_order else ""), card=f"'{card}'",
+        shape=f"{label}_T{Tk}_B{Bk}_L{n_levels}_{str(mu.dtype)[6:]}", kernel_ms=f"{ms:.4f}",
+        wrapper_call_ms=f"{call_ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.5f}",
+        bound_by=bound_by, kernel_over_bound=f"{ms / bound:.1f}")  # fmt: skip
+    return dict(ms=ms, wrapper_call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+
+
 def solve(problem, x0s, backward):
     res = solve_batched(problem, HEADLINE, x0s, backward=backward, **HEADLINE_KW)
     torch.cuda.synchronize()
@@ -868,10 +982,11 @@ def main_path():
     sweep-backend and f64 comparisons.  Returns (launches, problem, x0s)."""
     p32 = problem_from_numpy(SPEC, device=DEV, dtype=torch.float32)
     x32 = headline_x0s(torch.float32)
-    rs.LAUNCHES = 0
+    reset_launch_counts()
     res_k = solve(p32, x32, "kernel")
     launches = rs.LAUNCHES
     check(launches == EXPECTED_LAUNCHES, f"kernel launches {launches} != {EXPECTED_LAUNCHES}")
+    check(rs.LEVELS_SWEPT == EXPECTED_LAUNCHES, f"levels swept {rs.LEVELS_SWEPT}")
     for name in ("xs", "us", "fb_k", "fb_K", "opt_constr", "opt_lag", "mu", "reg", "w", "n"):
         check(bool(torch.isfinite(getattr(res_k, name)).all()), f"non-finite {name}")
     feas_k = float((res_k.opt_constr < 1e-2).float().mean())
@@ -975,26 +1090,85 @@ def build_kernels():
         nvcc_s=[f"{_build.build_seconds(x):.1f}" for x in sources])  # fmt: skip
 
 
+def riccati_checks():
+    """Kernel #1, the whole reg ladder in one launch, against its plain
+    version at every instantiation in both types: the headline's one level
+    at (2, 1, 1) (B=4096, ragged B=1000, a lane no level saves), the arm's
+    and UR5's four at (14, 7, 3) and (12, 6, 6), the second-order ones; and
+    the ladder itself: a lane that fails at reg and at the first escalation
+    takes the second, bit for bit what a launch at that level alone gives,
+    and a lane no level saves keeps level 0.  Returns the f32 inputs and
+    errors at the main paths' shapes and the f64 inputs the timing reuses."""
+    out = {}
+    f32_in = pendulum_inputs(B, torch.float32)
+    out["err32"] = kernel_vs_plain("headline_f32_B4096_T32", *f32_in, 1, 2e-4, 2e-5)[0]
+    kernel_vs_plain("headline_f64_B4096_T32", *pendulum_inputs(B, torch.float64), 1, 1e-10, 1e-10)
+    kernel_vs_plain("ragged_f64_B1000_T32", *pendulum_inputs(1000, torch.float64), 1, 1e-10, 1e-10)
+    _, ok, _ = kernel_vs_plain("nonpd_lane3_f64_B1000",
+                               *pendulum_inputs(1000, torch.float64, 3), 1, 1e-10, 1e-10)  # fmt: skip
+    check(not bool(ok[3]) and int(ok.sum()) == ok.numel() - 1, "only lane 3 may fail")
+    ur5_64 = spd_inputs(512, 16, 12, 6, 6, torch.float64)
+    kernel_vs_plain("ur5dims_f64_B512_T16", *ur5_64, ARM_REG_LEVELS, 1e-9, 1e-9)
+    kernel_vs_plain("ur5dims_f32_B512_T16", *spd_inputs(512, 16, 12, 6, 6, torch.float32),
+                    ARM_REG_LEVELS, 2e-3, 2e-4)  # fmt: skip
+    arm_64 = spd_inputs(ARM_B, ARM_H, 14, 7, 3, torch.float64)
+    kernel_vs_plain("armdims_f64_B256_T16", *arm_64, ARM_REG_LEVELS, 1e-9, 1e-9)
+    arm_in = spd_inputs(ARM_B, ARM_H, 14, 7, 3, torch.float32)
+    out["arm_err32"] = kernel_vs_plain("armdims_f32_B256_T16", *arm_in, ARM_REG_LEVELS, 2e-3, 2e-4)[0]
+    kernel_vs_plain("armdims_ragged_f32_B1000_T16", *spd_inputs(1000, ARM_H, 14, 7, 3, torch.float32),
+                    ARM_REG_LEVELS, 2e-3, 2e-4)  # fmt: skip
+    # … with the second-order terms, non-zero rank-3 slabs
+    kernel_vs_plain("so_headline_f32_B4096_T32",
+                    *spd_inputs(B, T, 2, 1, 1, torch.float32, second_order=True),
+                    1, 2e-4, 2e-5, True)  # fmt: skip
+    kernel_vs_plain("so_headline_f64_B4096_T32",
+                    *spd_inputs(B, T, 2, 1, 1, torch.float64, second_order=True),
+                    1, 1e-10, 1e-10, True)  # fmt: skip
+    kernel_vs_plain("so_n4m2e2_ragged_f64_B1000_T16",
+                    *spd_inputs(1000, 16, 4, 2, 2, torch.float64, second_order=True),
+                    ARM_REG_LEVELS, 1e-9, 1e-9, True)  # fmt: skip
+    kernel_vs_plain("so_n4m2e2_ragged_f32_B1000_T16",
+                    *spd_inputs(1000, 16, 4, 2, 2, torch.float32, second_order=True),
+                    ARM_REG_LEVELS, 2e-3, 2e-4, True)  # fmt: skip
+    _, ok, _ = kernel_vs_plain("so_nonpd_lane3_f64_B1000",
+                               *spd_inputs(1000, 16, 4, 2, 2, torch.float64, True, bad_lane=3),
+                               1, 1e-9, 1e-9, True)  # fmt: skip
+    check(not bool(ok[3]) and int(ok.sum()) == ok.numel() - 1, "only lane 3 may fail (2nd order)")
+    arm2_64 = spd_inputs(ARM_B, ARM_H, 14, 7, 3, torch.float64, second_order=True)
+    kernel_vs_plain("so_armdims_f64_B256_T16", *arm2_64, ARM_REG_LEVELS, 1e-9, 1e-9, True)
+    arm2_in = spd_inputs(ARM_B, ARM_H, 14, 7, 3, torch.float32, second_order=True)
+    out["rs2_err32"] = kernel_vs_plain("so_armdims_f32_B256_T16", *arm2_in, ARM_REG_LEVELS,
+                                       2e-3, 2e-4, True)[0]  # fmt: skip
+    # the ladder: lane 1 takes level 2, lane 2 no level, the others level 0
+    for name, dims, dtype, so, bars in (
+        ("ladder_armdims_f64_B256_T16", (14, 7, 3), torch.float64, False, (1e-9, 1e-9)),
+        ("ladder_so_armdims_f64_B256_T16", (14, 7, 3), torch.float64, True, (1e-9, 1e-9)),
+        ("ladder_so_armdims_f32_B256_T16", (14, 7, 3), torch.float32, True, (2e-3, 2e-4)),
+        ("ladder_so_n4m2e2_f64_B1000_T16", (4, 2, 2), torch.float64, True, (1e-9, 1e-9)),
+    ):  # fmt: skip
+        Bk = 1000 if dims[0] == 4 else ARM_B
+        inputs, mu, reg = spd_inputs(Bk, ARM_H, *dims, dtype, so, ladder=True)
+        _, ok, got = kernel_vs_plain(name, inputs, mu, reg, ARM_REG_LEVELS, *bars, so)
+        levels = torch.stack(_reg_levels(mu, reg, ARM_REG_LEVELS))
+        check(ok.tolist()[:3] == [True, True, False] and bool(ok[3:].all()), f"{name}: ok {ok[:4]}")
+        check(float(got[3][1]) == float(levels[2, 1]) and float(got[3][2]) == float(levels[0, 2]),
+              f"{name}: reg_used {got[3][:3].tolist()}")  # fmt: skip
+        check(bool(torch.isnan(got[0][2]).all()), f"{name}: the unsaved lane's gains are not level 0's NaN")
+        alone = rs.backward_ladder(*inputs, mu, levels[2:3].contiguous(), so)
+        check(torch.equal(got[0][1], alone[0][1]) and torch.equal(got[1][1], alone[1][1]),
+              f"{name}: lane 1's gains are not bit for bit those of its level alone")  # fmt: skip
+        say("kernel", case=name, lane1_level=2, lane1_bitwise_vs_level_alone=True,
+            lane2_saved=False)  # fmt: skip
+    out.update(f32_in=f32_in, arm_in=arm_in, arm2_in=arm2_in, arm_64=arm_64, arm2_64=arm2_64,
+               ur5_64=ur5_64)  # fmt: skip
+    return out
+
+
 def kernel_checks():
     """Phase 3: every kernel against its plain version on the card.  Returns
     what the timing phase reuses: the f32 inputs at the main paths' shapes
     and each kernel's largest f32 error."""
-    f32_in = pendulum_inputs(B, torch.float32)
-    err32, _ = kernel_vs_plain("headline_f32_B4096_T32", *f32_in, T, 2, 1, 1, 2e-4, 2e-5)
-    kernel_vs_plain("headline_f64_B4096_T32", *pendulum_inputs(B, torch.float64),
-                    T, 2, 1, 1, 1e-10, 1e-10)  # fmt: skip
-    kernel_vs_plain("ur5dims_f64_B512_T16", *spd_inputs(512, 16, 12, 6, 6, torch.float64),
-                    16, 12, 6, 6, 1e-9, 1e-9)  # fmt: skip
-    kernel_vs_plain("ragged_f64_B1000_T32", *pendulum_inputs(1000, torch.float64),
-                    T, 2, 1, 1, 1e-10, 1e-10)  # fmt: skip
-    _, ok = kernel_vs_plain("nonpd_lane3_f64_B1000", *pendulum_inputs(1000, torch.float64, 3),
-                            T, 2, 1, 1, 1e-10, 1e-10)  # fmt: skip
-    check(not bool(ok[3]) and int(ok.sum()) == ok.numel() - 1, "only lane 3 may fail")
-    arm_dims = (ARM_H, 14, 7, 3)
-    kernel_vs_plain("armdims_f64_B256_T16", *spd_inputs(ARM_B, ARM_H, 14, 7, 3, torch.float64),
-                    *arm_dims, 1e-9, 1e-9)  # fmt: skip
-    arm_in = spd_inputs(ARM_B, ARM_H, 14, 7, 3, torch.float32)
-    kernel_vs_plain("armdims_f32_B256_T16", *arm_in, *arm_dims, 2e-3, 2e-4)
+    rc = riccati_checks()
     panda32 = robots.panda7(device=DEV, dtype=torch.float32)
     panda64 = robots.panda7(device=DEV, dtype=torch.float64)
     N = ARM_B * ARM_H
@@ -1003,25 +1177,6 @@ def kernel_checks():
     fd_kernel_vs_plain(f"cartpole_f64_N{N}", robots.cartpole(device=DEV, dtype=torch.float64),
                        N, torch.float64)  # fmt: skip
     fd_kernel_vs_plain("panda7_ragged_f64_N1000", panda64, 1000, torch.float64)
-    # … with the second-order terms, non-zero rank-3 slabs
-    kernel_vs_plain("so_headline_f32_B4096_T32",
-                    *spd_inputs(B, T, 2, 1, 1, torch.float32, second_order=True),
-                    T, 2, 1, 1, 2e-4, 2e-5)  # fmt: skip
-    kernel_vs_plain("so_headline_f64_B4096_T32",
-                    *spd_inputs(B, T, 2, 1, 1, torch.float64, second_order=True),
-                    T, 2, 1, 1, 1e-10, 1e-10)  # fmt: skip
-    kernel_vs_plain("so_n4m2e2_ragged_f64_B1000_T16",
-                    *spd_inputs(1000, 16, 4, 2, 2, torch.float64, second_order=True),
-                    16, 4, 2, 2, 1e-9, 1e-9)  # fmt: skip
-    _, ok = kernel_vs_plain("so_nonpd_lane3_f64_B1000",
-                            *spd_inputs(1000, 16, 4, 2, 2, torch.float64, True, bad_lane=3),
-                            16, 4, 2, 2, 1e-9, 1e-9)  # fmt: skip
-    check(not bool(ok[3]) and int(ok.sum()) == ok.numel() - 1, "only lane 3 may fail (2nd order)")
-    kernel_vs_plain("so_armdims_f64_B256_T16",
-                    *spd_inputs(ARM_B, ARM_H, 14, 7, 3, torch.float64, second_order=True),
-                    *arm_dims, 1e-9, 1e-9)  # fmt: skip
-    arm2_in = spd_inputs(ARM_B, ARM_H, 14, 7, 3, torch.float32, second_order=True)
-    rs2_err32, _ = kernel_vs_plain("so_armdims_f32_B256_T16", *arm2_in, *arm_dims, 2e-3, 2e-4)
     fd2_err32, _ = fd_kernel_vs_plain(f"fd2_panda7_f32_N{N}", panda32, N, torch.float32,
                                       panda64, second=True)  # fmt: skip
     fd_kernel_vs_plain(f"fd2_panda7_f64_N{N}", panda64, N, torch.float64, second=True)
@@ -1033,8 +1188,7 @@ def kernel_checks():
     ls_problem, ls_state, ls_err32 = linesearch_checks()
     fs_err32, fs_plain_s = flat_solve_checks()
 
-    return dict(f32_in=f32_in, err32=err32, arm_in=arm_in, arm2_in=arm2_in, rs2_err32=rs2_err32,
-                panda32=panda32, panda64=panda64, fd_in=fd_in, fd_err32=fd_err32,
+    return dict(rc, panda32=panda32, panda64=panda64, fd_in=fd_in, fd_err32=fd_err32,
                 fd2_err32=fd2_err32, ls_problem=ls_problem, ls_state=ls_state,
                 ls_err32=ls_err32, fs_err32=fs_err32, fs_plain_s=fs_plain_s)  # fmt: skip
 
@@ -1071,22 +1225,24 @@ def main():
     del res_s, f64
 
     # 5. arm main path
-    arm_rs_launches, arm_fd_launches, a32, ax32, au32, gn_k, gn_j, gn64 = arm_main_path()
+    (arm_rs_launches, arm_rs_levels), arm_fd_launches, a32, ax32, au32, gn_k, gn_j, gn64 = arm_main_path()
 
     # 6. arm, full second-order DDP
-    fd2_launches, rs2_launches, a2_32, chain = arm_second_order_path(ax32, au32, gn_k, gn_j, gn64)
+    fd2_launches, (rs2_launches, rs2_levels), a2_32, chain = arm_second_order_path(
+        ax32, au32, gn_k, gn_j, gn64
+    )
     del gn64
 
     # 7. times
-    packed, mu, reg = f32_in
-    ms = event_ms(lambda: rs.backward_sweep(packed, mu, reg, T=T, n=2, m=1, e=1))
-    plain_ms = event_ms(
-        lambda: rs.backward_sweep_reference(packed, mu, reg, T=T, n=2, m=1, e=1)
-    )
-    bound, bound_by = riccati_bound_ms(T, 2, 1, 1, B)
-    say("time_backward", card=f"'{card}'", shape=f"n2m1e1_T{T}_B{B}_f32",
-        kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.5f}",
-        bound_by=bound_by)  # fmt: skip
+    rt = {
+        "headline": time_ladder(card, "n2m1e1", f32_in, 1, (T, 2, 1, 1, B)),
+        "arm": time_ladder(card, "n14m7e3", arm_in, ARM_REG_LEVELS, (ARM_H, 14, 7, 3, ARM_B)),
+        "arm_f64": time_ladder(card, "n14m7e3", k3["arm_64"], ARM_REG_LEVELS, (ARM_H, 14, 7, 3, ARM_B)),
+        "ur5_f64": time_ladder(card, "n12m6e6", k3["ur5_64"], ARM_REG_LEVELS, (16, 12, 6, 6, 512)),
+        "arm_so": time_ladder(card, "n14m7e3", arm2_in, ARM_REG_LEVELS, (ARM_H, 14, 7, 3, ARM_B), True),
+        "arm_so_f64": time_ladder(card, "n14m7e3", k3["arm2_64"], ARM_REG_LEVELS,
+                                  (ARM_H, 14, 7, 3, ARM_B), True),
+    }  # fmt: skip
     solve(p32, x32, "kernel")  # warm-up
     torch.cuda.reset_peak_memory_stats()
     walls = []
@@ -1148,16 +1304,6 @@ def main():
             solves_per_s=f"{B / statistics.median(walls):.1f}",
             peak_mem_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")  # fmt: skip
 
-    arm_packed, arm_mu, arm_reg = arm_in
-    arm_kw = dict(T=ARM_H, n=14, m=7, e=3)
-    arm_ms = event_ms(lambda: rs.backward_sweep(arm_packed, arm_mu, arm_reg, **arm_kw))
-    arm_plain_ms = event_ms(
-        lambda: rs.backward_sweep_reference(arm_packed, arm_mu, arm_reg, **arm_kw)
-    )
-    arm_bound, arm_bound_by = riccati_bound_ms(ARM_H, 14, 7, 3, ARM_B)
-    say("time_backward", card=f"'{card}'", shape=f"n14m7e3_T{ARM_H}_B{ARM_B}_f32",
-        kernel_ms=f"{arm_ms:.4f}", plain_ms=f"{arm_plain_ms:.4f}",
-        bound_ms=f"{arm_bound:.5f}", bound_by=arm_bound_by)  # fmt: skip
     fd_ms = event_ms(lambda: fd.fd_derivs(panda32, *fd_in))
     fd_plain_ms = event_ms(lambda: fd.fd_derivs_reference(panda32, *fd_in))
     fd_model_ms = event_ms(lambda: panda32.fd_derivatives(*fd_in))
@@ -1182,25 +1328,19 @@ def main():
             solves_per_s=f"{ARM_B / arm_walls[deriv]:.1f}",
             peak_mem_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")  # fmt: skip
 
-    arm2_packed, arm2_mu, arm2_reg = arm2_in
-    rs2_ms = event_ms(lambda: rs.backward_sweep(arm2_packed, arm2_mu, arm2_reg, **arm_kw))
-    rs2_plain_ms = event_ms(
-        lambda: rs.backward_sweep_reference(arm2_packed, arm2_mu, arm2_reg, **arm_kw)
-    )
-    rs2_bound, rs2_bound_by = riccati_bound_ms(ARM_H, 14, 7, 3, ARM_B, second_order=True)
-    say("time_backward_2nd_order", card=f"'{card}'", shape=f"n14m7e3_T{ARM_H}_B{ARM_B}_f32",
-        kernel_ms=f"{rs2_ms:.4f}", plain_ms=f"{rs2_plain_ms:.4f}",
-        bound_ms=f"{rs2_bound:.5f}", bound_by=rs2_bound_by,
-        kernel_over_bound=f"{rs2_ms / rs2_bound:.1f}")  # fmt: skip
     fd2_ms = event_ms(lambda: fd2.fd_derivs2(panda32, *fd_in))
     fd2_plain_ms = event_ms(lambda: fd2.fd_derivs2_reference(panda32, *fd_in), reps=5)
     fd2_bound, fd2_bound_by = fd2_bound_ms(panda32, N)
     fd2_f64_in = tuple(x.double() for x in fd_in)
     fd2_f64_ms = event_ms(lambda: fd2.fd_derivs2(panda64, *fd2_f64_in), reps=5)
+    fd2_plain_f64_ms = event_ms(lambda: fd2.fd_derivs2_reference(panda64, *fd2_f64_in), reps=3)
+    fd2_bound_f64, _ = fd2_bound_ms(panda64, N, item=8)
     say("time_fd_derivs2", card=f"'{card}'", shape=f"panda7_N{N}_f32", kernel_ms=f"{fd2_ms:.4f}",
         plain_ms=f"{fd2_plain_ms:.4f}", bound_ms=f"{fd2_bound:.5f}", bound_by=fd2_bound_by,
         flops_per_sample=fd2_flops(tuple(panda32.parents)),
-        kernel_over_bound=f"{fd2_ms / fd2_bound:.1f}", kernel_f64_ms=f"{fd2_f64_ms:.4f}")  # fmt: skip
+        kernel_over_bound=f"{fd2_ms / fd2_bound:.1f}",
+        kernel_f64_ms=f"{fd2_f64_ms:.4f}", plain_f64_ms=f"{fd2_plain_f64_ms:.4f}",
+        bound_f64_ms=f"{fd2_bound_f64:.5f}")  # fmt: skip
     torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(3):
@@ -1221,13 +1361,16 @@ def main():
             "name": "riccati_small_bwd", "route": "cuda",
             "source": "ddp_tpu_torch/csrc/riccati_small.cu",
             "replaces": "ddp_tpu/kernels/riccati_small.py:379",
-            "launches": launches, "max_abs_err": err32, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
-            "arm_path": {
-                "shape": f"n14m7e3_T{ARM_H}_B{ARM_B}_f32", "launches": arm_rs_launches,
-                "ms": arm_ms, "plain_ms": arm_plain_ms, "bound_ms": arm_bound,
-                "bound_by": arm_bound_by,
-            },
+            "launches": launches, "max_abs_err": err32, "ms": rt["headline"]["ms"],
+            "plain_ms": rt["headline"]["plain_ms"], "bound_ms": rt["headline"]["bound_ms"],
+            "bound_by": rt["headline"]["bound_by"], "library_ms": None,
+            "wrapper_call_ms": rt["headline"]["wrapper_call_ms"],
+            "arm_path": dict(
+                rt["arm"], shape=f"n14m7e3_T{ARM_H}_B{ARM_B}_L{ARM_REG_LEVELS}_f32",
+                launches=arm_rs_launches, levels_swept=arm_rs_levels, max_abs_err=k3["arm_err32"],
+                f64_ms=rt["arm_f64"]["ms"],
+                ur5dims_f64_ms=rt["ur5_f64"]["ms"],
+            ),
         },
         {
             "name": "fd_derivs", "route": "cuda",
@@ -1243,15 +1386,18 @@ def main():
             "replaces": "ddp_tpu/kernels/fd_derivs2.py:357",
             "launches": fd2_launches, "max_abs_err": fd2_err32, "ms": fd2_ms,
             "plain_ms": fd2_plain_ms, "bound_ms": fd2_bound, "bound_by": fd2_bound_by,
-            "library_ms": None,
+            "library_ms": None, "f64_ms": fd2_f64_ms,
         },
         {
             "name": "riccati_small_bwd_second_order", "route": "cuda",
             "source": "ddp_tpu_torch/csrc/riccati_small.cu",
             "replaces": "ddp_tpu/kernels/riccati_small.py:379",
-            "launches": rs2_launches, "max_abs_err": rs2_err32, "ms": rs2_ms,
-            "plain_ms": rs2_plain_ms, "bound_ms": rs2_bound, "bound_by": rs2_bound_by,
-            "library_ms": None,
+            "launches": rs2_launches, "levels_swept": rs2_levels, "max_abs_err": rs2_err32,
+            "ms": rt["arm_so"]["ms"],
+            "plain_ms": rt["arm_so"]["plain_ms"], "bound_ms": rt["arm_so"]["bound_ms"],
+            "bound_by": rt["arm_so"]["bound_by"], "library_ms": None,
+            "wrapper_call_ms": rt["arm_so"]["wrapper_call_ms"],
+            "f64_ms": rt["arm_so_f64"]["ms"],
         },
         {
             "name": "linesearch_flat", "route": "cuda",

@@ -1,6 +1,7 @@
 // The rigid-body chain shared by the fd-derivatives kernels (fd_derivs.cu,
 // fd_derivs2.cu): the model view over the wrapper's constant buffers and the
-// kinematics -> composite bodies -> RNEA chain templated on the value type.
+// kinematics, RNEA and composite-inertia pieces of the chain, templated on
+// the value type.
 // The value types (Dual, HyperDual) and the unrolled Cholesky of M come from
 // duals.cuh.
 //
@@ -55,22 +56,27 @@ __device__ __forceinline__ void mat6_vec(const V* A, const V* x, V* y) {
   }
 }
 
-// The kinematics -> composite bodies -> RNEA chain in value type V (S for
-// the primal alone, Dual<S> for the primal with one tangent direction).
-// Fills M[i][j] for every ancestor i of j (i <= j, j included) and zero
-// elsewhere in the upper triangle; the lower triangle is NOT written: read
-// M[min(i, j)][max(i, j)].  bias = RNEA(q, v, 0) with gravity and damping.
-template <typename V, typename S, int NV>
-__device__ void chain_M_bias(const ModelView<S, NV>& md, const V* q, const V* v,
-                             V (*M)[NV], V* bias) {
-  V Rw[NV][9];   // world rotations, row-major
-  V pw[NV][3];   // world positions
-  V Sw[NV][6];   // world joint subspace columns (angular, linear)
-  V IC[NV][36];  // world spatial inertias, then composite inertias
-  V vb[NV][6];   // body spatial velocities
-  V ab[NV][6];   // body spatial accelerations at zero joint acceleration
-  V fb[NV][6];   // body forces, then subtree forces
+// The chain in three pieces, each templated on the value type V (S for the
+// primal alone, Dual<S> for the primal with one tangent direction,
+// HyperDual<S> for two and their mixed second derivative):
+//
+//   chain_kinematics(q)            -> Sw (world joint subspace columns),
+//                                     Iw (world spatial inertias), per body
+//   chain_bias(v; Sw, Iw)          -> bias = RNEA(q, v, 0) with gravity and
+//                                     damping
+//   chain_mass(Sw, Iw)             -> M (Iw summed up the tree in place)
+//
+// chain_bias reads Sw and Iw through functors sw(i, a), iw(i, a) (a the
+// row-major index), so a caller can hand it values computed in a cheaper
+// value type: the second-order kernel runs the kinematics of a (q, v) pair
+// in Dual numbers (M does not depend on v) and only the RNEA half in
+// hyper-duals.
 
+template <typename V, typename S, int NV>
+__device__ void chain_kinematics(const ModelView<S, NV>& md, const V* q, V (*Sw)[6],
+                                 V (*Iw)[36]) {
+  V Rw[NV][9];  // world rotations, row-major
+  V pw[NV][3];  // world positions
   for (int i = 0; i < NV; ++i) {
     const S* ax = md.axes + 3 * i;
     const S* Ep = md.jp_rot + 9 * i;
@@ -136,40 +142,48 @@ __device__ void chain_M_bias(const ModelView<S, NV>& md, const V* q, const V* v,
       Sw[i][3 + a] = pxs[a] + sl[a];
     }
     // world spatial inertia Iw = X^T I X, X = X_bw = [[R^T, 0], [-R^T p^, R^T]]
-    {
-      const V ph[9] = {V(S(0)), -pw[i][2], pw[i][1], pw[i][2], V(S(0)), -pw[i][0],
-                       -pw[i][1], pw[i][0], V(S(0))};
-      V X[36], Y[36];
-      for (int a = 0; a < 3; ++a) {
-        for (int b = 0; b < 3; ++b) {
-          const V rt = Rw[i][b * 3 + a];  // R^T[a][b]
-          X[a * 6 + b] = rt;
-          X[a * 6 + 3 + b] = V(S(0));
-          X[(3 + a) * 6 + 3 + b] = rt;
-          // -(R^T p^)[a][b] = -sum_k R[k][a] p^[k][b]
-          X[(3 + a) * 6 + b] = -(Rw[i][a] * ph[b] + Rw[i][3 + a] * ph[3 + b] + Rw[i][6 + a] * ph[6 + b]);
-        }
-      }
-      const S* I6 = md.inertias + 36 * i;
-      for (int a = 0; a < 6; ++a) {
-        for (int b = 0; b < 6; ++b) {
-          V s = V(I6[a * 6]) * X[b];
-          for (int k = 1; k < 6; ++k) s = s + V(I6[a * 6 + k]) * X[k * 6 + b];
-          Y[a * 6 + b] = s;
-        }
-      }
-      for (int a = 0; a < 6; ++a) {
-        for (int b = 0; b < 6; ++b) {
-          V s = X[a] * Y[b];
-          for (int k = 1; k < 6; ++k) s = s + X[k * 6 + a] * Y[k * 6 + b];
-          IC[i][a * 6 + b] = s;
-        }
+    const V ph[9] = {V(S(0)), -pw[i][2], pw[i][1], pw[i][2], V(S(0)), -pw[i][0],
+                     -pw[i][1], pw[i][0], V(S(0))};
+    V X[36], Y[36];
+    for (int a = 0; a < 3; ++a) {
+      for (int b = 0; b < 3; ++b) {
+        const V rt = Rw[i][b * 3 + a];  // R^T[a][b]
+        X[a * 6 + b] = rt;
+        X[a * 6 + 3 + b] = V(S(0));
+        X[(3 + a) * 6 + 3 + b] = rt;
+        // -(R^T p^)[a][b] = -sum_k R[k][a] p^[k][b]
+        X[(3 + a) * 6 + b] = -(Rw[i][a] * ph[b] + Rw[i][3 + a] * ph[3 + b] + Rw[i][6 + a] * ph[6 + b]);
       }
     }
+    const S* I6 = md.inertias + 36 * i;
+    for (int a = 0; a < 6; ++a) {
+      for (int b = 0; b < 6; ++b) {
+        V s = V(I6[a * 6]) * X[b];
+        for (int k = 1; k < 6; ++k) s = s + V(I6[a * 6 + k]) * X[k * 6 + b];
+        Y[a * 6 + b] = s;
+      }
+    }
+    for (int a = 0; a < 6; ++a) {
+      for (int b = 0; b < 6; ++b) {
+        V s = X[a] * Y[b];
+        for (int k = 1; k < 6; ++k) s = s + X[k * 6 + a] * Y[k * 6 + b];
+        Iw[i][a * 6 + b] = s;
+      }
+    }
+  }
+}
+
+template <typename V, typename S, int NV, typename SwF, typename IwF>
+__device__ void chain_bias(const ModelView<S, NV>& md, const V* v, SwF sw, IwF iw, V* bias) {
+  V vb[NV][6];  // body spatial velocities
+  V ab[NV][6];  // body spatial accelerations at zero joint acceleration
+  V fb[NV][6];  // body forces, then subtree forces
+  for (int i = 0; i < NV; ++i) {
+    const int p = md.parent[i];
     // velocities and bias accelerations down the tree
     V sv[6], psi[6];
     for (int a = 0; a < 6; ++a) {
-      sv[a] = Sw[i][a] * v[i];
+      sv[a] = sw(i, a) * v[i];
       vb[i][a] = (p < 0) ? sv[a] : vb[p][a] + sv[a];
     }
     {  // psi = crm(vb) sv = [w x sv_a, vl x sv_a + w x sv_l]
@@ -187,27 +201,49 @@ __device__ void chain_M_bias(const ModelView<S, NV>& md, const V* q, const V* v,
       ab[i][a] = base + psi[a];
     }
     // fb = Iw ab - crm(vb)^T (Iw vb);  crm(v)^T u = [-w x u_a - vl x u_l, -w x u_l]
-    {
-      V Ivb[6], Iab[6], t0[3], t1[3], t2[3];
-      mat6_vec(IC[i], vb[i], Ivb);
-      mat6_vec(IC[i], ab[i], Iab);
-      cross3(vb[i], Ivb, t0);
-      cross3(vb[i] + 3, Ivb + 3, t1);
-      cross3(vb[i], Ivb + 3, t2);
-      for (int a = 0; a < 3; ++a) {
-        fb[i][a] = Iab[a] + (t0[a] + t1[a]);
-        fb[i][3 + a] = Iab[3 + a] + t2[a];
+    V Ivb[6], Iab[6], t0[3], t1[3], t2[3];
+    for (int a = 0; a < 6; ++a) {
+      V s = iw(i, a * 6) * vb[i][0];
+      V u = iw(i, a * 6) * ab[i][0];
+      for (int k = 1; k < 6; ++k) {
+        s = s + iw(i, a * 6 + k) * vb[i][k];
+        u = u + iw(i, a * 6 + k) * ab[i][k];
       }
+      Ivb[a] = s;
+      Iab[a] = u;
+    }
+    cross3(vb[i], Ivb, t0);
+    cross3(vb[i] + 3, Ivb + 3, t1);
+    cross3(vb[i], Ivb + 3, t2);
+    for (int a = 0; a < 3; ++a) {
+      fb[i][a] = Iab[a] + (t0[a] + t1[a]);
+      fb[i][3 + a] = Iab[3 + a] + t2[a];
     }
   }
-
-  // composite inertias and subtree forces up the tree
+  // subtree forces up the tree
   for (int i = NV - 1; i >= 0; --i) {
     const int p = md.parent[i];
-    if (p >= 0) {
-      for (int a = 0; a < 36; ++a) IC[p][a] = IC[p][a] + IC[i][a];
+    if (p >= 0)
       for (int a = 0; a < 6; ++a) fb[p][a] = fb[p][a] + fb[i][a];
-    }
+  }
+  for (int j = 0; j < NV; ++j) {
+    V s = V(md.damping[j]) * v[j];
+    for (int a = 0; a < 6; ++a) s = s + sw(j, a) * fb[j][a];
+    bias[j] = s;
+  }
+}
+
+// M[i][j] for every ancestor i of j (i <= j, j included) and zero elsewhere
+// in the upper triangle; the lower triangle is NOT written: read
+// M[min(i, j)][max(i, j)].  IC comes in as the world inertias and leaves as
+// the composite ones.
+template <typename V, typename S, int NV>
+__device__ void chain_mass(const ModelView<S, NV>& md, const V (*Sw)[6], V (*IC)[36],
+                           V (*M)[NV]) {
+  for (int i = NV - 1; i >= 0; --i) {
+    const int p = md.parent[i];
+    if (p >= 0)
+      for (int a = 0; a < 36; ++a) IC[p][a] = IC[p][a] + IC[i][a];
   }
   for (int i = 0; i < NV; ++i)
     for (int j = i; j < NV; ++j) M[i][j] = V(S(0));
@@ -219,11 +255,18 @@ __device__ void chain_M_bias(const ModelView<S, NV>& md, const V* q, const V* v,
       for (int a = 1; a < 6; ++a) s = s + Sw[i][a] * u[a];
       M[i][j] = s;
     }
-    V s = V(md.damping[j]) * v[j];
-    for (int a = 0; a < 6; ++a) s = s + Sw[j][a] * fb[j][a];
-    bias[j] = s;
   }
 }
 
+// The whole chain at (q, v): M (upper triangle, as chain_mass) and bias.
+template <typename V, typename S, int NV>
+__device__ void chain_M_bias(const ModelView<S, NV>& md, const V* q, const V* v,
+                             V (*M)[NV], V* bias) {
+  V Sw[NV][6], IC[NV][36];
+  chain_kinematics<V, S, NV>(md, q, Sw, IC);
+  chain_bias<V, S, NV>(
+      md, v, [&](int i, int a) { return Sw[i][a]; }, [&](int i, int a) { return IC[i][a]; }, bias);
+  chain_mass<V, S, NV>(md, Sw, IC, M);
+}
 
 }  // namespace

@@ -17,32 +17,53 @@
 //     M d_(tau_k) d_s a = -(d_s M)(M^-1 e_k)     (zero for s over v: M = M(q))
 //     d_tau d_tau' a = 0
 //
-// The TPU kernel keeps a whole sparse second-order dual (2*NV gradient and
-// NV*(2*NV+1) Hessian entries per scalar) of the chain live per lane, which
-// no CUDA thread can hold.  Here the grid is (samples, pairs + 1): a thread
-// carries ONE pair (i <= j) of the 2*NV (q, v) directions through the chain
-// (fd_chain.cuh) as a hyper-dual number (p, d_i, d_j, d_ij) - four scalars a
-// value, twice fd_derivs.cu's state - factors M, solves for a, d_i a, d_j a
-// and then for H[:, i, j], which it writes to both triangles from the same
-// value, so H is exactly symmetric.  A diagonal pair (i == j) also writes
-// column i of da/dq or da/dv and the tau cross block of direction i (exact
-// zeros for a v direction).  The last row of blocks runs the chain without
-// tangents and writes a, M^-1 and the zero tau-tau block.  At NV = 7 that is
-// 105 + 1 threads a sample; the primal chain and the factor are repeated in
-// every one of them.
+// The call runs in two passes, sample last in every array:
+//
+//   1. the primal pass, a thread per sample, runs the chain once in plain
+//      numbers and factors M once: it writes a, M^-1 (one column per unit
+//      vector solved against the factor), the factor itself (packed lower
+//      triangle, a buffer of the wrapper's) and the exact zeros of the
+//      tau-tau block;
+//   2. the pair passes, a thread per sample and pair i <= j of the 2*NV
+//      (q, v) directions, one launch per kind of pair so that each compiles
+//      with only the arrays of its own chain.  A block is 64 samples of one
+//      pair, so its threads never diverge.  Each reads the primal pass's
+//      factor and a, carries its pair through the chain as a hyper-dual
+//      number (p, d_i, d_j, d_ij), solves for d_i a, d_j a and then H[:, i, j]
+//      against the shared factor, and writes H to both triangles from the same
+//      value, so H is exactly symmetric.  What a pair carries follows what
+//      depends on it (fd_chain.cuh's chain in three pieces): M and the
+//      kinematics depend on q alone, so a (q, q) pair runs the whole chain in
+//      hyper-duals, a (q, v) pair the kinematics and M in the q tangent alone
+//      (Dual) and only the RNEA half in hyper-duals, and a (v, v) pair the
+//      kinematics in plain numbers and the RNEA half in hyper-duals, with no
+//      M at all.  At NV = 7 that is 28 hyper-dual chains, 49 Dual chains and
+//      77 hyper-dual RNEA halves a sample and one factorization.  A diagonal
+//      pair (i == j) also writes column i of da/dq or da/dv and the tau cross
+//      block of direction i, -M^-1 (d_i M) M^-1 e_k from the primal pass's
+//      M^-1 (exact zeros for a v direction: M = M(q)).
 //
 // Layout: input [3*NV, N], outputs [NV, N], three [NV*NV, N] and H
-// [NV*NZ*NZ, N] with row (o*NZ + i)*NZ + j, the sample last, so every load
-// and store is coalesced across a warp.  Any N; the ragged edge is masked.
+// [NV*NZ*NZ, N] with row (o*NZ + i)*NZ + j, the factor [NV*(NV+1)/2, N], so
+// every load and store is coalesced across a warp.  Any N; the ragged edge is
+// masked.
 //
-// Bound: H is NV*NZ*NZ values a sample (3,087 at NV = 7; 50.6 MB at N = 4096
-// in float), so the bytes written bound the function at about 16 us there,
-// near its operations' time at the float peak; in practice local-memory
-// traffic binds, as in fd_derivs.cu: the per-body arrays are indexed with
-// run-time parents and live in local memory, here at twice the size.
+// Bound: the function's operations, about 1.36 Mflop a sample at NV = 7
+// (chip_smoke.py's fd2_flops), at the float peak: 83 us at N = 4096; the
+// bytes of H (50.6 MB in float) take 16 us.  In practice the chain's
+// per-body arrays, indexed with run-time parents, live in local memory.
 //
 // Build without --use_fast_math and without -ftz: a non-positive pivot must
 // give NaN through sqrt, as in the plain version.
+//
+// Keep chip_smoke.py's fd2 cases after any change here: nvcc (12.9, -O3)
+// gave wrong hyper-dual second derivatives (right primal and first-order
+// parts) for two other arrangements of this chain, a block per sample sharing
+// the primal through shared memory and a pair thread with its chain out of
+// line.  Built for the host with tests/cuda_host's harness under g++ -O2/-O3
+// with AddressSanitizer and UndefinedBehaviorSanitizer, and with every local
+// initialised to a pattern, both are right and clean: no source defect is
+// known.
 
 #include <cuda_runtime.h>
 
@@ -52,60 +73,116 @@
 
 namespace {
 
+// the kinds of pair, a template argument of the pair passes
+constexpr int QQ = 0, QV = 1, VV = 2;
+
+// pairs of a kind: (q, q) and (v, v) over the upper triangle i <= j of NV
+// indices, (q, v) over all NV * NV
+template <int K, int NV>
+constexpr int pair_count() {
+  return K == QV ? NV * NV : NV * (NV + 1) / 2;
+}
+
+// the primal pass: a, M^-1, the factor of M and the tau-tau zeros
 template <typename S, int NV>
-__global__ void __launch_bounds__(64) fd_derivs2_kernel(
-    const int* __restrict__ topo, const S* __restrict__ consts,
-    const S* __restrict__ qvu, S* __restrict__ a_out, S* __restrict__ Aq,
-    S* __restrict__ Av, S* __restrict__ Mi, S* __restrict__ H, int N) {
-  constexpr int NC = 2 * NV;              // seed space (q, v)
-  constexpr int NZ = 3 * NV;              // Hessian space (q, v, tau)
-  constexpr int NP = NC * (NC + 1) / 2;   // pairs i <= j
+__global__ void __launch_bounds__(64) fd2_primal_kernel(
+    const int* __restrict__ topo, const S* __restrict__ consts, const S* __restrict__ qvu,
+    S* __restrict__ a_out, S* __restrict__ Mi, S* __restrict__ Lf, S* __restrict__ H, int N) {
+  constexpr int NZ = 3 * NV;
+  constexpr int NC = 2 * NV;
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  const int pidx = blockIdx.y;
+  const size_t Ns = static_cast<size_t>(N);
+  const ModelView<S, NV> md(topo, consts);
+  S q[NV], v[NV], M[NV][NV], bias[NV], L[NV][NV], a[NV];
+  for (int k = 0; k < NV; ++k) {
+    q[k] = qvu[k * Ns + n];
+    v[k] = qvu[(NV + k) * Ns + n];
+  }
+  chain_M_bias<S, S, NV>(md, q, v, M, bias);
+  for (int r = 0; r < NV; ++r) {
+    for (int c = 0; c <= r; ++c) L[r][c] = M[c][r];
+    a[r] = qvu[(2 * NV + r) * Ns + n] - bias[r];
+  }
+  chol_factor<S, NV>(L);
+  chol_apply<S, NV>(L, a);
+  for (int r = 0; r < NV; ++r) {
+    a_out[r * Ns + n] = a[r];
+    for (int c = 0; c <= r; ++c) Lf[(r * (r + 1) / 2 + c) * Ns + n] = L[r][c];
+  }
+  for (int k = 0; k < NV; ++k) {
+    S col[NV];
+    for (int r = 0; r < NV; ++r) col[r] = (r == k) ? S(1) : S(0);
+    chol_apply<S, NV>(L, col);
+    for (int r = 0; r < NV; ++r) Mi[(r * NV + k) * Ns + n] = col[r];
+  }
+  // a is affine in tau: the tau-tau block is exactly zero
+  for (int o = 0; o < NV; ++o)
+    for (int k = 0; k < NV; ++k)
+      for (int k2 = 0; k2 < NV; ++k2)
+        H[(static_cast<size_t>(o * NZ + NC + k) * NZ + NC + k2) * Ns + n] = S(0);
+}
+
+// the pair passes: a thread per sample and pair of kind K
+template <typename S, int NV, int K>
+__global__ void __launch_bounds__(64) fd2_pair_kernel(
+    const int* __restrict__ topo, const S* __restrict__ consts, const S* __restrict__ qvu,
+    const S* __restrict__ a_in, const S* __restrict__ Mi, const S* __restrict__ Lf,
+    S* __restrict__ Aq, S* __restrict__ Av, S* __restrict__ H, int N) {
+  using HD = HyperDual<S>;
+  using D = Dual<S>;
+  constexpr int NZ = 3 * NV;  // Hessian space (q, v, tau)
+  constexpr int NC = 2 * NV;  // seed space (q, v)
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
   const size_t Ns = static_cast<size_t>(N);
   const ModelView<S, NV> md(topo, consts);
   auto hstore = [&](int o, int r, int c, S val) {
     H[(static_cast<size_t>(o * NZ + r) * NZ + c) * Ns + n] = val;
   };
+  // the pair (i, j), i <= j, as indices into (q, v)
+  int i, j;
+  if (K == QV) {
+    i = blockIdx.y / NV;
+    j = NV + blockIdx.y % NV;
+  } else {
+    int rem = blockIdx.y;
+    i = 0;
+    while (rem >= NV - i) {
+      rem -= NV - i;
+      ++i;
+    }
+    j = i + rem;
+    if (K == VV) i += NV, j += NV;
+  }
 
-  S q[NV], v[NV], tau[NV];
+  S q[NV], v[NV], L[NV][NV], a[NV];
   for (int k = 0; k < NV; ++k) {
     q[k] = qvu[k * Ns + n];
     v[k] = qvu[(NV + k) * Ns + n];
-    tau[k] = qvu[(2 * NV + k) * Ns + n];
+    a[k] = a_in[k * Ns + n];
   }
+  for (int r = 0; r < NV; ++r)
+    for (int c = 0; c <= r; ++c) L[r][c] = Lf[(r * (r + 1) / 2 + c) * Ns + n];
 
-  S L[NV][NV], a[NV];
-  if (pidx < NP) {
-    // pair (i, j), i <= j, row-major over the upper triangle
-    int i = 0, rem = pidx;
-    while (rem >= NC - i) {
-      rem -= NC - i;
-      ++i;
-    }
-    const int j = i + rem;
-
-    using HD = HyperDual<S>;
-    HD qd[NV], vd[NV], M[NV][NV], bias[NV];
+  // d_i M (q_i directions; upper triangle), d_j M and d_ij M ((q, q) pairs),
+  // and bias in hyper-duals; the right-hand sides
+  //   d_i a = -M^-1 (d_i bias + (d_i M) a), the same for j,
+  //   d_ij a = -M^-1 (d_ij bias + (d_ij M) a + (d_i M) d_j a + (d_j M) d_i a)
+  S di[NV], dj[NV], hh[NV], dMi[NV][NV];
+  HD bias[NV];
+  if constexpr (K == QQ) {
+    HD qd[NV], vd[NV], M[NV][NV];
     for (int k = 0; k < NV; ++k) {
       qd[k] = HD(q[k], i == k ? S(1) : S(0), j == k ? S(1) : S(0), S(0));
-      vd[k] = HD(v[k], i == NV + k ? S(1) : S(0), j == NV + k ? S(1) : S(0), S(0));
+      vd[k] = HD(v[k]);
     }
     chain_M_bias<HD, S, NV>(md, qd, vd, M, bias);
-    for (int r = 0; r < NV; ++r) {
-      for (int c = 0; c <= r; ++c) L[r][c] = M[c][r].p;
-      a[r] = tau[r] - bias[r].p;
-    }
-    chol_factor<S, NV>(L);
-    chol_apply<S, NV>(L, a);
-
-    // first order: d_i a = -M^-1 (d_i bias + (d_i M) a), and the same for j
-    S di[NV], dj[NV];
     for (int r = 0; r < NV; ++r) {
       S si = bias[r].t1, sj = bias[r].t2;
       for (int c = 0; c < NV; ++c) {
         const HD& m = (r <= c) ? M[r][c] : M[c][r];
+        dMi[r][c] = m.t1;
         si = si + m.t1 * a[c];
         sj = sj + m.t2 * a[c];
       }
@@ -114,9 +191,6 @@ __global__ void __launch_bounds__(64) fd_derivs2_kernel(
     }
     chol_apply<S, NV>(L, di);
     chol_apply<S, NV>(L, dj);
-
-    // second order
-    S hh[NV];
     for (int r = 0; r < NV; ++r) {
       S s = bias[r].h;
       for (int c = 0; c < NV; ++c) {
@@ -125,98 +199,127 @@ __global__ void __launch_bounds__(64) fd_derivs2_kernel(
       }
       hh[r] = -s;
     }
-    chol_apply<S, NV>(L, hh);
-    for (int o = 0; o < NV; ++o) {
-      hstore(o, i, j, hh[o]);
-      if (i != j) hstore(o, j, i, hh[o]);
+  } else if constexpr (K == QV) {  // kinematics and M in the q_i tangent
+    D qd[NV], Sw[NV][6], IC[NV][36], Md[NV][NV];
+    HD vd[NV];
+    for (int k = 0; k < NV; ++k) {
+      qd[k] = D(q[k], i == k ? S(1) : S(0));
+      vd[k] = HD(v[k], S(0), j == NV + k ? S(1) : S(0), S(0));
     }
-
-    if (i == j) {
-      // column i of da/dq or da/dv
-      S* dst = (i < NV) ? Aq : Av;
-      const int cc = (i < NV) ? i : i - NV;
-      for (int o = 0; o < NV; ++o) dst[(o * NV + cc) * Ns + n] = di[o];
-      // tau cross block of direction i: -M^-1 (d_i M) M^-1 e_k; M does not
-      // depend on v, so a v direction's block is exactly zero
-      for (int k = 0; k < NV; ++k) {
-        S col[NV];
-        if (i < NV) {
-          S mk[NV];
-          for (int r = 0; r < NV; ++r) mk[r] = (r == k) ? S(1) : S(0);
-          chol_apply<S, NV>(L, mk);
-          for (int r = 0; r < NV; ++r) {
-            S s = S(0);
-            for (int c = 0; c < NV; ++c)
-              s = s + ((r <= c) ? M[r][c].t1 : M[c][r].t1) * mk[c];
-            col[r] = -s;
-          }
-          chol_apply<S, NV>(L, col);
-        } else {
-          for (int r = 0; r < NV; ++r) col[r] = S(0);
-        }
-        for (int o = 0; o < NV; ++o) {
-          hstore(o, NC + k, i, col[o]);
-          hstore(o, i, NC + k, col[o]);
-        }
-      }
-    }
-  } else {
-    S M[NV][NV], bias[NV];
-    chain_M_bias<S, S, NV>(md, q, v, M, bias);
+    chain_kinematics<D, S, NV>(md, qd, Sw, IC);
+    chain_bias<HD, S, NV>(
+        md, vd, [&](int b, int c) { return HD(Sw[b][c].p, Sw[b][c].t, S(0), S(0)); },
+        [&](int b, int c) { return HD(IC[b][c].p, IC[b][c].t, S(0), S(0)); }, bias);
+    chain_mass<D, S, NV>(md, Sw, IC, Md);
     for (int r = 0; r < NV; ++r) {
-      for (int c = 0; c <= r; ++c) L[r][c] = M[c][r];
-      a[r] = tau[r] - bias[r];
+      S si = bias[r].t1;
+      for (int c = 0; c < NV; ++c) {
+        dMi[r][c] = (r <= c) ? Md[r][c].t : Md[c][r].t;
+        si = si + dMi[r][c] * a[c];
+      }
+      di[r] = -si;
+      dj[r] = -bias[r].t2;  // d_v M = 0
     }
-    chol_factor<S, NV>(L);
-    chol_apply<S, NV>(L, a);
-    for (int r = 0; r < NV; ++r) a_out[r * Ns + n] = a[r];
+    chol_apply<S, NV>(L, di);
+    chol_apply<S, NV>(L, dj);
+    for (int r = 0; r < NV; ++r) {
+      S s = bias[r].h;
+      for (int c = 0; c < NV; ++c) s = s + dMi[r][c] * dj[c];
+      hh[r] = -s;
+    }
+  } else {  // (v_i, v_j): kinematics in plain numbers, no M
+    S Sw[NV][6], IC[NV][36];
+    HD vd[NV];
+    for (int k = 0; k < NV; ++k)
+      vd[k] = HD(v[k], i == NV + k ? S(1) : S(0), j == NV + k ? S(1) : S(0), S(0));
+    chain_kinematics<S, S, NV>(md, q, Sw, IC);
+    chain_bias<HD, S, NV>(
+        md, vd, [&](int b, int c) { return HD(Sw[b][c]); }, [&](int b, int c) { return HD(IC[b][c]); },
+        bias);
+    for (int r = 0; r < NV; ++r) {
+      di[r] = -bias[r].t1;
+      hh[r] = -bias[r].h;
+    }
+    chol_apply<S, NV>(L, di);
+  }
+  chol_apply<S, NV>(L, hh);
+  for (int o = 0; o < NV; ++o) {
+    hstore(o, i, j, hh[o]);
+    if (i != j) hstore(o, j, i, hh[o]);
+  }
+
+  if (i == j) {
+    // column i of da/dq or da/dv
+    S* dst = (K == QQ) ? Aq : Av;
+    const int cc = (K == QQ) ? i : i - NV;
+    for (int o = 0; o < NV; ++o) dst[(o * NV + cc) * Ns + n] = di[o];
+    // tau cross block of direction i: -M^-1 (d_i M) M^-1 e_k; M does not
+    // depend on v, so a v direction's block is exactly zero
     for (int k = 0; k < NV; ++k) {
       S col[NV];
-      for (int r = 0; r < NV; ++r) col[r] = (r == k) ? S(1) : S(0);
-      chol_apply<S, NV>(L, col);
-      for (int r = 0; r < NV; ++r) Mi[(r * NV + k) * Ns + n] = col[r];
+      if constexpr (K == QQ) {
+        for (int r = 0; r < NV; ++r) {
+          S s = S(0);
+          for (int c = 0; c < NV; ++c) s = s + dMi[r][c] * Mi[(c * NV + k) * Ns + n];
+          col[r] = -s;
+        }
+        chol_apply<S, NV>(L, col);
+      } else {
+        for (int r = 0; r < NV; ++r) col[r] = S(0);
+      }
+      for (int o = 0; o < NV; ++o) {
+        hstore(o, NC + k, i, col[o]);
+        hstore(o, i, NC + k, col[o]);
+      }
     }
-    // a is affine in tau: the tau-tau block is exactly zero
-    for (int o = 0; o < NV; ++o)
-      for (int k = 0; k < NV; ++k)
-        for (int k2 = 0; k2 < NV; ++k2) hstore(o, NC + k, NC + k2, S(0));
   }
 }
 
 template <typename S, int NV>
-int launch(const void* topo, const void* consts, const void* qvu, void* a,
-           void* Aq, void* Av, void* Mi, void* H, int N, cudaStream_t stream) {
-  const int threads = 64;
-  const dim3 grid((N + threads - 1) / threads, NV * (2 * NV + 1) + 1);
-  fd_derivs2_kernel<S, NV><<<grid, threads, 0, stream>>>(
-      static_cast<const int*>(topo), static_cast<const S*>(consts),
-      static_cast<const S*>(qvu), static_cast<S*>(a), static_cast<S*>(Aq),
-      static_cast<S*>(Av), static_cast<S*>(Mi), static_cast<S*>(H), N);
+int launch(const void* topo_, const void* consts_, const void* qvu_, void* a_, void* Aq_,
+           void* Av_, void* Mi_, void* Lf_, void* H_, int N, cudaStream_t stream) {
+  const auto topo = static_cast<const int*>(topo_);
+  const auto consts = static_cast<const S*>(consts_);
+  const auto qvu = static_cast<const S*>(qvu_);
+  const auto a = static_cast<S*>(a_);
+  const auto Mi = static_cast<S*>(Mi_);
+  const auto Lf = static_cast<S*>(Lf_);
+  const auto Aq = static_cast<S*>(Aq_);
+  const auto Av = static_cast<S*>(Av_);
+  const auto H = static_cast<S*>(H_);
+  const int blocks = (N + 63) / 64;
+  fd2_primal_kernel<S, NV><<<blocks, 64, 0, stream>>>(topo, consts, qvu, a, Mi, Lf, H, N);
+  fd2_pair_kernel<S, NV, QQ><<<dim3(blocks, pair_count<QQ, NV>()), 64, 0, stream>>>(
+      topo, consts, qvu, a, Mi, Lf, Aq, Av, H, N);
+  fd2_pair_kernel<S, NV, QV><<<dim3(blocks, pair_count<QV, NV>()), 64, 0, stream>>>(
+      topo, consts, qvu, a, Mi, Lf, Aq, Av, H, N);
+  fd2_pair_kernel<S, NV, VV><<<dim3(blocks, pair_count<VV, NV>()), 64, 0, stream>>>(
+      topo, consts, qvu, a, Mi, Lf, Aq, Av, H, N);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NV>
-int launch_dtype(int is_double, const void* topo, const void* consts,
-                 const void* qvu, void* a, void* Aq, void* Av, void* Mi,
-                 void* H, int N, cudaStream_t s) {
-  return is_double ? launch<double, NV>(topo, consts, qvu, a, Aq, Av, Mi, H, N, s)
-                   : launch<float, NV>(topo, consts, qvu, a, Aq, Av, Mi, H, N, s);
+int launch_dtype(int is_double, const void* topo, const void* consts, const void* qvu, void* a,
+                 void* Aq, void* Av, void* Mi, void* Lf, void* H, int N, cudaStream_t s) {
+  return is_double ? launch<double, NV>(topo, consts, qvu, a, Aq, Av, Mi, Lf, H, N, s)
+                   : launch<float, NV>(topo, consts, qvu, a, Aq, Av, Mi, Lf, H, N, s);
 }
 
 }  // namespace
 
 // Plain C entry point, loaded through ctypes.  ``topo``, ``consts`` and
-// ``qvu`` are ddp_fd_derivs's (fd_derivs.cu); ``H`` is [nv*(3nv)*(3nv), N].
-// Returns cudaGetLastError() after the launch; -1 for an nv this build does
-// not instantiate.
+// ``qvu`` are ddp_fd_derivs's (fd_derivs.cu); ``Lf`` is a scratch buffer of
+// [nv*(nv+1)/2, N] for the factor of M; ``H`` is [nv*(3nv)*(3nv), N].
+// Returns cudaGetLastError() after the four launches; -1 for an nv this build
+// does not instantiate.
 extern "C" int ddp_fd_derivs2(int is_double, int nv, int N, const void* topo,
                               const void* consts, const void* qvu, void* a,
-                              void* Aq, void* Av, void* Mi, void* H,
+                              void* Aq, void* Av, void* Mi, void* Lf, void* H,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N <= 0) return 0;  // an empty grid is not a valid launch
-  if (nv == 2) return launch_dtype<2>(is_double, topo, consts, qvu, a, Aq, Av, Mi, H, N, s);
-  if (nv == 6) return launch_dtype<6>(is_double, topo, consts, qvu, a, Aq, Av, Mi, H, N, s);
-  if (nv == 7) return launch_dtype<7>(is_double, topo, consts, qvu, a, Aq, Av, Mi, H, N, s);
+  if (nv == 2) return launch_dtype<2>(is_double, topo, consts, qvu, a, Aq, Av, Mi, Lf, H, N, s);
+  if (nv == 6) return launch_dtype<6>(is_double, topo, consts, qvu, a, Aq, Av, Mi, Lf, H, N, s);
+  if (nv == 7) return launch_dtype<7>(is_double, topo, consts, qvu, a, Aq, Av, Mi, Lf, H, N, s);
   return -1;
 }

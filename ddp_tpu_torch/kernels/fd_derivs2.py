@@ -11,12 +11,17 @@ factor of M:
     M ∂(τ_k)∂s a = −(∂s M)·(M⁻¹ e_k),         ∂τ∂τ' a = 0
 
 — what the full-DDP derivative pass needs of the dynamics.  ``fd_derivs2``
-runs the CUDA kernel ``csrc/fd_derivs2.cu`` on CUDA tensors (one thread per
-sample and pair of (q, v) directions, the chain in hyper-dual numbers) and
-the plain PyTorch version ``fd_derivs2_reference`` on CPU tensors.  The
-plain version follows the kernel's algorithm: nested forward-mode tangents
-through the same chain, the same solves against the same unrolled Cholesky,
-both triangles of H written from one value.
+runs the CUDA kernel ``csrc/fd_derivs2.cu`` on CUDA tensors (a primal pass
+that runs the chain, factors M and forms a and M⁻¹ once a sample, then one
+pass per kind of pair of (q, v) directions, a thread per sample and pair:
+the whole chain in hyper-dual numbers for a (q, q) pair, the kinematics in
+one tangent and only the RNEA half in hyper-duals for a (q, v) pair, the
+kinematics in plain numbers for a (v, v) pair, each solving against the
+primal pass's factor) and the plain PyTorch version ``fd_derivs2_reference``
+on CPU tensors.  The plain version follows the kernel's algorithm: nested
+forward-mode tangents through the same chain, the same right-hand sides
+solved against the same unrolled Cholesky, both triangles of H written from
+one value.
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ from ddp_tpu_torch.kernels.fd_derivs import (
 from ddp_tpu_torch.kernels.riccati_small import _chol_solve
 
 SOURCE = "fd_derivs2.cu"
-# kernel launches since import (or since a caller reset it)
+# kernel calls since import (or since a caller reset it); each launches the
+# primal pass and the three pair passes
 LAUNCHES = 0
 
 
@@ -142,6 +148,7 @@ def _launch(model, q, v, tau):
     a_t = torch.empty((nv, N), dtype=dtype, device=dev)
     Aq_t, Av_t, Mi_t = (torch.empty((nv * nv, N), dtype=dtype, device=dev) for _ in range(3))
     H_t = torch.empty((nv * 9 * nv * nv, N), dtype=dtype, device=dev)
+    L_t = torch.empty((nv * (nv + 1) // 2, N), dtype=dtype, device=dev)  # factor of M
     if N == 0:  # nothing to launch, and nothing to count
         return (*unpack_outputs(a_t, Aq_t, Av_t, Mi_t), unpack_hessian(H_t, nv))
     fn = _kernel_fn()
@@ -152,7 +159,7 @@ def _launch(model, q, v, tau):
         rc = fn(
             int(dtype == torch.float64), nv, N, topo.data_ptr(), consts.data_ptr(),
             qvu.data_ptr(), a_t.data_ptr(), Aq_t.data_ptr(), Av_t.data_ptr(),
-            Mi_t.data_ptr(), H_t.data_ptr(), stream,
+            Mi_t.data_ptr(), L_t.data_ptr(), H_t.data_ptr(), stream,
         )  # fmt: skip
     if rc != 0:
         raise RuntimeError(f"fd_derivs2 kernel launch failed: CUDA error {rc}")
@@ -163,6 +170,6 @@ def _launch(model, q, v, tau):
 def _kernel_fn():
     lib = _build.load(SOURCE)
     fn = lib.ddp_fd_derivs2
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
     fn.restype = ctypes.c_int
     return fn

@@ -1,19 +1,25 @@
-"""Batched small-dimension Riccati backward sweep, batch-last layout
-(≙ ddp_tpu/kernels/riccati_small.py).
+"""Batched small-dimension Riccati backward sweep over a whole
+regularization ladder (≙ ddp_tpu/kernels/riccati_small.py, which ddp_tpu
+launches once per reg level).
 
-Every per-step array is [T, rows, B] with matrices flattened row-major into
-the middle axis (``pack_batch_last``).  ``backward_sweep`` runs the CUDA
-kernel ``csrc/riccati_small.cu`` on CUDA tensors — one thread per lane, the
-whole reverse T loop in the thread — and the plain PyTorch version
-``backward_sweep_reference`` on CPU tensors.  AL multiplier terms throughout;
-with the six rank-3 slabs ``fxx … equu`` in the packed dict (full DDP) the
-Q-expansion gains ``Vx·fxx + tmp·eqxx`` and its ux/uu counterparts, without
+``backward_ladder`` takes batch-major ``Derivs`` ([B, T, …]), the multipliers,
+μ [B] and the ladder's levels [L, B], sweeps every level and keeps per lane
+the first one whose factorization held: (k [B, T, m], K [B, T, m, n],
+ok [B], reg_used [B]).  On CUDA tensors that is one launch of
+``csrc/riccati_small.cu``, reading the batch-major tensors as they are (one
+block per lane and a warp per level at n ≥ 12, one thread per lane and level
+below); on CPU tensors it is the plain PyTorch version
+``backward_ladder_reference``, one ``backward_sweep_reference`` per level
+over the batch-last ``pack_batch_last`` layout below.  AL multiplier terms
+throughout; with ``second_order`` the six rank-3 slabs ``fxx … equu`` add
+``Vx·fxx + tmp·eqxx`` and its ux/uu counterparts to the Q expansion, without
 them it is the Gauss-Newton form.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -26,10 +32,13 @@ KERNEL_DIMS = ((2, 1, 1), (12, 6, 6), (14, 7, 3))
 # … and with the second-order terms: pendulum, cartpole/acrobot with a
 # configuration target, panda7 with a frame target
 KERNEL_DIMS_SECOND_ORDER = ((2, 1, 1), (4, 2, 2), (14, 7, 3))
-# kernel launches since import (or since a caller reset it), and how many
-# of them ran the second-order instantiation
+# the most reg levels one launch sweeps (a warp, or a row of threads, each)
+MAX_LEVELS = 16
+# kernel launches since import (or since a caller reset it), how many of
+# them ran a second-order instantiation, and the reg levels they swept
 LAUNCHES = 0
 LAUNCHES_SECOND_ORDER = 0
+LEVELS_SWEPT = 0
 
 _INPUTS = (
     "lx", "lu", "lxx", "lux", "luu", "fx", "fu",
@@ -40,10 +49,10 @@ _INPUTS_SECOND_ORDER = ("fxx", "fux", "fuu", "eqxx", "equx", "equu")
 
 
 def pack_batch_last(derivs, mult_val, mult_jac, second_order: bool = False):
-    """Batch-major Derivs ([B, T, …]) → the kernel's dict of [T, rows, B]
-    arrays, plus the terminal lfx [n, B] and lfxx [n*n, B].  With
-    ``second_order`` the six rank-3 tensor blocks ride along for the full-DDP
-    sweep."""
+    """Batch-major Derivs ([B, T, …]) → a dict of [T, rows, B] arrays, plus
+    the terminal lfx [n, B] and lfxx [n*n, B]: the layout of the plain
+    version.  With ``second_order`` the
+    six rank-3 tensor blocks ride along for the full-DDP sweep."""
 
     def mv(x, rows):
         b, t = x.shape[0], x.shape[1]
@@ -116,9 +125,9 @@ def _chol_solve(A, R, reg):
 
 
 def backward_sweep_reference(derivs_bl: dict, mu, reg, *, T, n, m, e):
-    """Plain PyTorch version of the kernel: the same inputs and outputs,
-    batched tensor ops over the lanes of each [rows, B] slab; the
-    second-order terms are added when ``derivs_bl`` holds the rank-3 slabs.
+    """One level of the plain version: the sweep at reg [B] in batched tensor
+    ops over the lanes of each [rows, B] slab of ``pack_batch_last``'s dict;
+    the second-order terms are added when it holds the rank-3 slabs.
 
     Returns (k [T, m, B], K [T, m*n, B], ok [B] bool)."""
     d = derivs_bl
@@ -168,70 +177,142 @@ def backward_sweep_reference(derivs_bl: dict, mu, reg, *, T, n, m, e):
     return k_out, K_out, ok
 
 
-def backward_sweep(derivs_bl: dict, mu, reg, *, T, n, m, e):
-    """Riccati backward sweep over the whole batch: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors.
+def backward_ladder_reference(derivs, mult_val, mult_jac, mu, levels, second_order=False):
+    """Plain PyTorch version of the kernel: ``backward_sweep_reference`` at
+    each level of ``levels`` [L, B], keeping per lane the first level whose
+    factorization held (level 0's gains and reg where none did).  Returns
+    batch-major (k [B, T, m], K [B, T, m, n], ok [B], reg_used [B])."""
+    B, T = derivs.lx.shape[0], derivs.lx.shape[1]
+    n, m, e = derivs.lx.shape[-1], derivs.lu.shape[-1], derivs.eq.shape[-1]
+    packed = pack_batch_last(derivs, mult_val, mult_jac, second_order=second_order)
+    k = K = None
+    ok_acc = torch.zeros(B, dtype=torch.bool, device=mu.device)
+    reg_used = levels[0]
+    for lvl in levels:
+        k_i, K_i, ok_i = backward_sweep_reference(packed, mu, lvl, T=T, n=n, m=m, e=e)
+        newly = ~ok_acc & ok_i
+        if k is None:
+            k, K = k_i, K_i
+        else:
+            k = torch.where(newly, k_i, k)
+            K = torch.where(newly, K_i, K)
+        reg_used = torch.where(newly, lvl, reg_used)
+        ok_acc = ok_acc | ok_i
+    return k.permute(2, 0, 1), K.reshape(T, m, n, B).permute(3, 0, 1, 2), ok_acc, reg_used
 
-    ``derivs_bl`` is ``pack_batch_last``'s dict, with or without the
-    second-order slabs; mu, reg are [B].
-    Returns (k [T, m, B], K [T, m*n, B], ok [B] bool)."""
-    if derivs_bl["lx"].device.type == "cpu":
-        return backward_sweep_reference(derivs_bl, mu, reg, T=T, n=n, m=m, e=e)
-    return _launch(derivs_bl, mu, reg, T=T, n=n, m=m, e=e)
+
+def backward_ladder(derivs, mult_val, mult_jac, mu, levels, second_order=False):
+    """The Riccati sweep at every reg level of ``levels`` [L, B] over the
+    whole batch, keeping per lane the first level that factorized: one
+    kernel launch for CUDA tensors, the plain version for CPU tensors.
+    ``derivs`` is batch-major ``Derivs`` (with the rank-3 slabs when
+    ``second_order``), ``mult_val`` [B, T, e], ``mult_jac`` [B, T, e, n],
+    ``mu`` [B].  Returns (k [B, T, m], K [B, T, m, n], ok [B], reg_used [B])."""
+    if mu.device.type == "cpu":
+        return backward_ladder_reference(derivs, mult_val, mult_jac, mu, levels, second_order)
+    return launch_plan(plan_launch(derivs, mult_val, mult_jac, mu, levels, second_order))
 
 
-def _launch(d, mu, reg, *, T, n, m, e):
-    global LAUNCHES, LAUNCHES_SECOND_ORDER
-    second_order = "fxx" in d
+def kernel_inputs(derivs, mult_val, mult_jac, mu, levels, second_order=False):
+    """Check a call against the kernel's instantiations and gates, and return
+    the tensors it reads, contiguous, by name: the per-step fields
+    (batch-major [B, T, rows]), mu, levels, lfx [B, n] and lfxx [B, n*n].  Raises ValueError or TypeError for
+    what the kernel does not take."""
+    B, T = derivs.lx.shape[0], derivs.lx.shape[1]
+    n, m, e = derivs.lx.shape[-1], derivs.lu.shape[-1], derivs.eq.shape[-1]
     have = KERNEL_DIMS_SECOND_ORDER if second_order else KERNEL_DIMS
     if (n, m, e) not in have:
         raise ValueError(
             f"no CUDA instantiation for (n, m, e)={(n, m, e)}"
             f"{' with second-order terms' if second_order else ''}; have {have}"
         )
-    lx = d["lx"]
-    B, dtype, dev = lx.shape[-1], lx.dtype, lx.device
+    dtype, dev = mu.dtype, mu.device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernel takes float32 or float64, got {dtype}")
+    L = levels.shape[0]
+    if levels.dim() != 2 or not 1 <= L <= MAX_LEVELS:
+        raise ValueError(f"levels must be [L, B] with 1 <= L <= {MAX_LEVELS}, got {tuple(levels.shape)}")
     rows = _rows(n, m, e, second_order)
-    expected = {k: (T, r, B) for k, r in rows.items()}
-    expected.update(lfx=(n, B), lfxx=(n * n, B))
-    tensors = {k: d[k] for k in expected}
-    tensors.update(mu=mu, reg=reg)
-    expected.update(mu=(B,), reg=(B,))
+    # a lane's step slab of each batch-major field is contiguous, its trailing
+    # dims flattened row-major (the rank-3 slabs in row (o·r + i)·c + j)
+    fields = {k: getattr(derivs, k) for k in rows if k not in ("pe", "pex")}
+    fields.update(pe=mult_val, pex=mult_jac)
+    tensors = {k: x.flatten(2).contiguous() for k, x in fields.items()}
+    tensors.update(mu=mu, levels=levels, lfx=derivs.lfx, lfxx=derivs.lfxx.flatten(1))
+    expected = {k: (B, T, r) for k, r in rows.items()}
+    expected.update(mu=(B,), levels=(L, B), lfx=(B, n), lfxx=(B, n * n))
     for k, x in tensors.items():
         if x.device != dev or x.dtype != dtype:
             raise ValueError(f"{k}: {x.dtype} on {x.device}, expected {dtype} on {dev}")
         if tuple(x.shape) != expected[k]:
             raise ValueError(f"{k}: shape {tuple(x.shape)}, expected {expected[k]}")
-        if not x.is_contiguous():
-            raise ValueError(f"{k} must be contiguous")
+    return {k: x.contiguous() for k, x in tensors.items()}
 
-    fn = _kernel_fn()
-    order = _INPUTS + ("mu", "reg", "lfx", "lfxx")
-    if second_order:
-        order += _INPUTS_SECOND_ORDER
-    ptrs = (ctypes.c_void_p * len(order))(*[tensors[k].data_ptr() for k in order])
-    k_out = torch.empty((T, m, B), dtype=dtype, device=dev)
-    K_out = torch.empty((T, m * n, B), dtype=dtype, device=dev)
-    ok = torch.empty((B,), dtype=torch.bool, device=dev)
+
+class LaunchPlan(NamedTuple):
+    """What one launch reads and writes: the C entry point's integer
+    arguments (is_double, second_order, n, m, e, T, B, L), its inputs in
+    order, the per-level scratch and the outputs (k, K, ok, reg_used)."""
+
+    ints: tuple
+    inputs: tuple
+    scratch: tuple
+    outputs: tuple
+
+
+def plan_launch(derivs, mult_val, mult_jac, mu, levels, second_order=False) -> LaunchPlan:
+    """Check a call against the kernel's gates and lay out and allocate what
+    one launch needs (``kernel_inputs``, the outputs, the scratch)."""
+    tensors = kernel_inputs(derivs, mult_val, mult_jac, mu, levels, second_order)
+    B, T = derivs.lx.shape[0], derivs.lx.shape[1]
+    n, m, e = derivs.lx.shape[-1], derivs.lu.shape[-1], derivs.eq.shape[-1]
+    L = levels.shape[0]
+    kw = dict(dtype=mu.dtype, device=mu.device)
+    order = _INPUTS + _INPUTS_SECOND_ORDER + ("mu", "levels", "lfx", "lfxx")
+    # per-level gains, chosen from at the end; one level writes the outputs
+    scratch = (
+        torch.empty((L * B * T * m if L > 1 else 0,), **kw),
+        torch.empty((L * B * T * m * n if L > 1 else 0,), **kw),
+    )
+    outputs = (
+        torch.empty((B, T, m), **kw), torch.empty((B, T, m, n), **kw),
+        torch.empty((B,), dtype=torch.bool, device=mu.device), torch.empty((B,), **kw),
+    )  # fmt: skip
+    ints = (int(mu.dtype == torch.float64), int(second_order), n, m, e, T, B, L)
+    return LaunchPlan(ints, tuple(tensors.get(k) for k in order), scratch, outputs)
+
+
+def launch_plan(plan: LaunchPlan):
+    """Launch the kernel once on ``plan``.  Returns its output tensors
+    (k [B, T, m], K [B, T, m, n], ok [B], reg_used [B])."""
+    global LAUNCHES, LAUNCHES_SECOND_ORDER, LEVELS_SWEPT
+    ptrs = (ctypes.c_void_p * len(plan.inputs))(
+        *[0 if x is None else x.data_ptr() for x in plan.inputs]
+    )
+    dev = plan.outputs[0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            int(dtype == torch.float64), int(second_order), n, m, e, T, B,
-            ctypes.cast(ptrs, ctypes.c_void_p),
-            k_out.data_ptr(), K_out.data_ptr(), ok.data_ptr(), stream,
+        rc = _kernel_fn()(
+            *plan.ints, ctypes.cast(ptrs, ctypes.c_void_p),
+            *[x.data_ptr() for x in plan.scratch + plan.outputs], stream,
         )  # fmt: skip
+    _, second_order, n, m, e, _, _, L = plan.ints
+    if rc == -3:
+        raise RuntimeError(
+            f"riccati_small: {L} levels at {(n, m, e)} need more shared memory a block "
+            "than this card allows; use fewer levels"
+        )
     if rc != 0:
         raise RuntimeError(f"riccati_small kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
-    LAUNCHES_SECOND_ORDER += int(second_order)
-    return k_out, K_out, ok
+    LAUNCHES_SECOND_ORDER += second_order
+    LEVELS_SWEPT += L
+    return plan.outputs
 
 
 def _kernel_fn():
     lib = _build.load(SOURCE)
-    fn = lib.ddp_riccati_small_bwd
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
+    fn = lib.ddp_riccati_ladder
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 8
     fn.restype = ctypes.c_int
     return fn

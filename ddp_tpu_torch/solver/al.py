@@ -8,6 +8,7 @@ Constant multipliers are the jac ≡ 0 special case.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -21,6 +22,21 @@ class AffineMults(NamedTuple):
     val: torch.Tensor  # [..., T, m]
     jac: torch.Tensor  # [..., T, m, ndx]
     origin: torch.Tensor  # [..., T, nx]
+
+
+@contextlib.contextmanager
+def full_fp32_matmuls():
+    """Full-float32 matmuls on the card inside, whatever the caller's
+    ``matmul_precision`` allowed outside; restored on exit.  Wraps the stages
+    ddp_tpu pins to "highest" (the Riccati sweep, the optimality adjoints,
+    ``update_origin``), where TF32 noise trips the multiplier gates.  No
+    effect on the CPU."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
 
 
 def mv(A, x):
@@ -50,6 +66,7 @@ def eval_mults(model, mults: AffineMults, xs) -> torch.Tensor:
     return mults.val + mv(mults.jac, state_difference(model, mults.origin, xs[..., :-1, :]))
 
 
+@full_fp32_matmuls()
 def update_origin(model, mults: AffineMults, xs) -> AffineMults:
     """Re-expand the affine functions about a new trajectory:
     val += jac·(x_new ⊖ origin);  jac = jac·d_diff_dfinish;  origin = x_new."""
@@ -92,6 +109,7 @@ def optimality_constr(derivs) -> torch.Tensor:
     return norms.amax(dim=-1)
 
 
+@full_fp32_matmuls()
 def _adjoint_scores(derivs, mult_val, mult_jac, mu):
     """Reverse adjoint recursion shared by optimality_obj/lag; ``mu`` None
     drops the μ·eq penalty terms."""

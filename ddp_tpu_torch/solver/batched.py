@@ -34,7 +34,7 @@ from ddp_tpu_torch.kernels.fd_derivs import fd_derivs
 from ddp_tpu_torch.kernels.fd_derivs2 import fd_derivs2
 from ddp_tpu_torch.kernels.flat_problem import pack_problem
 from ddp_tpu_torch.kernels.linesearch_flat import linesearch as linesearch_flat
-from ddp_tpu_torch.kernels.riccati_small import backward_sweep, pack_batch_last
+from ddp_tpu_torch.kernels.riccati_small import backward_ladder
 from ddp_tpu_torch.ocp.dynamics import EulerDynamics, _vector_space_config
 from ddp_tpu_torch.solver import al as al_mod
 from ddp_tpu_torch.solver.riccati import factor_solve
@@ -63,6 +63,7 @@ def _reg_levels(mu, reg, n_levels):
     return [reg] + [base * 16.0**i for i in range(n_levels - 1)]
 
 
+@al_mod.full_fp32_matmuls()
 def _backward_sweep(derivs, mult_val, mult_jac, mu, reg):
     """One batched Riccati sweep (no retry): returns (k [B,T,nu],
     K [B,T,nu,ndx], ok [B])."""
@@ -131,33 +132,12 @@ def _backward_multi_reg(derivs, mult_val, mult_jac, mu, reg, n_levels):
 def _backward_kernel_levels(
     derivs, mult_val, mult_jac, mu, reg, n_levels, second_order=False
 ):
-    """The Riccati kernel over the whole batch, one launch per reg level,
-    keeping per lane the first level that factorized; ``second_order`` packs
-    the rank-3 slabs for the full-DDP sweep.  Returns batch-major
-    (k [B,T,m], K [B,T,m,n], ok [B], reg_used [B])."""
-    B, T = derivs.lx.shape[0], derivs.lx.shape[1]
-    n, m, e = derivs.lx.shape[-1], derivs.lu.shape[-1], derivs.eq.shape[-1]
-    packed = pack_batch_last(derivs, mult_val, mult_jac, second_order=second_order)
-    k = K = None
-    ok_acc = torch.zeros(B, dtype=torch.bool, device=mu.device)
-    reg_used = reg
-    for lvl in _reg_levels(mu, reg, n_levels):
-        k_i, K_i, ok_i = backward_sweep(packed, mu, lvl, T=T, n=n, m=m, e=e)
-        newly = ~ok_acc & ok_i
-        if k is None:
-            k, K = k_i, K_i
-        else:
-            k = torch.where(newly, k_i, k)
-            K = torch.where(newly, K_i, K)
-        reg_used = torch.where(newly, lvl, reg_used)
-        ok_acc = ok_acc | ok_i
-    # kernel layout [T, m, B] / [T, m*n, B] → batch-major
-    return (
-        k.permute(2, 0, 1),
-        K.reshape(T, m, n, B).permute(3, 0, 1, 2),
-        ok_acc,
-        reg_used,
-    )
+    """The Riccati kernel over the whole batch and the whole regularization
+    ladder in one launch, keeping per lane the first level that factorized;
+    ``second_order`` adds the rank-3 slabs for the full-DDP sweep.  Returns
+    batch-major (k [B,T,m], K [B,T,m,n], ok [B], reg_used [B])."""
+    levels = torch.stack(_reg_levels(mu, reg, n_levels))
+    return backward_ladder(derivs, mult_val, mult_jac, mu, levels, second_order=second_order)
 
 
 def _linesearch_sweep(problem, xs, us, k, K, mults, mu, n_candidates):
@@ -294,7 +274,9 @@ def _kernel_derivatives(problem):
 def _matmul_precision(precision):
     """float32 matmul precision on the card for the duration of a solve:
     "highest" → full float32, "high"/"default" → TF32 allowed, None → the
-    process setting untouched.  Restored on exit; no effect on the CPU."""
+    process setting untouched.  Restored on exit; no effect on the CPU.  The
+    gate-critical stages stay in full float32 under any setting
+    (``al.full_fp32_matmuls``)."""
     if precision is None:
         yield
         return
@@ -338,11 +320,13 @@ def solve_batched(
     x0s: torch.Tensor,  # [B, nx]
     us_init: torch.Tensor | None = None,  # [B, T, nu]
     method: Method = Method.PRIMAL_DUAL_AFFINE,
-    n_linesearch: int | None = None,  # default 8 candidates (1 … 1/128)
+    n_linesearch: int | None = None,
+    # default 8 candidates (1 … 1/128); 7 (1 … 1/64) with forward="kernel",
+    # as ddp_tpu's forward="pallas"
     backward: str = "sweep",
     # "sweep": batched PyTorch Riccati sweep with the parallel reg ladder
-    # "kernel": the Riccati kernel (kernels/riccati_small.py), one launch per
-    #   reg level over the whole batch
+    # "kernel": the Riccati kernel (kernels/riccati_small.py), one launch over
+    #   the whole batch and every reg level
     forward: str = "sweep",
     # "sweep": every step candidate rolled out in one [S, B] batch
     # "seq": early-exit ladder, largest step first, until every lane has
@@ -413,7 +397,8 @@ def _solve_batched(
     w_min = torch.tensor(params.w_min, **kw) if params.w_min is not None else 10.0 * eps**0.5
     threshold = torch.tensor(params.threshold, **kw)
     if n_linesearch is None:
-        n_linesearch = 8
+        # ddp_tpu's forward="pallas" default (1 … 1/64), else its sweep's
+        n_linesearch = 7 if forward == "kernel" else 8
     if us_init is None:
         us_init = torch.zeros((B, T, nu), **kw)
 

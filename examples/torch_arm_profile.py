@@ -82,7 +82,7 @@ def main():
     layers = {
         f"derivatives deriv=kernel ({iters + 2})": lambda: kernel_derivs(xs, us),
         "  (derivatives deriv=jvp)": lambda: problem.derivatives(xs, us),
-        f"backward kernel, 4 levels incl. packing ({iters + 1})": backward_kernel,
+        f"backward kernel, 4 levels in one launch ({iters + 1})": backward_kernel,
         "  (backward sweep, 4 levels)": lambda: (
             batched._backward_multi_reg(derivs, mults.val, mults.jac, mu, reg, 4)
         ),
@@ -101,13 +101,6 @@ def main():
         ),
         "whole solve": whole,
     }
-    if second:
-        layers = {
-            "  (packing the second-order slabs alone)": lambda: cs.rs.pack_batch_last(
-                derivs, mults.val, mults.jac, second_order=True
-            ),
-            **layers,
-        }
     for name, fn in layers.items():
         print(f"[layer] {name}: {wall_ms(fn, 3 if name == 'whole solve' else 5):.3f} ms", flush=True)
 

@@ -1,0 +1,191 @@
+"""The CUDA sources of kernels #1 (``csrc/riccati_small.cu``) and #3
+(``csrc/fd_derivs2.cu``) compiled as host C++ and run block by block on the
+CPU (``tests/cuda_host/``: one std::thread per GPU thread, barriers for
+``__syncthreads``/``__syncwarp``), in float64, against their plain PyTorch
+versions on the same numpy-seeded inputs.
+
+This holds each kernel's own algorithm, thread roles, shared-memory layout
+and indexing to the plain version where there is no card; it says nothing of
+what nvcc makes of the source, which ``chip_smoke.py`` checks on the card.
+Each source is built twice: at -O1, and at -O2 under AddressSanitizer and
+UndefinedBehaviorSanitizer, which fail the run on an out-of-bounds access or
+undefined behaviour in the kernel's C++.
+Bars: the plain versions' own (1e-9 of each array's largest entry, H 1e-8),
+ok and reg_used exactly equal, H exactly symmetric."""
+
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from ddp_tpu_torch.kernels import fd_derivs as fd
+from ddp_tpu_torch.kernels import fd_derivs2 as fd2
+from ddp_tpu_torch.kernels import riccati_small as rs
+from ddp_tpu_torch.models import robots
+from ddp_tpu_torch.solver import batched as tbatched
+
+from torch_parity_helpers import random_spd_derivs, t, to_torch_derivs
+
+REPO = Path(__file__).resolve().parent.parent
+CSRC = REPO / "ddp_tpu_torch" / "csrc"
+HOST = REPO / "tests" / "cuda_host"
+# where each source's host launchers (they use <<<…>>>) begin
+CUTS = {
+    "fd_derivs2.cu": "template <typename S, int NV>\nint launch(",
+    "riccati_small.cu": "// ------------------------------------------------------------ launch",
+}
+DYNAMIC_SMEM = "extern __shared__ __align__(16) unsigned char smem_raw[];"
+FLAGS = {
+    "O1": ["-O1"],
+    "O2_asan_ubsan": ["-O2", "-fsanitize=address,undefined", "-fno-sanitize-recover=all"],
+}
+RUN_ENV = {"ASAN_OPTIONS": "detect_leaks=0"}
+
+
+def run(args):
+    subprocess.run(args, check=True, timeout=600, env=dict(os.environ, **RUN_ENV))
+
+
+def build(source, harness, out_dir, flags):
+    """The kernels of ``csrc/<source>`` (everything before its launchers) in
+    ``tests/cuda_host/<harness>``, compiled with the host's g++ and
+    ``FLAGS[flags]``."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler (g++) to build the kernels for the CPU")
+    src = (CSRC / source).read_text()
+    body = src[: src.index(CUTS[source])] + "\n}  // namespace\n"
+    if DYNAMIC_SMEM in body:
+        body = body.replace(DYNAMIC_SMEM, "unsigned char* const smem_raw = host_dynamic_smem;")
+    (out_dir / "kernel.inc").write_text(body)
+    exe = out_dir / Path(harness).stem
+    subprocess.run(
+        [cxx, "-std=c++20", *FLAGS[flags], "-pthread", f"-I{out_dir}", f"-I{HOST}", f"-I{CSRC}",
+         "-o", str(exe), str(HOST / harness)],
+        check=True, capture_output=True, timeout=600,
+    )  # fmt: skip
+    return exe
+
+
+def dump(x, path):
+    x.detach().contiguous().numpy().tofile(path)
+
+
+# ------------------------------------------------------------- kernel #3
+
+
+@pytest.fixture(scope="module", params=sorted(FLAGS))
+def fd2_host(request, tmp_path_factory):
+    return build("fd_derivs2.cu", "fd_derivs2_host.cpp", tmp_path_factory.mktemp("fd2"), request.param)
+
+
+FD2_OUTPUTS = ("a", "da_dq", "da_dv", "Minv", "H")
+FD2_BARS = (1e-9, 1e-9, 1e-9, 1e-9, 1e-8)
+
+
+@pytest.fixture(scope="module", params=["cartpole", "panda7"])
+def fd2_case(request, fd2_host, tmp_path_factory):
+    """The host-built kernel and the plain version on 3 numpy-seeded samples."""
+    model = getattr(robots, request.param)(device="cpu", dtype=torch.float64)
+    nv, N = model.nv, 3
+    rng = np.random.default_rng(11)
+    q = t(rng.uniform(-np.pi, np.pi, (N, nv)))
+    v, tau = t(rng.normal(size=(N, nv))), t(rng.normal(size=(N, nv)))
+    d = tmp_path_factory.mktemp(request.param)
+    topo, consts = fd._model_constants(model, torch.float64, "cpu")
+    dump(topo, d / "topo.i32")
+    dump(consts, d / "consts.f64")
+    dump(fd.pack_inputs(q, v, tau), d / "qvu.f64")
+    run([str(fd2_host), str(nv), str(N), str(d)])
+
+    def out(name, rows):
+        return torch.from_numpy(np.fromfile(d / f"{name}.f64").reshape(rows, N))
+
+    got = (
+        *fd.unpack_outputs(out("a", nv), out("Aq", nv * nv), out("Av", nv * nv), out("Mi", nv * nv)),
+        fd2.unpack_hessian(out("H", 9 * nv**3), nv),
+    )
+    return got, fd2.fd_derivs2_reference(model, q, v, tau)
+
+
+@pytest.mark.parametrize("k", range(5), ids=FD2_OUTPUTS)
+def test_fd2_kernel_matches_plain_version(fd2_case, k):
+    got, ref = fd2_case
+    assert bool(torch.isfinite(got[k]).all())  # every entry written
+    scale = max(1.0, float(ref[k].abs().max()))
+    np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(), rtol=0, atol=FD2_BARS[k] * scale)
+
+
+def test_fd2_kernel_hessian_structure(fd2_case):
+    """Both triangles from one value; exact zeros in the ττ and vτ blocks."""
+    H = fd2_case[0][4]
+    nv = H.shape[1]
+    assert torch.equal(H, H.transpose(-1, -2))
+    assert float(H[:, :, 2 * nv :, 2 * nv :].abs().max()) == 0.0
+    assert float(H[:, :, nv : 2 * nv, 2 * nv :].abs().max()) == 0.0
+
+
+# ------------------------------------------------------------- kernel #1
+
+
+@pytest.fixture(scope="module", params=sorted(FLAGS))
+def riccati_host(request, tmp_path_factory):
+    return build("riccati_small.cu", "riccati_small_host.cpp", tmp_path_factory.mktemp("ric"), request.param)
+
+
+def ladder_inputs(B, T, n, m, e, second_order, seed):
+    """Random blocks with non-zero rank-3 slabs for ``second_order``; lane 1
+    fails at reg and at the first escalation and holds at the second, lane 2
+    fails everywhere (μ = 1e3, reg = 0)."""
+    fields, pe, pex = random_spd_derivs(B, T, n, m, e, seed)
+    if second_order:
+        rng = np.random.default_rng(seed + 100)
+        for name, rows in (("f", n), ("eq", e)):
+            G = 2e-4 * rng.normal(size=(B, T, rows, n + m, n + m))
+            G = 0.5 * (G + np.swapaxes(G, -1, -2))
+            for key, blk in (("xx", G[..., :n, :n]), ("ux", G[..., n:, :n]), ("uu", G[..., n:, n:])):
+                fields[name + key] = np.ascontiguousarray(blk)
+    fields["luu"][1] = -5e3 * np.eye(m)
+    fields["luu"][2] = -1e9 * np.eye(m)
+    return to_torch_derivs(fields), t(pe), t(pex), t(np.full(B, 1e3)), t(np.zeros(B))
+
+
+@pytest.mark.parametrize(
+    "second_order,dims,B,T,L",
+    [
+        (False, (14, 7, 3), 3, 5, 4),
+        (True, (14, 7, 3), 3, 5, 4),
+        (False, (12, 6, 6), 3, 4, 1),
+        (False, (2, 1, 1), 37, 6, 1),
+        (True, (2, 1, 1), 37, 6, 3),
+        (True, (4, 2, 2), 37, 6, 4),
+    ],
+    ids=["gn_n14_L4", "so_n14_L4", "gn_n12_L1", "gn_n2_L1", "so_n2_L3", "so_n4_L4"],
+)
+def test_riccati_ladder_kernel_matches_plain_version(riccati_host, tmp_path, second_order, dims, B, T, L):
+    """Both programs (a block per lane and a warp per level at n >= 12; a
+    thread per lane and level below, ragged over 32-lane blocks) at every
+    order they instantiate: ok and reg_used equal, gains within 1e-9, lanes
+    no level saved NaN in both."""
+    n, m, e = dims
+    derivs, pe, pex, mu, reg = ladder_inputs(B, T, n, m, e, second_order, seed=n + L)
+    levels = torch.stack(tbatched._reg_levels(mu, reg, L))
+    for name, x in rs.kernel_inputs(derivs, pe, pex, mu, levels, second_order).items():
+        dump(x, tmp_path / f"{name}.f64")
+    args = [int(second_order), n, m, e, T, B, L]
+    run([str(riccati_host), *map(str, args), str(tmp_path)])
+    k = torch.from_numpy(np.fromfile(tmp_path / "k.f64").reshape(B, T, m))
+    K = torch.from_numpy(np.fromfile(tmp_path / "K.f64").reshape(B, T, m, n))
+    reg_used = torch.from_numpy(np.fromfile(tmp_path / "reg_used.f64"))
+    ok = torch.from_numpy(np.fromfile(tmp_path / "ok.u8", dtype=np.uint8))
+    k_r, K_r, ok_r, reg_r = rs.backward_ladder_reference(derivs, pe, pex, mu, levels, second_order)
+    assert ok.tolist() == ok_r.to(torch.uint8).tolist()
+    assert torch.equal(reg_used, reg_r)
+    if L > 2:
+        assert ok_r.tolist()[:3] == [True, True, False] and float(reg_r[1]) == 3.2e4
+    np.testing.assert_allclose(k.numpy(), k_r.numpy(), rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(K.numpy(), K_r.numpy(), rtol=1e-9, atol=1e-9)

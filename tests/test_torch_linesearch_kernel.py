@@ -163,6 +163,37 @@ def test_solve_forward_kernel_matches_sweep_and_jax(method):
         np.testing.assert_array_equal(tk.mu.numpy(), ref_mu)
 
 
+def test_default_candidates_follow_jax_pallas(monkeypatch):
+    """``n_linesearch=None``: forward="kernel" takes 7 candidates, as ddp_tpu's
+    forward="pallas" does, and the other forwards 8; the default kernel solve
+    agrees with ddp_tpu's default Pallas solve (interpret mode) in f64."""
+    Bm, Hm = 4, 16
+    jp, tp = both_problems(Hm, np.float64)
+    x0s = headline_x0s(Bm, np.float64)
+    seen = []
+    for name in ("linesearch_flat", "_linesearch_sweep"):
+        real = getattr(tbatched, name)
+        monkeypatch.setattr(
+            tbatched, name, lambda *a, real=real, name=name: (seen.append((name, a[-1])), real(*a))[1]
+        )
+    params = SolverParams(**PARAMS)
+    tbatched.solve_batched(tp, params._replace(max_iterations=1), t(x0s), n_reg_levels=1)
+    assert set(seen) == {("_linesearch_sweep", 8)}
+    seen.clear()
+    tk = tbatched.solve_batched(
+        tp, params, t(x0s), forward="kernel", backward="kernel", n_reg_levels=1
+    )
+    assert set(seen) == {("linesearch_flat", 7)}
+    jr = jax.jit(
+        lambda x: jbatched.solve_batched(
+            jp, JParams(**PARAMS), x, backward="pallas", forward="pallas",
+            n_reg_levels=1, interpret=True,
+        )  # fmt: skip
+    )(x0s)
+    np.testing.assert_allclose(tk.us.numpy(), np.asarray(jr.us), atol=1e-9)
+    np.testing.assert_array_equal(tk.mu.numpy(), np.asarray(jr.mu))
+
+
 def test_forward_kernel_refuses_problems_outside_the_class():
     from torch_parity_helpers import PANDA_READY, jax_arm_problem, torch_problem
     from ddp_tpu.models import robots as jrobots

@@ -2,8 +2,9 @@
 
 The CUDA kernel itself runs only on a card (``chip_smoke.py`` holds it to
 the plain version there); on the CPU the wrapper takes the plain PyTorch
-version, which these tests hold to the Pallas kernel in interpret mode and
-to the XLA sweep, on the same numpy-seeded inputs."""
+version, which these tests hold to the Pallas kernel in interpret mode, to
+the XLA sweep and to both of ddp_tpu's regularization ladders, on the same
+numpy-seeded inputs."""
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ from ddp_tpu.kernels.riccati_small import backward_sweep_pallas
 from ddp_tpu.kernels.riccati_small import pack_batch_last as jax_pack
 from ddp_tpu.solver import al as jal
 from ddp_tpu.solver import batched as jbatched
+from ddp_tpu.solver.batched import _backward_pallas_levels
 from ddp_tpu.solver.batched import _backward_sweep as jax_backward_sweep
 from ddp_tpu_torch.kernels import riccati_small as rs
 from ddp_tpu_torch.ocp.problem import Derivs as TDerivs
@@ -147,12 +149,12 @@ def test_pack_batch_last_matches_jax_exactly():
 def test_wrapper_on_cpu_runs_the_plain_version_without_a_launch():
     B, H = 8, 16
     derivs, val, jac = pendulum_batch(B, H, np.float64)
-    packed = packed_torch(derivs, val, jac)
-    mu, reg = torch.full((B,), 1e3, dtype=torch.float64), torch.zeros(B, dtype=torch.float64)
-    before = rs.LAUNCHES
-    got = rs.backward_sweep(packed, mu, reg, T=H, n=2, m=1, e=1)
-    ref = rs.backward_sweep_reference(packed, mu, reg, T=H, n=2, m=1, e=1)
-    assert rs.LAUNCHES == before
+    args = (TDerivs(*[t(x) for x in derivs]), t(val), t(jac), torch.full((B,), 1e3, dtype=torch.float64))
+    levels = torch.stack([torch.zeros(B, dtype=torch.float64), torch.full((B,), 2e3, dtype=torch.float64)])
+    before = rs.LAUNCHES, rs.LEVELS_SWEPT
+    got = rs.backward_ladder(*args, levels)
+    ref = rs.backward_ladder_reference(*args, levels)
+    assert (rs.LAUNCHES, rs.LEVELS_SWEPT) == before
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
 
@@ -169,13 +171,61 @@ def test_second_order_terms_are_not_ported():
         rs._INPUTS_SECOND_ORDER
     )
     assert packed["fxx"].shape == (H, 8, B) and packed["equu"].shape == (H, 1, B)
-    k, K, ok = rs.backward_sweep(packed, t(np.ones(B)), t(np.zeros(B)), T=H, n=2, m=1, e=1)
-    assert bool(ok.all()) and k.shape == (H, 1, B) and K.shape == (H, 2, B)
+    k, K, ok, reg_used = rs.backward_ladder(
+        to_torch_derivs(fields), t(pe), t(pex), t(np.ones(B)), t(np.zeros((1, B))), True
+    )
+    assert bool(ok.all()) and k.shape == (B, H, 1) and K.shape == (B, H, 1, 2)
+    assert bool((reg_used == 0).all())
     f12, pe12, pex12 = second_order_fields(B, H, 12, 6, 6, seed=0)
-    packed12 = rs.pack_batch_last(to_torch_derivs(f12), t(pe12), t(pex12), second_order=True)
     with pytest.raises(ValueError, match=r"\(12, 6, 6\) with second-order terms"):
-        rs._launch(packed12, t(np.ones(B)), t(np.zeros(B)), T=H, n=12, m=6, e=6)
+        rs.plan_launch(to_torch_derivs(f12), t(pe12), t(pex12), t(np.ones(B)), t(np.zeros((1, B))), True)
     assert (12, 6, 6) in rs.KERNEL_DIMS  # … while its Gauss-Newton form is there
+
+
+def test_launch_gates_raise_before_any_build():
+    """Level counts, dtypes and shapes the kernel does not take raise before
+    anything is built (this runs where there is no compiler)."""
+    B, H = 3, 4
+    fields, pe, pex = random_spd_derivs(B, H, 14, 7, 3, seed=1)
+    d, mu = to_torch_derivs(fields), t(np.ones(B))
+    with pytest.raises(ValueError, match="1 <= L <= 16"):
+        rs.plan_launch(d, t(pe), t(pex), mu, t(np.zeros((17, B))), False)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        rs.plan_launch(d, t(pe), t(pex), mu.half(), t(np.zeros((1, B))), False)
+    with pytest.raises(ValueError, match="pex: shape"):
+        rs.plan_launch(d, t(pe), t(pex[:, :, :2]), mu, t(np.zeros((1, B))), False)
+    with pytest.raises(ValueError, match="levels: torch.float32"):
+        rs.plan_launch(d, t(pe), t(pex), mu, t(np.zeros((2, B), np.float32)), False)
+    with pytest.raises(ValueError, match=r"\(3, 1, 1\)"):
+        f3, pe3, pex3 = random_spd_derivs(B, H, 3, 1, 1, seed=1)
+        rs.plan_launch(to_torch_derivs(f3), t(pe3), t(pex3), mu, t(np.zeros((1, B))), False)
+
+
+@pytest.mark.parametrize(
+    "second_order,dims",
+    [(False, (14, 7, 3)), (True, (14, 7, 3)), (False, (2, 1, 1)), (True, (4, 2, 2))],
+    ids=["gn", "so", "gn_n2", "so_n4"],
+)
+def test_lane_major_inputs_are_the_batch_last_rows(second_order, dims):
+    """Both kernel programs read each lane's step slab straight from the
+    batch-major Derivs: row r of a [B, T, rows] input at (b, t) must be row r
+    of ``pack_batch_last``'s [T, rows, B] at (t, b), rank-3 slabs included
+    (row (o·r + i)·c + j)."""
+    B, T = 3, 4
+    n, m, e = dims
+    fields, pe, pex = second_order_fields(B, T, n, m, e, seed=6)
+    d, mu = to_torch_derivs(fields), t(np.ones(B))
+    lane = rs.kernel_inputs(d, t(pe), t(pex), mu, t(np.zeros((1, B))), second_order)
+    assert torch.equal(lane.pop("mu"), mu) and lane.pop("levels").shape == (1, B)
+    packed = rs.pack_batch_last(d, t(pe), t(pex), second_order=second_order)
+    assert set(packed) == set(lane)
+    for key, x in lane.items():
+        assert x.is_contiguous(), key
+        if key in ("lfx", "lfxx"):
+            assert torch.equal(x, packed[key].T), key
+        else:
+            assert x.shape == (B, T, packed[key].shape[1]), key
+            assert torch.equal(x.permute(1, 2, 0), packed[key]), key
 
 
 # ------------------------------------------------------------- second order
@@ -252,7 +302,7 @@ def test_second_order_reference_matches_xla_sweep_random_blocks(dims):
         jnp.asarray(mu), jnp.asarray(reg),
     )  # fmt: skip
     packed = rs.pack_batch_last(to_torch_derivs(fields), t(pe), t(pex), second_order=True)
-    k_t, K_t, ok_t = rs.backward_sweep(packed, t(mu), t(reg), T=T, n=n, m=m, e=e)
+    k_t, K_t, ok_t = rs.backward_sweep_reference(packed, t(mu), t(reg), T=T, n=n, m=m, e=e)
     assert bool(np.all(ok_j)) and bool(ok_t.all())
     np.testing.assert_allclose(
         k_t.permute(2, 0, 1).numpy(), np.asarray(k_j), rtol=1e-9, atol=1e-9
@@ -273,7 +323,7 @@ def test_second_order_ladder_picks_the_sweep_backends_level():
     fields["fuu"][1] = -40.0 * np.eye(m)  # Vx·fuu swamps luu on lane 1
     mu, reg = np.full((Bl,), 1e3), np.zeros(Bl)
     packed = rs.pack_batch_last(to_torch_derivs(fields), t(pe), t(pex), second_order=True)
-    k0, _, ok0 = rs.backward_sweep(packed, t(mu), t(reg), T=T, n=n, m=m, e=e)
+    k0, _, ok0 = rs.backward_sweep_reference(packed, t(mu), t(reg), T=T, n=n, m=m, e=e)
     assert ok0.tolist() == [True, False, True, True]
     assert bool(torch.isnan(k0[..., 1]).any()) and bool(torch.isfinite(k0[..., [0, 2, 3]]).all())
     k_j, K_j, ok_j, reg_j = jax.vmap(
@@ -290,3 +340,68 @@ def test_second_order_ladder_picks_the_sweep_backends_level():
         np.testing.assert_array_equal(reg_u.numpy(), np.asarray(reg_j))
         np.testing.assert_allclose(k.numpy(), np.asarray(k_j), rtol=1e-9, atol=1e-9)
         np.testing.assert_allclose(K.numpy(), np.asarray(K_j), rtol=1e-9, atol=1e-9)
+
+
+# ------------------------------------------------------------- the ladder
+
+
+def ladder_fields(second_order, seed=8):
+    """Random blocks at (4, 2, 2) (second order) or (2, 1, 1) (Gauss-Newton)
+    with lane 1 failing at reg = 0 and at the ladder's first escalation and
+    holding at its second (luu = −5e3·I against the levels 0, 2e3, 3.2e4,
+    5.12e5 at μ = 1e3), and lane 2 failing at every level."""
+    Bl, T = 4, 6
+    n, m, e = (4, 2, 2) if second_order else (2, 1, 1)
+    if second_order:
+        fields, pe, pex = second_order_fields(Bl, T, n, m, e, seed=seed)
+    else:
+        fields, pe, pex = random_spd_derivs(Bl, T, n, m, e, seed=seed)
+    fields["luu"][1] = -5e3 * np.eye(m)
+    fields["luu"][2] = -1e9 * np.eye(m)
+    return fields, pe, pex, np.full((Bl,), 1e3), np.zeros(Bl), (T, n, m, e)
+
+
+@pytest.mark.parametrize("reference", ["multi_reg", "pallas_levels"])
+@pytest.mark.parametrize("second_order", [False, True], ids=["gn", "so"])
+def test_ladder_matches_jax_ladders(second_order, reference):
+    """The plain ladder in one call against ddp_tpu's two ladders — the XLA
+    sweep's ``_backward_multi_reg`` and the Pallas kernel's
+    ``_backward_pallas_levels`` in interpret mode, one launch per level —
+    on the same inputs: ok and reg_used equal, gains within 1e-9 (NaN where
+    no level held)."""
+    fields, pe, pex, mu, reg, (T, n, m, e) = ladder_fields(second_order)
+    jd = to_jax_derivs(fields)
+    if reference == "multi_reg":
+        k_j, K_j, ok_j, reg_j = jax.vmap(
+            lambda d, v, j, m_, r: jbatched._backward_multi_reg(d, v, j, m_, r, n_levels=4)
+        )(jd, pe, pex, mu, reg)
+    else:
+        k_j, K_j, ok_j, reg_j = jax.jit(
+            lambda d, v, j, m_, r: _backward_pallas_levels(
+                d, v, j, m_, r, n_levels=4, interpret=True, second_order=second_order
+            )
+        )(jd, jnp.asarray(pe), jnp.asarray(pex), jnp.asarray(mu), jnp.asarray(reg))
+    assert np.asarray(ok_j).tolist() == [True, True, False, True]
+    assert float(np.asarray(reg_j)[1]) == 3.2e4
+    levels = torch.stack(tbatched._reg_levels(t(mu), t(reg), 4))
+    k, K, ok, reg_u = rs.backward_ladder(
+        to_torch_derivs(fields), t(pe), t(pex), t(mu), levels, second_order
+    )
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(ok_j))
+    np.testing.assert_array_equal(reg_u.numpy(), np.asarray(reg_j))
+    np.testing.assert_allclose(k.numpy(), np.asarray(k_j), rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(K.numpy(), np.asarray(K_j), rtol=1e-9, atol=1e-9)
+    assert bool(torch.isnan(k[2]).all())  # level 0's failed gains
+
+
+@pytest.mark.parametrize("second_order", [False, True], ids=["gn", "so"])
+def test_ladder_level_is_the_single_level_sweep_bit_for_bit(second_order):
+    """A lane saved by level 2 gets exactly the gains a sweep at that level
+    alone gives: the ladder sweeps its levels independently and copies."""
+    fields, pe, pex, mu, reg, (T, n, m, e) = ladder_fields(second_order)
+    d = to_torch_derivs(fields)
+    levels = torch.stack(tbatched._reg_levels(t(mu), t(reg), 4))
+    k, K, ok, reg_u = rs.backward_ladder(d, t(pe), t(pex), t(mu), levels, second_order)
+    k2, K2, ok2, reg2 = rs.backward_ladder(d, t(pe), t(pex), t(mu), levels[2:3], second_order)
+    assert bool(ok[1]) and bool(ok2[1]) and float(reg_u[1]) == float(reg2[1]) == 3.2e4
+    assert torch.equal(k[1], k2[1]) and torch.equal(K[1], K2[1])

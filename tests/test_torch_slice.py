@@ -231,6 +231,42 @@ def test_reg_ladder_backends_match_jax():
         close(K, K_j, atol=1e-10, rtol=1e-10)
 
 
+def test_gate_critical_stages_run_in_full_fp32(monkeypatch):
+    """``matmul_precision="high"`` allows TF32 for the solve, but the Riccati
+    sweep, the optimality adjoints and ``update_origin`` run inside
+    ``al.full_fp32_matmuls`` with TF32 off, as ddp_tpu pins them to
+    "highest"; the process setting comes back after the solve, and after the
+    guard even when its body raises."""
+    seen = {}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            seen.setdefault(name, set()).add(torch.backends.cuda.matmul.allow_tf32)
+            return fn(*a, **kw)
+
+        return wrapped
+
+    # tmv: the sweep and the adjoints; state_difference_jacobian:
+    # update_origin alone; mv: update_origin and the line search's AL cost
+    for name in ("tmv", "state_difference_jacobian", "mv"):
+        monkeypatch.setattr(tal, name, spy(name, getattr(tal, name)))
+    _, tp = both_problems(8, np.float64)
+    before = torch.backends.cuda.matmul.allow_tf32
+    params = SolverParams(max_iterations=2, threshold=1e-5, mu=1e4, inner_iters_max=1)
+    tbatched.solve_batched(
+        tp, params, t(headline_x0s(4, np.float64)), matmul_precision="high", **HEADLINE_KW
+    )
+    assert seen["tmv"] == {False} and seen["state_difference_jacobian"] == {False}
+    assert seen["mv"] == {False, True}  # the unpinned line search kept TF32
+    assert torch.backends.cuda.matmul.allow_tf32 == before
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="inside"):
+        with tal.full_fp32_matmuls():
+            assert not torch.backends.cuda.matmul.allow_tf32
+            raise RuntimeError("inside")
+    assert torch.backends.cuda.matmul.allow_tf32
+
+
 # ------------------------------------------------------------- whole solve
 
 
