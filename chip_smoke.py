@@ -55,10 +55,11 @@
    end-effector target, H=16, f32, 24 AL iterations) through solve_batched
    with deriv="kernel", backward="kernel", forward="seq"; checks both
    kernels' launch counts (26 fd, 25 Riccati sweeping 4 levels each),
-   finiteness and the feasible share, prints the share under
-   matmul_precision="high" beside "highest" (no bar: TF32 outside the pinned
-   stages costs lanes, ROADMAP Queue 3) and checks that the pinned stages
-   give the same bits with TF32 allowed around them, then the same solve with
+   finiteness and the feasible share, holds the share under
+   matmul_precision="high" within 0.02 of "highest" and checks that the
+   stages al.full_fp32_matmuls pins (the sweep backward, the adjoints,
+   update_origin, both eager line searches) give the same bits with TF32
+   allowed around them, then the same solve with
    deriv="jvp", backward="sweep", and both in f64 at 6 iterations (us within
    1e-7 of each lane's largest |u|, identical μ).
 6. full second-order DDP on the arm (benchmarks/arm_second_order.py's
@@ -108,7 +109,13 @@ from ddp_tpu_torch.ocp import constraints, costs, dynamics
 from ddp_tpu_torch.ocp.problem import Problem
 from ddp_tpu_torch.ocp.problem import Derivs
 from ddp_tpu_torch.solver import al
-from ddp_tpu_torch.solver.batched import _backward_sweep, _reg_levels, solve_batched
+from ddp_tpu_torch.solver.batched import (
+    _backward_sweep,
+    _linesearch_seq,
+    _linesearch_sweep,
+    _reg_levels,
+    solve_batched,
+)
 from ddp_tpu_torch.solver.solve import SolverParams
 
 B, T = 4096, 32
@@ -563,8 +570,9 @@ def arm_solve(problem, x0s, us0, deriv, backward, params=ARM):
 
 def tf32_guard_parity(problem, res):
     """The stages ``al.full_fp32_matmuls`` pins (the sweep backward, the
-    optimality adjoints, update_origin) must give the same bits with TF32
-    allowed around them as with it off, on the arm's finished solve.  Also
+    optimality adjoints, update_origin, the sweep and seq line searches on
+    the sweep's gains) must give the same bits with TF32 allowed around them
+    as with it off, on the arm's finished solve.  Also
     reports whether the same stages without the guard change under TF32 at
     all (cuBLAS may take a non-tensor-core kernel for such small products,
     and then the guard has nothing to undo at these shapes)."""
@@ -572,11 +580,15 @@ def tf32_guard_parity(problem, res):
     mults, mu, reg = res.mults, res.mu, res.reg
 
     def stages(unwrap=lambda f: f):
+        k, K, ok = unwrap(_backward_sweep)(derivs, mults.val, mults.jac, mu, reg)
+        ls = (problem, res.xs, res.us, k, K, mults, mu, ARM_KW["n_linesearch"])
         return (
-            *unwrap(_backward_sweep)(derivs, mults.val, mults.jac, mu, reg),
+            k, K, ok,
             unwrap(al._adjoint_scores)(derivs, mults.val, mults.jac, mu),
             *unwrap(al.update_origin)(problem.model, mults, res.xs),
-        )
+            *unwrap(_linesearch_sweep)(*ls),
+            *unwrap(_linesearch_seq)(*ls),
+        )  # fmt: skip
 
     def same(xs, ys):  # NaN where both are
         return all(a.shape == b.shape and bool(((a == b) | (a != a) & (b != b)).all())
@@ -621,15 +633,16 @@ def arm_main_path():
     res_j = arm_solve(p32, x32, u32, "jvp", "sweep")
     frac_j = float((res_j.opt_constr < 1e-2).float().mean())
     check(abs(frac_k - frac_j) <= 0.02, f"arm feasible shares {frac_k} vs {frac_j}")
-    # TF32 allowed for the solve (the gate-critical stages stay in full
-    # float32 whatever the setting)
+    # TF32 allowed for the solve (the gate-critical stages and the line
+    # search stay in full float32 whatever the setting)
     res_h = solve_batched(p32, ARM, x32, us_init=u32, deriv="kernel", backward="kernel",
                           **dict(ARM_KW, matmul_precision="high"))  # fmt: skip
     torch.cuda.synchronize()
     frac_h = float((res_h.opt_constr < 1e-2).float().mean())
     check(bool(torch.isfinite(res_h.us).all()), "arm f32 under matmul_precision='high': non-finite us")
+    check(abs(frac_h - frac_k) <= 0.02, f"arm frac_main under 'high' {frac_h} vs 'highest' {frac_k}")
     guard = tf32_guard_parity(p32, res_k)
-    say("arm_f32_matmul_precision", frac_main_highest=frac_k, frac_main_high=frac_h,
+    say("arm_f32_matmul_precision", frac_main_highest=frac_k, frac_main_high=frac_h, bar=0.02,
         us_max_diff=f"{float((res_h.us - res_k.us).abs().max()):.3e}",
         mu_equal=float((res_h.mu == res_k.mu).float().mean()), **guard)  # fmt: skip
     say("arm_f32", B=ARM_B, H=ARM_H, iters=ARM.max_iterations, fd_launches=fd_launches,
@@ -680,10 +693,11 @@ def check_finite(res, what):
     """Everything a caller uses of a full-DDP result is finite.  ``opt_lag``
     is left out and counted instead: the recipe caps neither μ nor the
     iteration count, so after 24 + 4 iterations in f32 μ has reached 1e16 to
-    1e28 and the multipliers 1e12 to 1e21 on lanes that are feasible, and the
-    stationarity measure's adjoint recursion overflows on some of them (the
-    same schedule, and the same overflow, in ddp_tpu).  Returns the number of
-    lanes whose ``opt_lag`` is not finite."""
+    1e28 and the multipliers 1e12 to 1e21 on lanes that are feasible (the
+    same schedule in ddp_tpu).  The measure's norm is scaled where its plain
+    sum of squares overflows (``al._adjoint_scores``), so a lane counted here
+    overflowed inside the adjoint recursion.  Returns the number of lanes
+    whose ``opt_lag`` is not finite."""
     for name in ("xs", "us", "fb_k", "fb_K", "opt_constr", "mu", "reg", "w", "n"):
         check(bool(torch.isfinite(getattr(res, name)).all()), f"{what}: non-finite {name}")
     check(bool(torch.isfinite(res.mults.val).all()), f"{what}: non-finite multipliers")
@@ -826,12 +840,16 @@ def linesearch_bound_ms(Tk, nx, m, e, Bk, n_cand):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def flat_solve_chain_steps(Tk, n_iters, n_ls):
+def flat_solve_chain_steps(Tk, n_iters, threads_per_lane):
     """Length of one lane's dependent chain in the whole-solve program, in
-    step evaluations: the initial rollout, then per pass the backward sweep,
-    the incumbent's cost, n_ls candidate rollouts and the accepted one, per
-    iteration also the adjoint sweep, and the final adjoint sweep."""
-    return Tk * (1 + (n_iters + 1) * (n_ls + 3) + n_iters + 1)
+    step evaluations: the initial rollout, then per pass the derivatives (and
+    re-anchoring) spread over the lane's threads, the backward sweep (the
+    incumbent's cost beside it), one candidate rollout (the others beside
+    it) and the commit spread over the threads, per iteration also one
+    adjoint sweep (the other beside it), and the final pass's derivatives and
+    adjoint sweep."""
+    spread = -(-Tk // threads_per_lane)
+    return Tk + (n_iters + 1) * (2 * Tk + 2 * spread) + n_iters * Tk + spread + Tk
 
 
 def flat_solve_bound_ms(Tk, nx, m, e, Bk, n_iters, n_ls):
@@ -868,11 +886,14 @@ def fd_flops(parents):
       (two 6×6 products with the inertia 72, six cross products 36, the
       subspace products 13, vector sums 18), composite sums 42; then M: a
       6×6·6 product per joint and a 6-dot per (ancestor, joint) pair;
-    - nv tangents of that chain for ∂/∂q at twice its cost each, and nv
-      tangents of the RNEA part alone for ∂/∂v (∂M/∂v = 0: no kinematics, no
-      inertia, no M);
-    - one Cholesky factor nv³/3, the products (∂_q M)·a 2·nv³, and 3·nv + 1
-      forward/backward substitutions of 2·nv² each."""
+    - nv tangents, at twice the cost each, of RNEA(q, v, a) at the primal a
+      for ∂/∂q: the kinematics, the inertias and the RNEA with the joint
+      accelerations (6 multiply-adds a body), no composite inertias and no
+      M, since ∂_q bias + (∂_q M)·a is that one tangent; and nv tangents of
+      the RNEA part alone for ∂/∂v (∂M/∂v = 0: no kinematics, no inertia, no
+      M);
+    - one Cholesky factor nv³/3 and 3·nv + 1 forward/backward substitutions
+      of 2·nv² each."""
     nv = len(parents)
     pairs = 0
     for j in range(nv):
@@ -881,16 +902,18 @@ def fd_flops(parents):
             pairs, i = pairs + 1, parents[i]
     rnea = nv * (260 + 6)
     chain = nv * (210 + 180 + 42) + rnea + 2 * (36 * nv + 6 * pairs)
-    return chain + nv * 2 * chain + nv * 2 * rnea + nv**3 // 3 + 2 * nv**3 + (3 * nv + 1) * 2 * nv * nv
+    rnea_at_a = nv * (210 + 180) + rnea + 2 * 6 * nv
+    return chain + nv * 2 * rnea_at_a + nv * 2 * rnea + nv**3 // 3 + (3 * nv + 1) * 2 * nv * nv
 
 
-def fd_bound_ms(model, N):
-    """Least time for one float32 call on N samples: 3·nv inputs and
-    nv + 3·nv² outputs per sample moved once at the card's memory rate, or
-    ``fd_flops`` at the float peak."""
-    nv, item = model.nv, 4
+def fd_bound_ms(model, N, item=4):
+    """Least time for one call on N samples: 3·nv inputs and nv + 3·nv²
+    outputs per sample moved once at the card's memory rate, or ``fd_flops``
+    at the peak of the type (``item`` bytes a value)."""
+    nv = model.nv
     bytes_ms = 1e3 * N * (3 * nv + nv + 3 * nv * nv) * item / HBM_BYTES_PER_S
-    ops_ms = 1e3 * fd_flops(tuple(model.parents)) * N / F32_FLOPS_PER_S
+    peak = F32_FLOPS_PER_S if item == 4 else F64_FLOPS_PER_S
+    ops_ms = 1e3 * fd_flops(tuple(model.parents)) * N / peak
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -1272,6 +1295,7 @@ def main():
     # phase 3)
     fs_plan = fs.plan_launch(p32, HEADLINE, x32, n_linesearch=n_ls)
     fs_ms = event_ms(lambda: fs.launch_plan(fs_plan))
+    fs_chain = flat_solve_chain_steps(T, HEADLINE.max_iterations, fs_plan.geometry["threads_per_lane"])
     fs_call_ms = event_ms(lambda: fs.solve_flat(p32, HEADLINE, x32, n_linesearch=n_ls))
     p64 = problem_from_numpy(SPEC, device=DEV, dtype=torch.float64)
     fs_plan64 = fs.plan_launch(p64, HEADLINE, headline_x0s(torch.float64), n_linesearch=n_ls)
@@ -1282,8 +1306,9 @@ def main():
         kernel_ms=f"{fs_ms:.4f}", wrapper_call_ms=f"{fs_call_ms:.4f}",
         kernel_f64_ms=f"{fs_f64_ms:.4f}", plain_ms=f"{fs_plain_ms:.1f}", bound_ms=f"{fs_bound:.5f}", bound_by=fs_bound_by,
         kernel_over_bound=f"{fs_ms / fs_bound:.1f}",
-        chain_step_evaluations=flat_solve_chain_steps(T, HEADLINE.max_iterations, n_ls),
-        us_per_chain_step=f"{1e3 * fs_ms / flat_solve_chain_steps(T, HEADLINE.max_iterations, n_ls):.4f}")  # fmt: skip
+        chain_step_evaluations=fs_chain,
+        us_per_chain_step=f"{1e3 * fs_ms / fs_chain:.4f}",
+        plan_f32=fs_plan.geometry, plan_f64=fs_plan64.geometry)  # fmt: skip
     for path, run in (
         ("A_forward_kernel_backward_kernel",
          lambda: solve_batched(p32, HEADLINE, x32, backward="kernel", forward="kernel",
@@ -1308,11 +1333,15 @@ def main():
     fd_plain_ms = event_ms(lambda: fd.fd_derivs_reference(panda32, *fd_in))
     fd_model_ms = event_ms(lambda: panda32.fd_derivatives(*fd_in))
     fd_bound, fd_bound_by = fd_bound_ms(panda32, N)
+    fd_f64_in = tuple(x.double() for x in fd_in)
+    fd_f64_ms = event_ms(lambda: fd.fd_derivs(panda64, *fd_f64_in))
+    fd_bound_f64, _ = fd_bound_ms(panda64, N, item=8)
     say("time_fd_derivs", card=f"'{card}'", shape=f"panda7_N{N}_f32", kernel_ms=f"{fd_ms:.4f}",
         plain_ms=f"{fd_plain_ms:.4f}", model_fd_derivatives_ms=f"{fd_model_ms:.4f}",
         bound_ms=f"{fd_bound:.5f}", bound_by=fd_bound_by,
         flops_per_sample=fd_flops(tuple(panda32.parents)),
-        kernel_over_bound=f"{fd_ms / fd_bound:.1f}")  # fmt: skip
+        kernel_over_bound=f"{fd_ms / fd_bound:.1f}", kernel_f64_ms=f"{fd_f64_ms:.4f}",
+        bound_f64_ms=f"{fd_bound_f64:.5f}")  # fmt: skip
     arm_walls = {}
     for deriv, backward in (("kernel", "kernel"), ("jvp", "sweep")):
         arm_solve(a32, ax32, au32, deriv, backward)  # warm-up
@@ -1378,7 +1407,7 @@ def main():
             "replaces": "ddp_tpu/kernels/fd_derivs.py:500",
             "launches": arm_fd_launches, "max_abs_err": fd_err32, "ms": fd_ms,
             "plain_ms": fd_plain_ms, "bound_ms": fd_bound, "bound_by": fd_bound_by,
-            "library_ms": None,
+            "library_ms": None, "f64_ms": fd_f64_ms,
         },
         {
             "name": "fd_derivs2", "route": "cuda",
@@ -1414,7 +1443,7 @@ def main():
             "replaces": "ddp_tpu/kernels/flat_solve.py:690",
             "launches": fs_launches, "max_abs_err": k3["fs_err32"], "ms": fs_ms,
             "plain_ms": fs_plain_ms, "bound_ms": fs_bound, "bound_by": fs_bound_by,
-            "library_ms": None, "wrapper_call_ms": fs_call_ms,
+            "library_ms": None, "wrapper_call_ms": fs_call_ms, "f64_ms": fs_f64_ms,
         },
     ]}))  # fmt: skip
     print(json.dumps({"ok": True, "device": {

@@ -62,9 +62,13 @@ __device__ __forceinline__ void mat6_vec(const V* A, const V* x, V* y) {
 //
 //   chain_kinematics(q)            -> Sw (world joint subspace columns),
 //                                     Iw (world spatial inertias), per body
-//   chain_bias(v; Sw, Iw)          -> bias = RNEA(q, v, 0) with gravity and
-//                                     damping
+//   chain_bias(v; Sw, Iw[, acc])   -> bias = RNEA(q, v, 0) with gravity and
+//                                     damping, or RNEA(q, v, acc) = M acc +
+//                                     bias with the joint accelerations
 //   chain_mass(Sw, Iw)             -> M (Iw summed up the tree in place)
+//   chain_rnea(q, v, acc)          -> RNEA(q, v, acc), the kinematics and the
+//                                     pass down the tree body by body, so no
+//                                     body's world inertia is kept
 //
 // chain_bias reads Sw and Iw through functors sw(i, a), iw(i, a) (a the
 // row-major index), so a caller can hand it values computed in a cheaper
@@ -72,12 +76,13 @@ __device__ __forceinline__ void mat6_vec(const V* A, const V* x, V* y) {
 // in Dual numbers (M does not depend on v) and only the RNEA half in
 // hyper-duals.
 
+// body i of the kinematics: its world rotation Rw[i] (row-major) and position
+// pw[i] from its parent's, its world joint subspace column Sw_i and its world
+// spatial inertia Iw_i
 template <typename V, typename S, int NV>
-__device__ void chain_kinematics(const ModelView<S, NV>& md, const V* q, V (*Sw)[6],
-                                 V (*Iw)[36]) {
-  V Rw[NV][9];  // world rotations, row-major
-  V pw[NV][3];  // world positions
-  for (int i = 0; i < NV; ++i) {
+__device__ __forceinline__ void body_kinematics(const ModelView<S, NV>& md, int i, V qi,
+                                                V (*Rw)[9], V (*pw)[3], V* Sw_i, V* Iw_i) {
+  {
     const S* ax = md.axes + 3 * i;
     const S* Ep = md.jp_rot + 9 * i;
     const S* rp = md.jp_trans + 3 * i;
@@ -91,7 +96,7 @@ __device__ void chain_kinematics(const ModelView<S, NV>& md, const V* q, V (*Sw)
         for (int b = 0; b < 3; ++b)
           K2[a * 3 + b] = K[a * 3] * K[b] + K[a * 3 + 1] * K[3 + b] + K[a * 3 + 2] * K[6 + b];
       V s, c;
-      sin_cos(q[i], s, c);
+      sin_cos(qi, s, c);
       const V omc = V(S(1)) - c;
       for (int a = 0; a < 3; ++a)
         for (int b = 0; b < 3; ++b)  // E[b][a] = R[a][b]
@@ -104,7 +109,7 @@ __device__ void chain_kinematics(const ModelView<S, NV>& md, const V* q, V (*Sw)
     } else {  // prismatic: E = I, rj = q * axis
       for (int a = 0; a < 3; ++a) {
         for (int b = 0; b < 3; ++b) E[a * 3 + b] = V(a == b ? S(1) : S(0));
-        rj[a] = q[i] * V(ax[a]);
+        rj[a] = qi * V(ax[a]);
         s_ang[a] = S(0);
         s_lin[a] = ax[a];
       }
@@ -138,8 +143,8 @@ __device__ void chain_kinematics(const ModelView<S, NV>& md, const V* q, V (*Sw)
     }
     cross3(pw[i], sa, pxs);
     for (int a = 0; a < 3; ++a) {
-      Sw[i][a] = sa[a];
-      Sw[i][3 + a] = pxs[a] + sl[a];
+      Sw_i[a] = sa[a];
+      Sw_i[3 + a] = pxs[a] + sl[a];
     }
     // world spatial inertia Iw = X^T I X, X = X_bw = [[R^T, 0], [-R^T p^, R^T]]
     const V ph[9] = {V(S(0)), -pw[i][2], pw[i][1], pw[i][2], V(S(0)), -pw[i][0],
@@ -167,60 +172,75 @@ __device__ void chain_kinematics(const ModelView<S, NV>& md, const V* q, V (*Sw)
       for (int b = 0; b < 6; ++b) {
         V s = X[a] * Y[b];
         for (int k = 1; k < 6; ++k) s = s + X[k * 6 + a] * Y[k * 6 + b];
-        Iw[i][a * 6 + b] = s;
+        Iw_i[a * 6 + b] = s;
       }
     }
   }
 }
 
-template <typename V, typename S, int NV, typename SwF, typename IwF>
-__device__ void chain_bias(const ModelView<S, NV>& md, const V* v, SwF sw, IwF iw, V* bias) {
-  V vb[NV][6];  // body spatial velocities
-  V ab[NV][6];  // body spatial accelerations at zero joint acceleration
-  V fb[NV][6];  // body forces, then subtree forces
-  for (int i = 0; i < NV; ++i) {
-    const int p = md.parent[i];
-    // velocities and bias accelerations down the tree
-    V sv[6], psi[6];
-    for (int a = 0; a < 6; ++a) {
-      sv[a] = sw(i, a) * v[i];
-      vb[i][a] = (p < 0) ? sv[a] : vb[p][a] + sv[a];
-    }
-    {  // psi = crm(vb) sv = [w x sv_a, vl x sv_a + w x sv_l]
-      V t0[3], t1[3], t2[3];
-      cross3(vb[i], sv, t0);
-      cross3(vb[i] + 3, sv, t1);
-      cross3(vb[i], sv + 3, t2);
-      for (int a = 0; a < 3; ++a) {
-        psi[a] = t0[a];
-        psi[3 + a] = t1[a] + t2[a];
-      }
-    }
-    for (int a = 0; a < 6; ++a) {
-      const V base = (p < 0) ? V(a < 3 ? S(0) : -md.gravity[a - 3]) : ab[p][a];
-      ab[i][a] = base + psi[a];
-    }
-    // fb = Iw ab - crm(vb)^T (Iw vb);  crm(v)^T u = [-w x u_a - vl x u_l, -w x u_l]
-    V Ivb[6], Iab[6], t0[3], t1[3], t2[3];
-    for (int a = 0; a < 6; ++a) {
-      V s = iw(i, a * 6) * vb[i][0];
-      V u = iw(i, a * 6) * ab[i][0];
-      for (int k = 1; k < 6; ++k) {
-        s = s + iw(i, a * 6 + k) * vb[i][k];
-        u = u + iw(i, a * 6 + k) * ab[i][k];
-      }
-      Ivb[a] = s;
-      Iab[a] = u;
-    }
-    cross3(vb[i], Ivb, t0);
-    cross3(vb[i] + 3, Ivb + 3, t1);
-    cross3(vb[i], Ivb + 3, t2);
+template <typename V, typename S, int NV>
+__device__ void chain_kinematics(const ModelView<S, NV>& md, const V* q, V (*Sw)[6],
+                                 V (*Iw)[36]) {
+  V Rw[NV][9];  // world rotations, row-major
+  V pw[NV][3];  // world positions
+  for (int i = 0; i < NV; ++i) body_kinematics<V, S, NV>(md, i, q[i], Rw, pw, Sw[i], Iw[i]);
+}
+
+// body i of RNEA's pass down the tree: its spatial velocity vb[i],
+// acceleration ab[i] (with ACC, its joint's acceleration acc[i] included;
+// without, zero) and force fb[i] from its parent's
+template <typename V, typename S, int NV, bool ACC, typename SwF, typename IwF>
+__device__ __forceinline__ void body_rnea_down(const ModelView<S, NV>& md, int i, V vi,
+                                               const S* acc, SwF sw, IwF iw, V (*vb)[6],
+                                               V (*ab)[6], V (*fb)[6]) {
+  const int p = md.parent[i];
+  // velocities and bias accelerations down the tree
+  V sv[6], psi[6];
+  for (int a = 0; a < 6; ++a) {
+    sv[a] = sw(i, a) * vi;
+    vb[i][a] = (p < 0) ? sv[a] : vb[p][a] + sv[a];
+  }
+  {  // psi = crm(vb) sv = [w x sv_a, vl x sv_a + w x sv_l]
+    V t0[3], t1[3], t2[3];
+    cross3(vb[i], sv, t0);
+    cross3(vb[i] + 3, sv, t1);
+    cross3(vb[i], sv + 3, t2);
     for (int a = 0; a < 3; ++a) {
-      fb[i][a] = Iab[a] + (t0[a] + t1[a]);
-      fb[i][3 + a] = Iab[3 + a] + t2[a];
+      psi[a] = t0[a];
+      psi[3 + a] = t1[a] + t2[a];
     }
   }
-  // subtree forces up the tree
+  for (int a = 0; a < 6; ++a) {
+    const V base = (p < 0) ? V(a < 3 ? S(0) : -md.gravity[a - 3]) : ab[p][a];
+    ab[i][a] = base + psi[a];
+    if constexpr (ACC) ab[i][a] = ab[i][a] + sw(i, a) * V(acc[i]);
+  }
+  // fb = Iw ab - crm(vb)^T (Iw vb);  crm(v)^T u = [-w x u_a - vl x u_l, -w x u_l]
+  V Ivb[6], Iab[6], t0[3], t1[3], t2[3];
+  for (int a = 0; a < 6; ++a) {
+    V s = iw(i, a * 6) * vb[i][0];
+    V u = iw(i, a * 6) * ab[i][0];
+    for (int k = 1; k < 6; ++k) {
+      s = s + iw(i, a * 6 + k) * vb[i][k];
+      u = u + iw(i, a * 6 + k) * ab[i][k];
+    }
+    Ivb[a] = s;
+    Iab[a] = u;
+  }
+  cross3(vb[i], Ivb, t0);
+  cross3(vb[i] + 3, Ivb + 3, t1);
+  cross3(vb[i], Ivb + 3, t2);
+  for (int a = 0; a < 3; ++a) {
+    fb[i][a] = Iab[a] + (t0[a] + t1[a]);
+    fb[i][3 + a] = Iab[3 + a] + t2[a];
+  }
+}
+
+// RNEA's pass up the tree: subtree forces (fb in place), projected on the
+// joint subspaces, plus damping
+template <typename V, typename S, int NV, typename SwF>
+__device__ __forceinline__ void rnea_up(const ModelView<S, NV>& md, const V* v, SwF sw,
+                                        V (*fb)[6], V* out) {
   for (int i = NV - 1; i >= 0; --i) {
     const int p = md.parent[i];
     if (p >= 0)
@@ -229,8 +249,37 @@ __device__ void chain_bias(const ModelView<S, NV>& md, const V* v, SwF sw, IwF i
   for (int j = 0; j < NV; ++j) {
     V s = V(md.damping[j]) * v[j];
     for (int a = 0; a < 6; ++a) s = s + sw(j, a) * fb[j][a];
-    bias[j] = s;
+    out[j] = s;
   }
+}
+
+template <typename V, typename S, int NV, bool ACC = false, typename SwF, typename IwF>
+__device__ void chain_bias(const ModelView<S, NV>& md, const V* v, SwF sw, IwF iw, V* bias,
+                           const S* acc = nullptr) {
+  V vb[NV][6];  // body spatial velocities
+  V ab[NV][6];  // body spatial accelerations
+  V fb[NV][6];  // body forces, then subtree forces
+  for (int i = 0; i < NV; ++i) body_rnea_down<V, S, NV, ACC>(md, i, v[i], acc, sw, iw, vb, ab, fb);
+  rnea_up<V, S, NV>(md, v, sw, fb, bias);
+}
+
+// RNEA(q, v, acc) in one pass down the tree that runs each body's kinematics
+// just before its velocity, acceleration and force, so its world inertia is a
+// temporary; only the rotations, positions and subspace columns that the
+// children and the pass up the tree read are kept.
+template <typename V, typename S, int NV>
+__device__ void chain_rnea(const ModelView<S, NV>& md, const V* q, const V* v, const S* acc,
+                           V* tau) {
+  V Rw[NV][9], pw[NV][3], Sw[NV][6];
+  V vb[NV][6], ab[NV][6], fb[NV][6];
+  auto sw = [&](int b, int c) { return Sw[b][c]; };
+  for (int i = 0; i < NV; ++i) {
+    V Iw[36];
+    body_kinematics<V, S, NV>(md, i, q[i], Rw, pw, Sw[i], Iw);
+    body_rnea_down<V, S, NV, true>(md, i, v[i], acc, sw, [&](int, int c) { return Iw[c]; }, vb,
+                                   ab, fb);
+  }
+  rnea_up<V, S, NV>(md, v, sw, fb, tau);
 }
 
 // M[i][j] for every ancestor i of j (i <= j, j included) and zero elsewhere

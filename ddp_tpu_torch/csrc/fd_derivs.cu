@@ -6,16 +6,15 @@
 // pl.pallas_call) on the deriv="kernel" path of
 // ddp_tpu_torch.solver.batched.solve_batched.  Per sample (q, v, tau):
 //
-//     a      = M^-1 (tau - bias)            bias = RNEA(q, v, 0)
-//     da/dq  = -M^-1 (d_q bias + (d_q M) a)
-//     da/dv  = -M^-1  d_v bias
+//     a       = M^-1 (tau - bias)            bias = RNEA(q, v, 0)
+//     da/dq_c = -M^-1 d_(q_c) RNEA(q, v, a)   (= d bias + (d M) a, a held)
+//     da/dv_c = -M^-1 d_(v_c) bias           (M does not depend on v)
 //     da/dtau = M^-1
 //
-// The chain (fd_chain.cuh, shared with fd_derivs2.cu): world kinematics
-// (Rodrigues rotation per revolute joint, fixed placement, parent chain),
-// world spatial inertias X^T I X, composite bodies for M, RNEA with gravity
-// and damping for the bias, one Cholesky of M (IEEE sqrt), then
-// forward/backward substitutions against that factor.
+// the implicit-function scheme of the TPU kernel, with (d_q M) a folded into
+// one RNEA at the primal acceleration.  The chain is fd_chain.cuh's (shared
+// with fd_derivs2.cu): world kinematics, world spatial inertias, RNEA with
+// gravity and damping, composite bodies for M, one Cholesky of M (IEEE sqrt).
 //
 // The model is DATA, not code: one source serves every model with NV joints.
 // ``topo`` holds joint types (0 revolute, 1 prismatic) and parents (a parent
@@ -23,26 +22,36 @@
 // spatial inertias, gravity and damping; all threads read the same addresses,
 // which the cache broadcasts.
 //
-// Layout: input [3*NV, N] (q rows, v rows, tau rows), outputs [NV, N] and
-// three [NV*NV, N] with matrices flattened row-major, the sample last, so
-// loads and stores are coalesced across a warp.  Any N; the ragged edge is
-// masked.
+// What bounds it on this card: the function is some 10^5 flops a sample
+// against 4*(4*NV + 3*NV^2) bytes, so operations, and in practice the
+// latency of the chain's per-body arrays: the tree is walked with run-time
+// parent indices, so they live in local memory.  The first design ran the
+// whole chain in dual numbers in each of 2*NV + 1 threads a sample, so every
+// thread repeated the primal chain and the factorization, and the v threads
+// carried tangents that are exact zeros through the kinematics and M.
 //
-// Work split: thread (sample n, blockIdx.y = c).  For c < 2*NV the thread
-// carries ONE tangent direction (column c of (q, v)) through the chain in
-// dual numbers, factors M, solves for a and for column c of da/dq or da/dv.
-// For c == 2*NV it runs the chain without tangents and writes a and M^-1.
-// A dense 2*NV-column dual of the chain state (about 600 scalars at NV = 7)
-// would need about 9,000 scalars a thread; one direction a thread keeps the
-// state at twice the primal and makes the grid (2*NV + 1) times wider, which
-// a batch of a few thousand samples needs anyway to fill 132 SMs.  The price
-// is that the primal chain and the factorization are repeated in every
-// direction's thread.
+// What the design does about it: three launches, each thread carrying only
+// what depends on its direction, sample last in every array:
 //
-// Bound: operations (about 2*NV+1 chains of some 10^4 flops per sample
-// against 4*(4*NV + 3*NV^2) bytes), and in practice local-memory traffic:
-// the tree is walked with run-time parent indices, so the per-body arrays
-// live in local memory, not registers.
+//   1. the primal pass, a thread per sample: the chain once in plain numbers,
+//      one factorization; writes a, M^-1, the factor (packed lower triangle)
+//      and the kinematics (world subspace columns and inertias) to scratch
+//      buffers of the wrapper's;
+//   2. the q pass, a thread per sample and q direction: RNEA(q, v, a) in Dual
+//      numbers with the kinematics, each body's world inertia a temporary of
+//      the pass down the tree (chain_rnea): no composite inertias, no M, no
+//      factorization; the column is solved against the stored factor;
+//   3. the v pass, a thread per sample and v direction: the RNEA half alone in
+//      Dual numbers over the primal pass's kinematics, read from the scratch
+//      buffer (faster on an H100 than computing them again in plain numbers:
+//      PERF.md section 6).  The joint accelerations carry no v tangent, so the
+//      bias at zero acceleration has the same tangent bit for bit.
+//
+// A block is 64 samples of one direction, so its threads never diverge.  Any
+// N; the ragged edge is masked.  Layout: input [3*NV, N] (q rows, v rows, tau
+// rows), outputs [NV, N] and three [NV*NV, N] with matrices flattened
+// row-major; scratch: the factor [NV*(NV+1)/2, N] and the kinematics
+// [42*NV, N] (row 42*i + a: Sw[i][a] for a < 6, Iw[i][a - 6] after).
 //
 // Build without --use_fast_math and without -ftz: a non-positive pivot must
 // give NaN through sqrt, as in the plain version.
@@ -55,88 +64,130 @@
 
 namespace {
 
-// ---------------------------------------------------------------- kernel
+// rows of the kinematics scratch per body: 6 subspace entries, 36 inertia
+constexpr int KIN_ROWS = 42;
 
 template <typename S, int NV>
-__global__ void __launch_bounds__(64) fd_derivs_kernel(
-    const int* __restrict__ topo, const S* __restrict__ consts,
-    const S* __restrict__ qvu, S* __restrict__ a_out, S* __restrict__ Aq,
-    S* __restrict__ Av, S* __restrict__ Mi, int N) {
+__device__ __forceinline__ void load_factor(const S* __restrict__ Lf, size_t Ns, int n,
+                                            S (*L)[NV]) {
+  for (int r = 0; r < NV; ++r)
+    for (int c = 0; c <= r; ++c) L[r][c] = Lf[(r * (r + 1) / 2 + c) * Ns + n];
+}
+
+// the primal pass: a, M^-1, the factor of M and the kinematics
+template <typename S, int NV>
+__global__ void __launch_bounds__(64) fd_primal_kernel(
+    const int* __restrict__ topo, const S* __restrict__ consts, const S* __restrict__ qvu,
+    S* __restrict__ a_out, S* __restrict__ Mi, S* __restrict__ Lf, S* __restrict__ kin, int N) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const size_t Ns = static_cast<size_t>(N);
+  const ModelView<S, NV> md(topo, consts);
+  S q[NV], v[NV], Sw[NV][6], IC[NV][36], M[NV][NV], bias[NV], L[NV][NV], a[NV];
+  for (int k = 0; k < NV; ++k) {
+    q[k] = qvu[k * Ns + n];
+    v[k] = qvu[(NV + k) * Ns + n];
+  }
+  chain_kinematics<S, S, NV>(md, q, Sw, IC);
+  for (int i = 0; i < NV; ++i) {
+    for (int c = 0; c < 6; ++c) kin[(i * KIN_ROWS + c) * Ns + n] = Sw[i][c];
+    for (int c = 0; c < 36; ++c) kin[(i * KIN_ROWS + 6 + c) * Ns + n] = IC[i][c];
+  }
+  chain_bias<S, S, NV>(
+      md, v, [&](int i, int c) { return Sw[i][c]; }, [&](int i, int c) { return IC[i][c]; }, bias);
+  chain_mass<S, S, NV>(md, Sw, IC, M);
+  for (int r = 0; r < NV; ++r) {
+    for (int c = 0; c <= r; ++c) L[r][c] = M[c][r];
+    a[r] = qvu[(2 * NV + r) * Ns + n] - bias[r];
+  }
+  chol_factor<S, NV>(L);
+  chol_apply<S, NV>(L, a);
+  for (int r = 0; r < NV; ++r) {
+    a_out[r * Ns + n] = a[r];
+    for (int c = 0; c <= r; ++c) Lf[(r * (r + 1) / 2 + c) * Ns + n] = L[r][c];
+  }
+  for (int k = 0; k < NV; ++k) {
+    S col[NV];
+    for (int r = 0; r < NV; ++r) col[r] = (r == k) ? S(1) : S(0);
+    chol_apply<S, NV>(L, col);
+    for (int r = 0; r < NV; ++r) Mi[(r * NV + k) * Ns + n] = col[r];
+  }
+}
+
+// the q pass: column c = blockIdx.y of da/dq = -M^-1 d_(q_c) RNEA(q, v, a)
+template <typename S, int NV>
+__global__ void __launch_bounds__(64) fd_q_kernel(
+    const int* __restrict__ topo, const S* __restrict__ consts, const S* __restrict__ qvu,
+    const S* __restrict__ a_in, const S* __restrict__ Lf, S* __restrict__ Aq, int N) {
+  using D = Dual<S>;
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const int c = blockIdx.y;
   const size_t Ns = static_cast<size_t>(N);
   const ModelView<S, NV> md(topo, consts);
-
-  S q[NV], v[NV], tau[NV];
-  for (int i = 0; i < NV; ++i) {
-    q[i] = qvu[i * Ns + n];
-    v[i] = qvu[(NV + i) * Ns + n];
-    tau[i] = qvu[(2 * NV + i) * Ns + n];
+  S a[NV], L[NV][NV], col[NV];
+  D qd[NV], vd[NV], tau[NV];
+  for (int k = 0; k < NV; ++k) {
+    qd[k] = D(qvu[k * Ns + n], k == c ? S(1) : S(0));
+    vd[k] = D(qvu[(NV + k) * Ns + n]);
+    a[k] = a_in[k * Ns + n];
   }
-
-  S L[NV][NV], a[NV];
-  if (c < 2 * NV) {
-    Dual<S> qd[NV], vd[NV], M[NV][NV], bias[NV];
-    for (int i = 0; i < NV; ++i) {
-      qd[i] = Dual<S>(q[i], c == i ? S(1) : S(0));
-      vd[i] = Dual<S>(v[i], c == NV + i ? S(1) : S(0));
-    }
-    chain_M_bias<Dual<S>, S, NV>(md, qd, vd, M, bias);
-    for (int i = 0; i < NV; ++i) {
-      for (int j = 0; j <= i; ++j) L[i][j] = M[j][i].p;
-      a[i] = tau[i] - bias[i].p;
-    }
-    chol_factor<S, NV>(L);
-    chol_apply<S, NV>(L, a);
-    // rhs = -(d bias + (dM) a), column c of da/d(q, v) = M^-1 rhs
-    S col[NV];
-    for (int i = 0; i < NV; ++i) {
-      S s = bias[i].t;
-      for (int j = 0; j < NV; ++j) s = s + (i <= j ? M[i][j].t : M[j][i].t) * a[j];
-      col[i] = -s;
-    }
-    chol_apply<S, NV>(L, col);
-    S* dst = (c < NV) ? Aq : Av;
-    const int cc = (c < NV) ? c : c - NV;
-    for (int i = 0; i < NV; ++i) dst[(i * NV + cc) * Ns + n] = col[i];
-  } else {
-    S M[NV][NV], bias[NV];
-    chain_M_bias<S, S, NV>(md, q, v, M, bias);
-    for (int i = 0; i < NV; ++i) {
-      for (int j = 0; j <= i; ++j) L[i][j] = M[j][i];
-      a[i] = tau[i] - bias[i];
-    }
-    chol_factor<S, NV>(L);
-    chol_apply<S, NV>(L, a);
-    for (int i = 0; i < NV; ++i) a_out[i * Ns + n] = a[i];
-    for (int cc = 0; cc < NV; ++cc) {
-      S col[NV];
-      for (int i = 0; i < NV; ++i) col[i] = (i == cc) ? S(1) : S(0);
-      chol_apply<S, NV>(L, col);
-      for (int i = 0; i < NV; ++i) Mi[(i * NV + cc) * Ns + n] = col[i];
-    }
-  }
+  chain_rnea<D, S, NV>(md, qd, vd, a, tau);
+  load_factor<S, NV>(Lf, Ns, n, L);
+  for (int r = 0; r < NV; ++r) col[r] = -tau[r].t;
+  chol_apply<S, NV>(L, col);
+  for (int r = 0; r < NV; ++r) Aq[(r * NV + c) * Ns + n] = col[r];
 }
 
+// the v pass: column c = blockIdx.y of da/dv = -M^-1 d_(v_c) bias
 template <typename S, int NV>
-int launch(const void* topo, const void* consts, const void* qvu, void* a,
-           void* Aq, void* Av, void* Mi, int N, cudaStream_t stream) {
-  const int threads = 64;
-  const dim3 grid((N + threads - 1) / threads, 2 * NV + 1);
-  fd_derivs_kernel<S, NV><<<grid, threads, 0, stream>>>(
-      static_cast<const int*>(topo), static_cast<const S*>(consts),
-      static_cast<const S*>(qvu), static_cast<S*>(a), static_cast<S*>(Aq),
-      static_cast<S*>(Av), static_cast<S*>(Mi), N);
+__global__ void __launch_bounds__(64) fd_v_kernel(
+    const int* __restrict__ topo, const S* __restrict__ consts, const S* __restrict__ qvu,
+    const S* __restrict__ kin, const S* __restrict__ Lf, S* __restrict__ Av, int N) {
+  using D = Dual<S>;
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const int c = blockIdx.y;
+  const size_t Ns = static_cast<size_t>(N);
+  const ModelView<S, NV> md(topo, consts);
+  S L[NV][NV], col[NV];
+  D vd[NV], bias[NV];
+  for (int k = 0; k < NV; ++k) vd[k] = D(qvu[(NV + k) * Ns + n], k == c ? S(1) : S(0));
+  chain_bias<D, S, NV>(
+      md, vd, [&](int i, int r) { return D(kin[(i * KIN_ROWS + r) * Ns + n]); },
+      [&](int i, int r) { return D(kin[(i * KIN_ROWS + 6 + r) * Ns + n]); }, bias);
+  load_factor<S, NV>(Lf, Ns, n, L);
+  for (int r = 0; r < NV; ++r) col[r] = -bias[r].t;
+  chol_apply<S, NV>(L, col);
+  for (int r = 0; r < NV; ++r) Av[(r * NV + c) * Ns + n] = col[r];
+}
+
+// ------------------------------------------------------------ launch
+
+template <typename S, int NV>
+int launch(const void* topo_, const void* consts_, const void* qvu_, void* a_, void* Aq_,
+           void* Av_, void* Mi_, void* Lf_, void* kin_, int N, cudaStream_t stream) {
+  const auto topo = static_cast<const int*>(topo_);
+  const auto consts = static_cast<const S*>(consts_);
+  const auto qvu = static_cast<const S*>(qvu_);
+  const auto a = static_cast<S*>(a_);
+  const auto Lf = static_cast<S*>(Lf_);
+  const auto kin = static_cast<S*>(kin_);
+  const int blocks = (N + 63) / 64;
+  fd_primal_kernel<S, NV><<<blocks, 64, 0, stream>>>(topo, consts, qvu, a, static_cast<S*>(Mi_),
+                                                      Lf, kin, N);
+  fd_q_kernel<S, NV><<<dim3(blocks, NV), 64, 0, stream>>>(topo, consts, qvu, a, Lf,
+                                                          static_cast<S*>(Aq_), N);
+  fd_v_kernel<S, NV><<<dim3(blocks, NV), 64, 0, stream>>>(topo, consts, qvu, kin, Lf,
+                                                          static_cast<S*>(Av_), N);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NV>
-int launch_dtype(int is_double, const void* topo, const void* consts,
-                 const void* qvu, void* a, void* Aq, void* Av, void* Mi, int N,
-                 cudaStream_t s) {
-  return is_double ? launch<double, NV>(topo, consts, qvu, a, Aq, Av, Mi, N, s)
-                   : launch<float, NV>(topo, consts, qvu, a, Aq, Av, Mi, N, s);
+int launch_dtype(int is_double, const void* topo, const void* consts, const void* qvu, void* a,
+                 void* Aq, void* Av, void* Mi, void* Lf, void* kin, int N, cudaStream_t s) {
+  return is_double ? launch<double, NV>(topo, consts, qvu, a, Aq, Av, Mi, Lf, kin, N, s)
+                   : launch<float, NV>(topo, consts, qvu, a, Aq, Av, Mi, Lf, kin, N, s);
 }
 
 }  // namespace
@@ -144,15 +195,16 @@ int launch_dtype(int is_double, const void* topo, const void* consts,
 // Plain C entry point, loaded through ctypes.  ``topo`` is int32 [2*nv]
 // (joint types, parents); ``consts`` is [51*nv + 3 + nv] of the working type
 // (axes, jp_rot, jp_trans, inertias, gravity, damping); ``qvu`` is
-// [3*nv, N].  Returns cudaGetLastError() after the launch; -1 for an nv this
+// [3*nv, N]; ``Lf`` [nv*(nv+1)/2, N] and ``kin`` [42*nv, N] are scratch.
+// Returns cudaGetLastError() after the three launches; -1 for an nv this
 // build does not instantiate.
 extern "C" int ddp_fd_derivs(int is_double, int nv, int N, const void* topo,
                              const void* consts, const void* qvu, void* a,
-                             void* Aq, void* Av, void* Mi, void* stream) {
+                             void* Aq, void* Av, void* Mi, void* Lf, void* kin, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N <= 0) return 0;  // an empty grid is not a valid launch
-  if (nv == 2) return launch_dtype<2>(is_double, topo, consts, qvu, a, Aq, Av, Mi, N, s);
-  if (nv == 6) return launch_dtype<6>(is_double, topo, consts, qvu, a, Aq, Av, Mi, N, s);
-  if (nv == 7) return launch_dtype<7>(is_double, topo, consts, qvu, a, Aq, Av, Mi, N, s);
+  if (nv == 2) return launch_dtype<2>(is_double, topo, consts, qvu, a, Aq, Av, Mi, Lf, kin, N, s);
+  if (nv == 6) return launch_dtype<6>(is_double, topo, consts, qvu, a, Aq, Av, Mi, Lf, kin, N, s);
+  if (nv == 7) return launch_dtype<7>(is_double, topo, consts, qvu, a, Aq, Av, Mi, Lf, kin, N, s);
   return -1;
 }

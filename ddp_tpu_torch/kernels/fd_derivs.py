@@ -2,17 +2,20 @@
 
 Per sample (q, v, τ) of a tree robot with revolute/prismatic joints:
 
-    a = M⁻¹(τ − bias),  ∂a/∂q = −M⁻¹(∂_q bias + (∂_q M)·a),
+    a = M⁻¹(τ − bias),  ∂a/∂q = −M⁻¹ ∂_q RNEA(q, v, a),
     ∂a/∂v = −M⁻¹ ∂_v bias,  ∂a/∂τ = M⁻¹
 
-— the implicit-function scheme of ``RobotModel.fd_derivatives`` with the
-kinematics → composite bodies → RNEA chain walked once per tangent
-direction.  ``fd_derivs`` runs the CUDA kernel ``csrc/fd_derivs.cu`` on CUDA
-tensors (one thread per sample and tangent direction; the model's constants
-are data uploaded by the wrapper, so one compiled source serves every model
-with the same joint count) and the plain PyTorch version
-``fd_derivs_reference`` on CPU tensors.  The plain version follows the
-kernel's algorithm step by step, so the two compare tightly on the card.
+— the implicit-function scheme of ``RobotModel.fd_derivatives``, with
+∂_q bias + (∂_q M)·a taken as the tangent of one RNEA at the primal
+acceleration.  ``fd_derivs`` runs the CUDA kernel ``csrc/fd_derivs.cu`` on
+CUDA tensors (a primal pass a thread a sample: the chain, the factor of M, a
+and M⁻¹ once; then a q pass and a v pass, a thread a sample and direction,
+each carrying only its own tangent and solving against the primal pass's
+factor; the model's constants are data uploaded by the wrapper, so one
+compiled source serves every model with the same joint count) and the plain
+PyTorch version ``fd_derivs_reference`` on CPU tensors.  The plain version
+follows the kernel's algorithm step by step, so the two compare tightly on
+the card.
 """
 
 from __future__ import annotations
@@ -32,8 +35,11 @@ SOURCE = "fd_derivs.cu"
 # joint counts the CUDA source instantiates (each for float and double):
 # cartpole/acrobot, UR5-class arms, panda7
 KERNEL_NV = (2, 6, 7)
-# kernel launches since import (or since a caller reset it)
+# kernel calls since import (or since a caller reset it); each launches the
+# primal pass, the q pass and the v pass
 LAUNCHES = 0
+# rows of the kinematics scratch per body (world subspace column, inertia)
+KIN_ROWS = 42
 
 _JOINT_CODE = {"revolute": 0, "prismatic": 1}
 # model → {(device, dtype): (topo, consts)}: the kernel's view of a model is
@@ -79,9 +85,11 @@ def _cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 
 
-def _chain_M_bias(model, q, v):
+def _chain_M_bias(model, q, v, acc=None, mass=True):
     """The kernel's chain on [N, nv] tensors: (M [N, nv, nv] symmetric,
-    bias [N, nv] = RNEA(q, v, 0) with gravity and damping)."""
+    bias [N, nv] = RNEA(q, v, 0) with gravity and damping).  With ``acc``
+    [N, nv] the second output is RNEA(q, v, acc) = M·acc + bias; without
+    ``mass`` the first is None (no composite inertias, no M)."""
     jt, par = model.joint_types, model.parents
     nb = len(jt)
     N = q.shape[0]
@@ -123,6 +131,8 @@ def _chain_M_bias(model, q, v):
             [_cross(w, sv[:, :3]), _cross(vl, sv[:, :3]) + _cross(w, sv[:, 3:])], dim=-1
         )
         ab[i] = (a0 if p < 0 else ab[p]) + psi
+        if acc is not None:
+            ab[i] = ab[i] + Sw[i] * acc[:, i : i + 1]
         Ivb = _mv(IC[i], vb[i])
         fb[i] = _mv(IC[i], ab[i]) + torch.cat(
             [_cross(w, Ivb[:, :3]) + _cross(vl, Ivb[:, 3:]), _cross(w, Ivb[:, 3:])], dim=-1
@@ -131,43 +141,48 @@ def _chain_M_bias(model, q, v):
     for i in reversed(range(nb)):
         p = par[i]
         if p >= 0:
-            IC[p] = IC[p] + IC[i]
+            if mass:
+                IC[p] = IC[p] + IC[i]
             fb[p] = fb[p] + fb[i]
+    bias = [model.damping[j] * v[:, j] + torch.sum(Sw[j] * fb[j], dim=-1) for j in range(nb)]
+    if not mass:
+        return None, torch.stack(bias, dim=-1)
     zero = torch.zeros(N, **kw)
     Mij = [[zero] * nb for _ in range(nb)]
-    bias = [None] * nb
     for j in range(nb):
         u = _mv(IC[j], Sw[j])
         i = j
         while i >= 0:  # only ancestors of j couple with it
             Mij[i][j] = Mij[j][i] = torch.sum(Sw[i] * u, dim=-1)
             i = par[i]
-        bias[j] = model.damping[j] * v[:, j] + torch.sum(Sw[j] * fb[j], dim=-1)
     M = torch.stack([torch.stack(row, dim=-1) for row in Mij], dim=-2)
     return M, torch.stack(bias, dim=-1)
 
 
 def fd_derivs_reference(model, q, v, tau):
-    """Plain PyTorch version of the kernel on [N, nv] tensors: the same
-    chain, one forward-mode tangent per column of (q, v), the same unrolled
-    Cholesky.  Returns (a [N, nv], ∂a/∂q, ∂a/∂v, M⁻¹ each [N, nv, nv])."""
+    """Plain PyTorch version of the kernel on [N, nv] tensors: the primal
+    chain and one unrolled Cholesky of M, then per q direction the
+    forward-mode tangent of RNEA(q, v, a) at the primal a and per v direction
+    that of the bias, each solved against the same factor.  Returns
+    (a [N, nv], ∂a/∂q, ∂a/∂v, M⁻¹ each [N, nv, nv])."""
     nv = check_model(model)
     N = q.shape[0]
-    eye = torch.eye(2 * nv, dtype=q.dtype, device=q.device)
-
-    def one_direction(e):
-        return jvp(
-            lambda q_, v_: _chain_M_bias(model, q_, v_),
-            (q, v),
-            (e[:nv].expand(N, nv), e[nv:].expand(N, nv)),
-        )
-
-    (Ms, biases), (dM, dbias) = vmap(one_direction)(eye)
-    M, bias = Ms[0], biases[0]
+    eye = torch.eye(nv, dtype=q.dtype, device=q.device)
+    M, bias = _chain_M_bias(model, q, v)
     a = _chol_solve(M, (tau - bias)[..., None], 0.0)[0][..., 0]
-    # rhs_c = −(∂_c bias + (∂_c M)·a), one column per tangent direction
-    rhs = -(dbias + torch.einsum("cnij,nj->cni", dM, a)).permute(1, 2, 0)
-    unit = torch.eye(nv, dtype=q.dtype, device=q.device).expand(N, nv, nv)
+
+    def rnea_at_a(q_):
+        return _chain_M_bias(model, q_, v, a, mass=False)[1]
+
+    def bias_of(v_):  # the accelerations carry no v tangent
+        return _chain_M_bias(model, q, v_, mass=False)[1]
+
+    def tangents(fn, x):  # [nv, N, nv]: one per unit direction of x
+        return vmap(lambda e: jvp(fn, (x,), (e.expand(N, nv),))[1])(eye)
+
+    # rhs_c = −∂_c RNEA at the primal a, one column per direction: [N, nv, 2·nv]
+    rhs = -torch.cat([tangents(rnea_at_a, q), tangents(bias_of, v)]).permute(1, 2, 0)
+    unit = eye.expand(N, nv, nv)
     sol = _chol_solve(M, torch.cat([rhs, unit], dim=-1), 0.0)[0]
     return a, sol[..., :nv], sol[..., nv : 2 * nv], sol[..., 2 * nv :]
 
@@ -237,12 +252,15 @@ def _launch(model, q, v, tau):
     fn = _kernel_fn()
     topo, consts = _model_constants(model, dtype, dev)
     qvu = pack_inputs(q, v, tau)
+    # scratch of the primal pass: the factor of M and the kinematics
+    L_t = torch.empty((nv * (nv + 1) // 2, N), dtype=dtype, device=dev)
+    kin_t = torch.empty((KIN_ROWS * nv, N), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
             int(dtype == torch.float64), nv, N, topo.data_ptr(), consts.data_ptr(),
             qvu.data_ptr(), a_t.data_ptr(), Aq_t.data_ptr(), Av_t.data_ptr(),
-            Mi_t.data_ptr(), stream,
+            Mi_t.data_ptr(), L_t.data_ptr(), kin_t.data_ptr(), stream,
         )  # fmt: skip
     if rc != 0:
         raise RuntimeError(f"fd_derivs kernel launch failed: CUDA error {rc}")
@@ -253,6 +271,6 @@ def _launch(model, q, v, tau):
 def _kernel_fn():
     lib = _build.load(SOURCE)
     fn = lib.ddp_fd_derivs
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
     fn.restype = ctypes.c_int
     return fn

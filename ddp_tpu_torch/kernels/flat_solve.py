@@ -9,11 +9,12 @@ final measures: the static flow of ``solver/batched.py`` with
 ``n_reg_levels=1`` and the parallel-sweep acceptance (largest accepted step of
 the 2^-c ladder), Gauss-Newton, one active constraint step.
 
-On CUDA tensors it launches ``csrc/flat_solve.cu`` once (one thread per lane
-runs the lane's whole solve; the problem's dynamics, cost and constraint and
-their derivatives are the device functions of its class,
-``kernels/flat_problem.py``); on CPU tensors it runs ``solve_flat_reference``,
-the plain PyTorch version of the same program.
+On CUDA tensors it launches ``csrc/flat_solve.cu`` once (a group of threads
+per lane runs the lane's whole solve in shared memory, its candidates,
+adjoints and per-step derivatives on separate threads; the problem's
+dynamics, cost and constraint and their derivatives are the device functions
+of its class, ``kernels/flat_problem.py``); on CPU tensors it runs
+``solve_flat_reference``, the plain PyTorch version of the same program.
 
 Where the program differs from ``solve_batched``, both versions here keep it:
 the constraint rows are evaluated once per iteration at the one active step
@@ -43,6 +44,7 @@ from ddp_tpu_torch.solver.solve import Method
 SOURCE = "flat_solve.cu"
 # kernel launches since import (or since a caller reset it)
 LAUNCHES = 0
+_NO_FIT = "flat solve kernel: a lane of horizon {T} does not fit a block's shared memory"
 
 
 def _setup(problem, params, x0s, us_init, method):
@@ -571,13 +573,16 @@ class LaunchPlan(NamedTuple):
     """One launch of the whole-solve kernel, ready to go: the device tensors
     (inputs, outputs that double as working storage, scratch) and the host
     arguments.  A plan can be launched again: the kernel initialises
-    everything it reads."""
+    everything it reads.  Each launch fills ``geometry`` with the kernel's
+    own launch plan: threads a lane, lanes a block and shared-memory bytes a
+    block."""
 
-    tensors: list  # x0, us0, scal, consts, mrow, 7 outputs, 6 scratch arrays
+    tensors: list  # x0, us0, scal, consts, mrow, 7 outputs
     ints: list
     reals: list
     class_id: int
     dims: tuple  # (T, nx, m, e)
+    geometry: dict
 
 
 def plan_launch(problem, params, x0s, us_init=None, method=None, n_linesearch=8) -> LaunchPlan:
@@ -610,12 +615,10 @@ def plan_launch(problem, params, x0s, us_init=None, method=None, n_linesearch=8)
     scal = torch.tensor([params.mu, params.reg, sc["w0"], sc["n0"]], **kw)[:, None].repeat(1, B)
     mrow_t = torch.tensor(mrow, **kw)
     e_k = max(e, 1)
-    # outputs (the kernel also works in them) and scratch, all [T, rows, B] so
-    # that neighbouring threads touch neighbouring addresses
+    # outputs, [T, rows, B] so that neighbouring threads touch neighbouring
+    # addresses (the kernel works in shared memory)
     outs = [empty(T, m, B), empty(T + 1, nx, B), empty(T, m, B), empty(T, m * nx, B),
             empty(6, B), empty(T, e_k, B), empty(T, e_k * nx, B)]  # fmt: skip
-    scratch = [empty(T, m, B), empty(T, m * nx, B), empty(T + 1, nx, B), empty(T, m, B),
-               empty(T, nx, B), empty(T, nx, B)]  # k, K, xc, uc, morig, fborig  # fmt: skip
     ints = [
         T, B, params.max_iterations, n_linesearch, ta, flat.advance,
         int(method is Method.PRIMAL_DUAL_AFFINE), int(method is Method.PRIMAL),
@@ -628,8 +631,8 @@ def plan_launch(problem, params, x0s, us_init=None, method=None, n_linesearch=8)
         float(params.mult_max) if params.mult_max is not None else 0.0,
     ]  # fmt: skip
     return LaunchPlan(
-        tensors=[x0, us0, scal, flat.consts, mrow_t] + outs + scratch, ints=ints, reals=reals,
-        class_id=flat.class_id, dims=(T, nx, m, e),
+        tensors=[x0, us0, scal, flat.consts, mrow_t] + outs, ints=ints, reals=reals,
+        class_id=flat.class_id, dims=(T, nx, m, e), geometry={},
     )  # fmt: skip
 
 
@@ -641,17 +644,23 @@ def launch_plan(plan: LaunchPlan) -> BatchSolveResult:
     x0 = plan.tensors[0]
     ptrs = (ctypes.c_void_p * len(plan.tensors))(*[x.data_ptr() for x in plan.tensors])
     fn = _kernel_fn()
+    geometry = (ctypes.c_int * 3)()
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream(x0.device).cuda_stream
         rc = fn(
             int(x0.dtype == torch.float64), plan.class_id, nx, m, e,
             ctypes.cast(ptrs, ctypes.c_void_p),
             (ctypes.c_int * len(plan.ints))(*plan.ints),
-            (ctypes.c_double * len(plan.reals))(*plan.reals), stream,
+            (ctypes.c_double * len(plan.reals))(*plan.reals),
+            ctypes.cast(geometry, ctypes.c_void_p), stream,
         )  # fmt: skip
+    if rc == -1:  # the only gate plan_launch cannot check: the shared memory
+        raise ValueError(_NO_FIT.format(T=T))
     if rc != 0:
         raise RuntimeError(f"flat_solve kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    plan.geometry.update(threads_per_lane=geometry[0], lanes_per_block=geometry[1],
+                         smem_bytes=geometry[2])  # fmt: skip
     us, xs, fbk, fbK, stats, mval, mjac = plan.tensors[5:12]
     return _result(us, xs, fbk, fbK, stats, mval, mjac, T, m, e, nx)
 
@@ -659,6 +668,6 @@ def launch_plan(plan: LaunchPlan) -> BatchSolveResult:
 def _kernel_fn():
     lib = _build.load(SOURCE)
     fn = lib.ddp_flat_solve
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     return fn

@@ -29,8 +29,11 @@ def full_fp32_matmuls():
     """Full-float32 matmuls on the card inside, whatever the caller's
     ``matmul_precision`` allowed outside; restored on exit.  Wraps the stages
     ddp_tpu pins to "highest" (the Riccati sweep, the optimality adjoints,
-    ``update_origin``), where TF32 noise trips the multiplier gates.  No
-    effect on the CPU."""
+    ``update_origin``), where TF32 noise trips the multiplier gates, and the
+    eager line searches (their rollouts and AL cost): ddp_tpu's "high" is
+    bf16×3, close to float32, but TF32 keeps a 10-bit mantissa, and in the
+    line search it costs the arm fleet most of its feasible lanes.  No effect
+    on the CPU."""
     old = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -109,10 +112,24 @@ def optimality_constr(derivs) -> torch.Tensor:
     return norms.amax(dim=-1)
 
 
+def _scaled_norm(x):
+    """‖x‖ over the last axis, where the plain sum of squares overflows (an
+    entry past 1.8e19 in float32) taken as max|x| · ‖x / max|x|‖; the plain
+    norm's bits everywhere else."""
+    n = torch.linalg.vector_norm(x, dim=-1)
+    big = x.abs().amax(dim=-1)
+    scaled = big * torch.linalg.vector_norm(x / big[..., None], dim=-1)
+    return torch.where(torch.isinf(n) & torch.isfinite(big), scaled, n)
+
+
 @full_fp32_matmuls()
 def _adjoint_scores(derivs, mult_val, mult_jac, mu):
     """Reverse adjoint recursion shared by optimality_obj/lag; ``mu`` None
-    drops the μ·eq penalty terms."""
+    drops the μ·eq penalty terms.  The lag measure is only reported, so its
+    norm is kept from overflowing on a lane whose multipliers raced past
+    1e19 in float32; the obj measure feeds the plateau gate and keeps the
+    plain norm, as ddp_tpu's, so the AL schedule stays the reference's."""
+    norm = (lambda x: torch.linalg.vector_norm(x, dim=-1)) if mu is not None else _scaled_norm
     adj = derivs.lfx
     scores = []
     for t in reversed(range(derivs.lx.shape[1])):
@@ -129,7 +146,7 @@ def _adjoint_scores(derivs, mult_val, mult_jac, mu):
                 tmv(derivs.fx[:, t], adj) + derivs.lx[:, t] + m * tmv(eqx, eqv)
                 + tmv(eqx, pe) + tmv(pex, eqv)
             )  # fmt: skip
-        scores.append(torch.linalg.vector_norm(lu_aug, dim=-1))
+        scores.append(norm(lu_aug))
     return torch.stack(scores, dim=-1).amax(dim=-1)
 
 

@@ -140,6 +140,7 @@ def _backward_kernel_levels(
     return backward_ladder(derivs, mult_val, mult_jac, mu, levels, second_order=second_order)
 
 
+@al_mod.full_fp32_matmuls()
 def _linesearch_sweep(problem, xs, us, k, K, mults, mu, n_candidates):
     """Parallel line search: roll out every candidate step in one batch
     [S, B, …], take per lane the largest step whose AL cost did not rise,
@@ -174,6 +175,7 @@ def _bwhere(c, a, b):
     return torch.where(c.reshape(c.shape + (1,) * (a.dim() - 1)), a, b)
 
 
+@al_mod.full_fp32_matmuls()
 def _linesearch_seq(problem, xs, us, k, K, mults, mu, n_candidates):
     """Sequential early-exit line search: walk the step ladder 1, ½, ¼, …
     largest first and stop once every lane has accepted a candidate (or the

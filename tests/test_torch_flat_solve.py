@@ -118,6 +118,26 @@ def test_reference_matches_solve_batched_once_multipliers_update(method):
     assert torch.equal(tr.mu, own.mu)
 
 
+@pytest.mark.parametrize("n_ls", [1, 7])
+def test_reference_matches_solve_batched_at_candidate_counts(n_ls):
+    """The headline problem as above at the fewest candidates the kernel
+    takes and at the most its headline launch plan gives a group of 8
+    threads: held to ddp_tpu's solve_batched and the port's own at the same
+    bar, μ identical."""
+    Hm, Bm = 16, 8
+    params = dict(max_iterations=8, threshold=1e-5, mu=1e4, inner_iters_max=1)
+    jp, tp = both_problems(Hm, np.float64)
+    x0s = headline_x0s(Bm, np.float64)
+    kw = dict(n_reg_levels=1, n_linesearch=n_ls)
+    jr = jax.jit(lambda x: jbatched.solve_batched(jp, JParams(**params), x, **kw))(x0s)
+    tr = flat_solve.solve_flat(tp, SolverParams(**params), t(x0s), n_linesearch=n_ls)
+    assert_results_match(tr, jr, atol=1e-8)
+    np.testing.assert_array_equal(tr.mu.numpy(), np.asarray(jr.mu))
+    own = tbatched.solve_batched(tp, SolverParams(**params), t(x0s), backward="kernel", **kw)
+    assert_results_match(tr, own, atol=1e-8)
+    assert torch.equal(tr.mu, own.mu)
+
+
 def test_reference_float32_reaches_the_target():
     Hm, Bm = 32, 16
     params = dict(max_iterations=8, threshold=1e-5, mu=1e4, inner_iters_max=1)

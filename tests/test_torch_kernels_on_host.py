@@ -1,8 +1,12 @@
-"""The CUDA sources of kernels #1 (``csrc/riccati_small.cu``) and #3
-(``csrc/fd_derivs2.cu``) compiled as host C++ and run block by block on the
-CPU (``tests/cuda_host/``: one std::thread per GPU thread, barriers for
-``__syncthreads``/``__syncwarp``), in float64, against their plain PyTorch
-versions on the same numpy-seeded inputs.
+"""The CUDA sources of kernels #1 (``csrc/riccati_small.cu``), #2
+(``csrc/fd_derivs.cu``: primal, q and v passes, its v pass also built in the
+variant that computes the kinematics again), #3 (``csrc/fd_derivs2.cu``) and
+#5 (``csrc/flat_solve.cu``: a lane per group of threads in shared memory,
+barriers between its phases) compiled as host C++ and run block by block on
+the CPU (``tests/cuda_host/``: one std::thread per GPU thread, barriers for
+``__syncthreads``/``__syncwarp``, the dynamic shared memory a static buffer),
+in float64, against their plain PyTorch versions on the same numpy-seeded
+inputs.
 
 This holds each kernel's own algorithm, thread roles, shared-memory layout
 and indexing to the plain version where there is no card; it says nothing of
@@ -10,8 +14,9 @@ what nvcc makes of the source, which ``chip_smoke.py`` checks on the card.
 Each source is built twice: at -O1, and at -O2 under AddressSanitizer and
 UndefinedBehaviorSanitizer, which fail the run on an out-of-bounds access or
 undefined behaviour in the kernel's C++.
-Bars: the plain versions' own (1e-9 of each array's largest entry, H 1e-8),
-ok and reg_used exactly equal, H exactly symmetric."""
+Bars: the plain versions' own (1e-9 of each array's largest entry, H 1e-8;
+the whole solve's opt_lag 1e-9 of the largest |u|), ok, reg_used, μ and reg
+exactly equal, H exactly symmetric."""
 
 import os
 import shutil
@@ -22,11 +27,14 @@ import numpy as np
 import pytest
 import torch
 
+from ddp_tpu_torch.convert import problem_from_numpy
 from ddp_tpu_torch.kernels import fd_derivs as fd
 from ddp_tpu_torch.kernels import fd_derivs2 as fd2
+from ddp_tpu_torch.kernels import flat_solve as fs
 from ddp_tpu_torch.kernels import riccati_small as rs
 from ddp_tpu_torch.models import robots
 from ddp_tpu_torch.solver import batched as tbatched
+from ddp_tpu_torch.solver.solve import SolverParams
 
 from torch_parity_helpers import random_spd_derivs, t, to_torch_derivs
 
@@ -35,6 +43,8 @@ CSRC = REPO / "ddp_tpu_torch" / "csrc"
 HOST = REPO / "tests" / "cuda_host"
 # where each source's host launchers (they use <<<…>>>) begin
 CUTS = {
+    "fd_derivs.cu": "// ------------------------------------------------------------ launch",
+    "flat_solve.cu": "// ------------------------------------------------------------ launch",
     "fd_derivs2.cu": "template <typename S, int NV>\nint launch(",
     "riccati_small.cu": "// ------------------------------------------------------------ launch",
 }
@@ -75,6 +85,53 @@ def dump(x, path):
     x.detach().contiguous().numpy().tofile(path)
 
 
+def fd_inputs(name, tmp_path_factory, N):
+    """A model, its constants and N numpy-seeded samples, dumped for a host
+    harness.  Returns (model, q, v, tau, the directory)."""
+    model = getattr(robots, name)(device="cpu", dtype=torch.float64)
+    rng = np.random.default_rng(11)
+    q = t(rng.uniform(-np.pi, np.pi, (N, model.nv)))
+    v, tau = t(rng.normal(size=(N, model.nv))), t(rng.normal(size=(N, model.nv)))
+    d = tmp_path_factory.mktemp(name)
+    topo, consts = fd._model_constants(model, torch.float64, "cpu")
+    dump(topo, d / "topo.i32")
+    dump(consts, d / "consts.f64")
+    dump(fd.pack_inputs(q, v, tau), d / "qvu.f64")
+    return model, q, v, tau, d
+
+
+def read_fd_outputs(d, nv, N):
+    def out(name, rows):
+        return torch.from_numpy(np.fromfile(d / f"{name}.f64").reshape(rows, N))
+
+    return fd.unpack_outputs(out("a", nv), out("Aq", nv * nv), out("Av", nv * nv), out("Mi", nv * nv))
+
+
+# ------------------------------------------------------------- kernel #2
+
+@pytest.fixture(scope="module", params=sorted(FLAGS))
+def fd_host(request, tmp_path_factory):
+    return build("fd_derivs.cu", "fd_derivs_host.cpp", tmp_path_factory.mktemp("fd"), request.param)
+
+
+@pytest.fixture(scope="module", params=["cartpole", "panda7"])
+def fd_case(request, fd_host, tmp_path_factory):
+    """The host-built primal, q and v passes and the plain version on 40
+    numpy-seeded samples (a block of 64 with its ragged edge)."""
+    N = 40
+    model, q, v, tau, d = fd_inputs(request.param, tmp_path_factory, N)
+    run([str(fd_host), str(model.nv), str(N), str(d)])
+    return read_fd_outputs(d, model.nv, N), fd.fd_derivs_reference(model, q, v, tau)
+
+
+@pytest.mark.parametrize("k", range(4), ids=("a", "da_dq", "da_dv", "Minv"))
+def test_fd_kernel_matches_plain_version(fd_case, k):
+    got, ref = fd_case
+    assert bool(torch.isfinite(got[k]).all())  # every entry written
+    scale = max(1.0, float(ref[k].abs().max()))
+    np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(), rtol=0, atol=1e-9 * scale)
+
+
 # ------------------------------------------------------------- kernel #3
 
 
@@ -90,25 +147,12 @@ FD2_BARS = (1e-9, 1e-9, 1e-9, 1e-9, 1e-8)
 @pytest.fixture(scope="module", params=["cartpole", "panda7"])
 def fd2_case(request, fd2_host, tmp_path_factory):
     """The host-built kernel and the plain version on 3 numpy-seeded samples."""
-    model = getattr(robots, request.param)(device="cpu", dtype=torch.float64)
-    nv, N = model.nv, 3
-    rng = np.random.default_rng(11)
-    q = t(rng.uniform(-np.pi, np.pi, (N, nv)))
-    v, tau = t(rng.normal(size=(N, nv))), t(rng.normal(size=(N, nv)))
-    d = tmp_path_factory.mktemp(request.param)
-    topo, consts = fd._model_constants(model, torch.float64, "cpu")
-    dump(topo, d / "topo.i32")
-    dump(consts, d / "consts.f64")
-    dump(fd.pack_inputs(q, v, tau), d / "qvu.f64")
+    N = 3
+    model, q, v, tau, d = fd_inputs(request.param, tmp_path_factory, N)
+    nv = model.nv
     run([str(fd2_host), str(nv), str(N), str(d)])
-
-    def out(name, rows):
-        return torch.from_numpy(np.fromfile(d / f"{name}.f64").reshape(rows, N))
-
-    got = (
-        *fd.unpack_outputs(out("a", nv), out("Aq", nv * nv), out("Av", nv * nv), out("Mi", nv * nv)),
-        fd2.unpack_hessian(out("H", 9 * nv**3), nv),
-    )
+    H = torch.from_numpy(np.fromfile(d / "H.f64").reshape(9 * nv**3, N))
+    got = (*read_fd_outputs(d, nv, N), fd2.unpack_hessian(H, nv))
     return got, fd2.fd_derivs2_reference(model, q, v, tau)
 
 
@@ -189,3 +233,65 @@ def test_riccati_ladder_kernel_matches_plain_version(riccati_host, tmp_path, sec
         assert ok_r.tolist()[:3] == [True, True, False] and float(reg_r[1]) == 3.2e4
     np.testing.assert_allclose(k.numpy(), k_r.numpy(), rtol=1e-9, atol=1e-9)
     np.testing.assert_allclose(K.numpy(), K_r.numpy(), rtol=1e-9, atol=1e-9)
+
+
+# ------------------------------------------------------------- kernel #5
+
+
+@pytest.fixture(scope="module", params=sorted(FLAGS))
+def flat_solve_host(request, tmp_path_factory):
+    return build("flat_solve.cu", "flat_solve_host.cpp", tmp_path_factory.mktemp("fs"), request.param)
+
+
+FS_T, FS_B = 8, 40
+FS_PARAMS = SolverParams(max_iterations=2, threshold=1e-5, mu=1e4, inner_iters_max=1)
+FS_FIELDS = ("xs", "us", "fb_k", "fb_K", "opt_constr", "opt_lag", "mu", "reg", "w", "n")
+
+
+@pytest.mark.parametrize(
+    "n_ls,constrained", [(4, True), (7, True), (4, False)], ids=["C4", "C7", "C4_e0"]
+)
+def test_flat_solve_kernel_matches_plain_version(flat_solve_host, tmp_path, n_ls, constrained):
+    """The whole solve on the pendulum headline's class at T = 8, B = 40 (two
+    blocks of 32 lanes, the second ragged), 2 iterations, lane 3 started at a
+    NaN state; unconstrained from random controls.  Every field of the other
+    lanes within 1e-9 of its array's largest entry (opt_lag of the largest
+    |u|), μ and reg identical; the NaN lane keeps its controls and escalates
+    its reg as the plain version's does."""
+    spec = dict(
+        mass=1.0, length=1.0, dt=0.01, c=1.0, target=np.array([3.14]) if constrained else None,
+        active_ts=(FS_T,), advance_times=2, horizon=FS_T, second_order=False,
+    )  # fmt: skip
+    problem = problem_from_numpy(spec, device="cpu", dtype=torch.float64)
+    rng = np.random.default_rng(4)
+    x0 = np.stack([rng.uniform(-np.pi, np.pi, FS_B), np.zeros(FS_B)], axis=1)
+    x0[3, 0] = np.nan
+    us0 = t(0.5 * rng.normal(size=(FS_B, FS_T, 1))) if not constrained else None
+    kw = dict(us_init=us0, n_linesearch=n_ls)
+    plan = fs.plan_launch(problem, FS_PARAMS, t(x0), **kw)
+    for name, x in zip(("x0", "us0", "scal", "consts", "mrow"), plan.tensors[:5]):
+        dump(x, tmp_path / f"{name}.f64")
+    np.asarray(plan.ints, dtype=np.int32).tofile(tmp_path / "ints.i32")
+    np.asarray(plan.reals, dtype=np.float64).tofile(tmp_path / "reals.f64")
+    run([str(flat_solve_host), str(int(constrained)), str(tmp_path)])
+    outs = [
+        torch.from_numpy(np.fromfile(tmp_path / f"{n}.f64").reshape(x.shape))
+        for n, x in zip(("us", "xs", "fbk", "fbK", "stats", "mval", "mjac"), plan.tensors[5:12])
+    ]
+    e = problem.ne if constrained else 0
+    got = fs._result(*outs, FS_T, 1, e, 2)
+    ref = fs.solve_flat_reference(problem, FS_PARAMS, t(x0), **kw)
+    G, lpb, _ = np.fromfile(tmp_path / "plan.i32", dtype=np.int32).tolist()
+    assert G == 8 and lpb == 32
+    lanes = torch.arange(FS_B) != 3
+    u_scale = max(1.0, float(ref.us[lanes].abs().max()))
+    fields = [(n, getattr(got, n), getattr(ref, n)) for n in FS_FIELDS]
+    fields += [("mults." + n, getattr(got.mults, n), getattr(ref.mults, n)) for n in ("val", "jac")]
+    for name, g, r in fields:
+        assert g.shape == r.shape, name
+        if g.numel():
+            assert bool(torch.isfinite(g[lanes]).all()), name
+            scale = u_scale if name == "opt_lag" else max(1.0, float(r[lanes].abs().max()))
+            assert float((g - r)[lanes].abs().max()) <= 1e-9 * scale, name
+    assert torch.equal(got.mu, ref.mu) and torch.equal(got.reg, ref.reg)
+    assert bool((got.us[3] == (0.0 if us0 is None else us0[3])).all()) and float(got.reg[3]) > 0

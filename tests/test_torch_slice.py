@@ -235,8 +235,9 @@ def test_gate_critical_stages_run_in_full_fp32(monkeypatch):
     """``matmul_precision="high"`` allows TF32 for the solve, but the Riccati
     sweep, the optimality adjoints and ``update_origin`` run inside
     ``al.full_fp32_matmuls`` with TF32 off, as ddp_tpu pins them to
-    "highest"; the process setting comes back after the solve, and after the
-    guard even when its body raises."""
+    "highest", and so do the line search's rollouts and AL cost, on both
+    eager line searches (sweep and seq); the process setting comes back after
+    the solve, and after the guard even when its body raises."""
     seen = {}
 
     def spy(name, fn):
@@ -253,11 +254,13 @@ def test_gate_critical_stages_run_in_full_fp32(monkeypatch):
     _, tp = both_problems(8, np.float64)
     before = torch.backends.cuda.matmul.allow_tf32
     params = SolverParams(max_iterations=2, threshold=1e-5, mu=1e4, inner_iters_max=1)
-    tbatched.solve_batched(
-        tp, params, t(headline_x0s(4, np.float64)), matmul_precision="high", **HEADLINE_KW
-    )
+    for forward in ("sweep", "seq"):
+        tbatched.solve_batched(
+            tp, params, t(headline_x0s(4, np.float64)), matmul_precision="high",
+            forward=forward, **HEADLINE_KW,
+        )  # fmt: skip
     assert seen["tmv"] == {False} and seen["state_difference_jacobian"] == {False}
-    assert seen["mv"] == {False, True}  # the unpinned line search kept TF32
+    assert seen["mv"] == {False}  # the line search's AL cost is pinned too
     assert torch.backends.cuda.matmul.allow_tf32 == before
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     with pytest.raises(RuntimeError, match="inside"):

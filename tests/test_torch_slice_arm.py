@@ -22,6 +22,7 @@ from torch_parity_helpers import (
 
 from ddp_tpu.models import robots as jrobots
 from ddp_tpu.ocp.problem import Derivs as JDerivs
+from ddp_tpu.solver import al as jal
 from ddp_tpu.solver import batched as jbatched
 from ddp_tpu.solver.solve import SolverParams as JParams
 from ddp_tpu_torch.convert import problem_from_numpy
@@ -108,6 +109,23 @@ def test_fx_fu_is_used_as_given(panda):
     fu = torch.full((Bn, T, tp.ndx, tp.nu), 3.0, dtype=torch.float64)
     d = tp.derivatives(t(xs), t(us), fx_fu=(fx, fu))
     assert torch.equal(d.fx, fx) and torch.equal(d.fu, fu)
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e23, 1e25])
+def test_optimality_lag_float32_past_the_square(panda, scale):
+    """Multipliers past 1e19 (a lane whose μ raced) square past float32's
+    range in ‖∂L/∂u_t‖ over the arm's seven controls.  The reported
+    ``opt_lag`` stays finite and within float32 roundoff (rtol 1e-5) of
+    ddp_tpu's float64 value, below that range (scale 1) and past it."""
+    jp, tp, _, us, xs, jd = panda
+    rng = np.random.default_rng(2)
+    val = scale * rng.normal(size=(*us.shape[:2], 3))
+    jac = 0.1 * rng.normal(size=(*us.shape[:2], 3, tp.ndx))
+    ref = jax.vmap(lambda d, v, j: jal.optimality_lag(jp, d, v, j))(jd, val, jac)
+    td32 = type(jd)(*(t(np.asarray(x, np.float32)) for x in jd))
+    got = tal.optimality_lag(tp, td32, t(val.astype(np.float32)), t(jac.astype(np.float32)))
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=0.0)
 
 
 # ------------------------------------------------------------ line search
