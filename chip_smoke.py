@@ -28,11 +28,13 @@
    second-order kernel's H must be exactly symmetric with exactly zero ττ
    and vτ blocks.
    Fused line search (kernel and plain version on a numpy-seeded state whose
-   lanes accept different steps, B=4096, T=32): f64 constrained with 4 and 7
-   candidates (xs, us within 1e-10 of the array's largest entry, every step
-   equal), f32 constrained (2e-5; at least 99% of lanes on the same step),
-   unconstrained (e = 0), a ragged B=1000, and anti-descent gains (step 0
-   everywhere, the trajectory back bit for bit).  Whole solve on the headline
+   lanes accept different steps, B=4096, T=32): f64 constrained with 4, 7,
+   31 and 1 candidates (xs, us within 1e-10 of the array's largest entry,
+   every step equal), f32 constrained (2e-5; at least 99% of lanes on the
+   same step), unconstrained (e = 0), a ragged B=1000, T=200 (bench.py's
+   T200 row), every 7th lane anti-descent (those lanes step 0 and their
+   trajectory back bit for bit, the others at the bars), and anti-descent
+   gains on every lane in both types.  Whole solve on the headline
    problem, the plain version once per case: f64 at B=4096 (every field
    within 1e-9 of its array's largest entry, identical μ and reg), f32 (≥ 99%
    of lanes agree on us within 1e-3 of their largest |u|, feasible shares
@@ -73,12 +75,14 @@
    then the same stage through deriv="jvp", backward="sweep", and both in f64
    at 2 iterations (us within 1e-7 of each lane's largest |u|, identical μ).
 7. times: each kernel vs its plain version at its main-path shape (CUDA
-   events, median of 20; the second-order fd and the line search's plain
-   versions median of 5; the whole solve's plain version is the one run of
-   phase 3), each beside its bound — the Riccati ladder at (2, 1, 1), at
-   (14, 7, 3) in both orders and types and at (12, 6, 6) in f64, on a launch
-   plan and through its wrapper — and solves/s of the main paths, paths A
-   and B included (median of 3 after a warm-up).
+   events around one call, median of 20; the second-order fd and the line
+   search's plain versions median of 5; the whole solve's plain version is
+   the one run of phase 3; the line-search kernel also by its device time
+   alone, 50 launches queued behind a sleep kernel), each beside its bound —
+   the Riccati ladder at (2, 1, 1), at (14, 7, 3) in both orders and types
+   and at (12, 6, 6) in f64, on a launch plan and through its wrapper — and
+   solves/s of the main paths, paths A and B included (median of 3 after a
+   warm-up).
 
 Every phase prints one line; any failure raises and the exit code is not 0.
 The last lines are a JSON object describing the kernels and the JSON result
@@ -103,6 +107,7 @@ from ddp_tpu_torch.kernels import fd_derivs2 as fd2
 from ddp_tpu_torch.kernels import flat_solve as fs
 from ddp_tpu_torch.kernels import linesearch_flat as lsf
 from ddp_tpu_torch.kernels import riccati_small as rs
+from ddp_tpu_torch.kernels.flat_problem import pack_problem
 from ddp_tpu_torch.models import robots
 from ddp_tpu_torch.models.base import state_pack
 from ddp_tpu_torch.ocp import constraints, costs, dynamics
@@ -362,19 +367,21 @@ GAIN_SCALES = (1.5, 2.5, 5.0, 7.0, 11.0, 13.0, 100.0, 1000.0)
 RESULT_FIELDS = ("xs", "us", "fb_k", "fb_K", "opt_constr", "opt_lag", "mu", "reg", "w", "n")
 
 
-def linesearch_inputs(Bk, dtype, constrained=True, anti_descent=False):
+def linesearch_inputs(Bk, dtype, constrained=True, anti_descent=False, Tk=T, reject_every=None):
     """A line-search state on the card (≙ tests/test_pallas_linesearch.py's
-    make_state, numpy-seeded): the pendulum with a target of 2.0 (or
-    unconstrained), a rollout from random x0s and us, random multipliers
-    anchored at it, μ = 1e3, the gains of a backward sweep at reg = 0 with
-    lane i's k times GAIN_SCALES[i % 8]; ``anti_descent``: k = 1e3, K = 0.
-    Returns (problem, (xs, us, k, K, mult_val, mult_jac, mu))."""
+    make_state, numpy-seeded): the pendulum at horizon ``Tk`` with a target of
+    2.0 (or unconstrained), a rollout from random x0s and us, random
+    multipliers anchored at it, μ = 1e3, the gains of a backward sweep at
+    reg = 0 with lane i's k times GAIN_SCALES[i % 8]; ``anti_descent``: k =
+    1e3, K = 0 on every lane, or ``reject_every``: on every such lane from
+    lane 0.  Returns (problem, (xs, us, k, K, mult_val, mult_jac, mu))."""
     rng = np.random.default_rng(7)
-    spec = dict(SPEC, target=np.array([2.0]) if constrained else None)
+    spec = dict(SPEC, target=np.array([2.0]) if constrained else None, active_ts=(Tk,),
+                horizon=Tk)  # fmt: skip
     problem = problem_from_numpy(spec, device=DEV, dtype=dtype)
     kw = dict(dtype=dtype, device=DEV)
     x0s = torch.tensor(0.5 * rng.normal(size=(Bk, 2)), **kw)
-    us = torch.tensor(0.2 * rng.normal(size=(Bk, T, 1)), **kw)
+    us = torch.tensor(0.2 * rng.normal(size=(Bk, Tk, 1)), **kw)
     xs = problem.rollout(x0s, us)
     mults = al.init_multipliers(problem, xs)
     val = torch.tensor(0.3 * rng.normal(size=mults.val.shape), **kw)
@@ -385,14 +392,19 @@ def linesearch_inputs(Bk, dtype, constrained=True, anti_descent=False):
     k = k * torch.tensor(np.resize(GAIN_SCALES, Bk), **kw)[:, None, None]
     if anti_descent:
         k, K = torch.full_like(k, 1e3), torch.zeros_like(K)
+    if reject_every is not None:
+        bad = (torch.arange(Bk, device=DEV) % reject_every == 0)[:, None, None]
+        k, K = torch.where(bad, 1e3, k), torch.where(bad[..., None], 0.0, K)
     return problem, (xs, us, k.contiguous(), K.contiguous(), val, jac, mu)
 
 
-def linesearch_vs_plain(name, problem, state, n_cand, bar, min_same_step):
+def linesearch_vs_plain(name, problem, state, n_cand, bar, min_same_step, rejected=None):
     """Run the line-search kernel and its plain version on the same card
     tensors; raise unless at least ``min_same_step`` of the lanes chose the
     same step and, on those, xs and us agree within ``bar`` of the array's
-    largest entry.  Returns (max abs error, share of lanes with equal step)."""
+    largest entry; the lanes of the mask ``rejected`` must take step 0 and get
+    their inputs back bit for bit.  Returns (max abs error, share of lanes
+    with equal step)."""
     before = lsf.LAUNCHES
     got = lsf.linesearch(problem, *state, n_cand)
     torch.cuda.synchronize()
@@ -403,34 +415,49 @@ def linesearch_vs_plain(name, problem, state, n_cand, bar, min_same_step):
     check(share >= min_same_step, f"{name}: only {share} of lanes chose the plain version's step")
     err = 0.0
     for g, r, label in zip(got[:2], ref[:2], ("xs", "us")):
-        check(g.shape == r.shape, f"{name}: {label} shape {tuple(g.shape)}")
+        check(g.shape == r.shape and g.is_contiguous(), f"{name}: {label} shape {tuple(g.shape)}")
         check(bool(torch.isfinite(g).all()), f"{name}: non-finite {label}")
         e = float((g - r)[same].abs().max())
         check(e <= bar * max(1.0, float(r.abs().max())), f"{name}: {label} max err {e:.3e}")
         err = max(err, e)
+    extra = {}
+    if rejected is not None:
+        check(float(got[2][rejected].abs().max()) == 0.0, f"{name}: a rejecting lane took a step")
+        check(torch.equal(got[0][rejected], state[0][rejected])
+              and torch.equal(got[1][rejected], state[1][rejected]),
+              f"{name}: a rejecting lane's incumbent did not come back bit for bit")  # fmt: skip
+        extra = dict(rejecting_lanes_bit_exact=int(rejected.sum()))
     steps = sorted({float(v) for v in got[2]})
     say("kernel", case=name, max_abs_err=f"{err:.3e}", bar_rel=bar, lanes_same_step=share,
         min_same_step=min_same_step, steps=steps,
-        rejected_lanes=int((got[2] == 0).sum()))  # fmt: skip
+        rejected_lanes=int((got[2] == 0).sum()), **extra)  # fmt: skip
     return err, share
 
 
 def linesearch_checks():
-    """Kernel #4 against its plain version at B=4096, T=32.  Returns the f32
-    inputs and error for the timing phase."""
-    for n_cand in (4, 7):
+    """Kernel #4 against its plain version at B=4096, T=32 (and T=200).
+    Returns the f32 inputs and error for the timing phase."""
+    f64 = torch.float64
+    for n_cand in (4, 7, 31, 1):
         linesearch_vs_plain(f"linesearch_f64_B{B}_T{T}_C{n_cand}",
-                            *linesearch_inputs(B, torch.float64), n_cand, 1e-10, 1.0)  # fmt: skip
+                            *linesearch_inputs(B, f64), n_cand, 1e-10, 1.0)  # fmt: skip
     p32, s32 = linesearch_inputs(B, torch.float32)
     # float32: sinf and the fused multiply-adds of the kernel are not bit-equal
     # to the plain version's, so a lane whose two costs tie may take another
     # rung of the ladder; the lanes that chose the same step must agree
     err32, _ = linesearch_vs_plain(f"linesearch_f32_B{B}_T{T}_C4", p32, s32, 4, 2e-5, 0.99)
     linesearch_vs_plain(f"linesearch_e0_f64_B{B}_T{T}_C4",
-                        *linesearch_inputs(B, torch.float64, constrained=False), 4, 1e-10, 1.0)  # fmt: skip
+                        *linesearch_inputs(B, f64, constrained=False), 4, 1e-10, 1.0)  # fmt: skip
     linesearch_vs_plain("linesearch_ragged_f64_B1000_C4",
-                        *linesearch_inputs(1000, torch.float64), 4, 1e-10, 1.0)  # fmt: skip
-    for dtype in (torch.float64, torch.float32):
+                        *linesearch_inputs(1000, f64), 4, 1e-10, 1.0)  # fmt: skip
+    # bench.py's pendulum T200 row: the shared-memory plan at a long horizon
+    linesearch_vs_plain(f"linesearch_f64_B{B}_T200_C4",
+                        *linesearch_inputs(B, f64, Tk=200), 4, 1e-10, 1.0)  # fmt: skip
+    # rejecting and accepting lanes inside every block
+    linesearch_vs_plain(f"linesearch_mixed_f64_B{B}_T{T}_C4",
+                        *linesearch_inputs(B, f64, reject_every=7), 4, 1e-10, 1.0,
+                        rejected=torch.arange(B, device=DEV) % 7 == 0)  # fmt: skip
+    for dtype in (f64, torch.float32):
         problem, state = linesearch_inputs(B, dtype, anti_descent=True)
         xs_o, us_o, step = lsf.linesearch(problem, *state, 4)
         torch.cuda.synchronize()
@@ -973,6 +1000,24 @@ def event_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def device_ms(fn, n=50, sleep_cycles=50_000_000):
+    """Device time of one call of ``fn`` with ``n`` calls back to back: a
+    sleep kernel holds the stream while the host enqueues them, so the host's
+    submission time, which ``event_ms`` of one launch includes, does not
+    count (CUDA events around the n calls)."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    check(not a.query(), "device_ms: the sleep ended before the launches were enqueued")
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def time_ladder(card, label, triplet, n_levels, shape, second_order=False):
     """The ladder kernel on a launch plan (the kernel alone), the wrapper's
     whole call (its checks, layout copies and allocations included) and the
@@ -1278,19 +1323,30 @@ def main():
         solve_s=[f"{w:.4f}" for w in walls], solves_per_s=f"{B / wall:.1f}",
         peak_mem_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")  # fmt: skip
 
-    # the fused line search: the kernel on packed arrays, the wrapper's whole
-    # call (its transposing copies included), the plain version
+    # the fused line search: the kernel on a checked launch plan, the
+    # wrapper's whole call as path A makes it (the problem packed once), the
+    # plain version
     ls_problem, ls_state = k3["ls_problem"], k3["ls_state"]
     n_ls = HEADLINE_KW["n_linesearch"]
-    ls_flat, ls_packed = lsf.pack_batch_last(ls_problem, *ls_state)
-    ls_ms = event_ms(lambda: lsf.linesearch_packed(ls_flat, ls_packed, n_ls))
-    ls_call_ms = event_ms(lambda: lsf.linesearch(ls_problem, *ls_state, n_ls))
+    ls_flat = pack_problem(ls_problem)
+    ls_plan = lsf.plan_launch(ls_problem, *ls_state, n_ls, flat=ls_flat)
+    ls_ms = event_ms(lambda: lsf.launch_plan(ls_plan))
+    ls_device_ms = device_ms(lambda: lsf.launch_plan(ls_plan))
+    ls_call_ms = event_ms(lambda: lsf.linesearch(ls_problem, *ls_state, n_ls, flat=ls_flat))
     ls_plain_ms = event_ms(lambda: lsf.linesearch_reference(ls_problem, *ls_state, n_ls), reps=5)
     ls_bound, ls_bound_by = linesearch_bound_ms(T, 2, 1, 1, B, n_ls)
+    ls_p64, ls_s64 = linesearch_inputs(B, torch.float64)
+    ls_plan64 = lsf.plan_launch(ls_p64, *ls_s64, n_ls)
+    ls_f64_ms = event_ms(lambda: lsf.launch_plan(ls_plan64))
+    ls_device_f64_ms = device_ms(lambda: lsf.launch_plan(ls_plan64))
     say("time_linesearch", card=f"'{card}'", shape=f"n2m1e1_T{T}_B{B}_C{n_ls}_f32",
-        kernel_ms=f"{ls_ms:.4f}", wrapper_call_ms=f"{ls_call_ms:.4f}",
-        plain_ms=f"{ls_plain_ms:.4f}", bound_ms=f"{ls_bound:.5f}", bound_by=ls_bound_by,
-        kernel_over_bound=f"{ls_ms / ls_bound:.1f}")  # fmt: skip
+        kernel_ms=f"{ls_ms:.4f}", kernel_device_ms=f"{ls_device_ms:.4f}",
+        wrapper_call_ms=f"{ls_call_ms:.4f}", plain_ms=f"{ls_plain_ms:.4f}",
+        bound_ms=f"{ls_bound:.5f}", bound_by=ls_bound_by,
+        kernel_over_bound=f"{ls_ms / ls_bound:.1f}",
+        device_over_bound=f"{ls_device_ms / ls_bound:.1f}", kernel_f64_ms=f"{ls_f64_ms:.4f}",
+        kernel_device_f64_ms=f"{ls_device_f64_ms:.4f}", chain_step_evaluations=T,
+        plan_f32=ls_plan.geometry, plan_f64=ls_plan64.geometry)  # fmt: skip
     # the whole solve in one launch (the plain version was timed once, in
     # phase 3)
     fs_plan = fs.plan_launch(p32, HEADLINE, x32, n_linesearch=n_ls)
@@ -1434,7 +1490,8 @@ def main():
             "replaces": "ddp_tpu/kernels/linesearch_flat.py:321",
             "launches": ls_launches, "max_abs_err": k3["ls_err32"], "ms": ls_ms,
             "plain_ms": ls_plain_ms, "bound_ms": ls_bound, "bound_by": ls_bound_by,
-            "library_ms": None, "wrapper_call_ms": ls_call_ms,
+            "library_ms": None, "wrapper_call_ms": ls_call_ms, "f64_ms": ls_f64_ms,
+            "device_ms": ls_device_ms, "device_f64_ms": ls_device_f64_ms,
             "riccati_launches_on_its_path": ls_rs_launches,
         },
         {

@@ -42,7 +42,7 @@ class FlatProblem(NamedTuple):
     e: int
     consts: torch.Tensor  # [5] mass, length, dt, c, target (0 without a constraint)
     advance: int  # AdvanceTime layers around the target
-    mask: np.ndarray  # [T, e] static 0/1 activity of the constraint rows
+    mask: torch.Tensor  # [T, e] 0/1 activity of the constraint rows (Problem.eq_mask)
     active_ts: tuple  # the ConfigTarget's own schedule (before the layers)
     horizon: int
 
@@ -58,9 +58,12 @@ class FlatProblem(NamedTuple):
 
 
 def pack_problem(problem) -> FlatProblem:
-    """The constants of ``problem`` for the flat-lane kernels, on the problem's
-    device and in its dtype.  Raises ``ValueError`` for a problem outside the
-    classes ported so far, naming the part that is."""
+    """The constants and the constraint mask of ``problem`` for the flat-lane
+    kernels, on the problem's device and in its dtype: a caller packs once and
+    launches many times.  Raises ``ValueError`` for a problem outside the
+    classes ported so far, naming the part that is: a subclass of a constraint
+    of the class or a schedule that cannot be listed step by step is outside
+    it."""
 
     def outside(what):
         return ValueError(
@@ -80,10 +83,15 @@ def pack_problem(problem) -> FlatProblem:
         con, advance = con.inner, advance + 1
     if isinstance(con, NoConstraint):
         target, active_ts = torch.zeros((), dtype=dyn.dt.dtype, device=dyn.dt.device), ()
-    elif isinstance(con, ConfigTarget):
+    elif type(con) is ConfigTarget:
         if con.model is not model:
             raise outside("a ConfigTarget on another model than the dynamics'")
-        target, active_ts = con.target, con.active_ts
+        try:
+            active_ts = tuple(int(t) for t in con.active_ts)
+        except TypeError:
+            kind = type(con.active_ts).__name__
+            raise outside(f"a {kind} schedule that is not a list of steps") from None
+        target = con.target
     else:
         raise outside(f"{type(con).__name__} on a {type(con.model).__name__}")
     if not isinstance(model, Pendulum):
@@ -93,8 +101,8 @@ def pack_problem(problem) -> FlatProblem:
     consts = torch.stack(
         [model.mass, model.length, dyn.dt, problem.cost.c, target.reshape(()).to(dyn.dt.dtype)]
     ).contiguous()
+    mask = torch.as_tensor(problem.eq_mask(), dtype=dyn.dt.dtype, device=dyn.dt.device)
     return FlatProblem(
         class_id=PENDULUM_EULER_TARGET, nx=2, m=1, e=problem.ne, consts=consts,
-        advance=advance, mask=problem.eq_mask(), active_ts=tuple(active_ts),
-        horizon=problem.horizon,
+        advance=advance, mask=mask, active_ts=active_ts, horizon=problem.horizon,
     )  # fmt: skip

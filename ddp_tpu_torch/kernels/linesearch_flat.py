@@ -20,15 +20,16 @@ program.  The multipliers must be anchored at the trajectory
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from ddp_tpu_torch.kernels import _build
-from ddp_tpu_torch.kernels.flat_problem import KERNEL_DIMS, pack_problem
+from ddp_tpu_torch.kernels.flat_problem import KERNEL_DIMS, FlatProblem, pack_problem
 from ddp_tpu_torch.models.base import state_difference
 
 SOURCE = "linesearch_flat.cu"
-# the kernel's block is 32 lanes × (candidates + the step-0 row) ≤ 1024 threads
+# a lane is a group of threads, one a candidate and one for the step-0 row
 MAX_CANDIDATES = 31
 # kernel launches since import (or since a caller reset it)
 LAUNCHES = 0
@@ -110,34 +111,50 @@ def linesearch_reference(
     return xs_new, us_new, chosen
 
 
-def linesearch(problem, xs, us, k, K, mult_val, mult_jac, mu, n_candidates: int = 7):
+def linesearch(
+    problem, xs, us, k, K, mult_val, mult_jac, mu, n_candidates: int = 7, flat=None
+):
     """Batch-major fused line search: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  Returns (xs_new [B, T+1, nx],
     us_new [B, T, m], step [B]).
 
     ``n_candidates`` ≥ 1 is the depth of the step ladder 1, ½, …; the kernel
     takes up to 31 (ddp_tpu's TPU kernel takes 7: its eight sublanes carry the
-    ladder and the step-0 row)."""
+    ladder and the step-0 row).  ``flat``: the problem as
+    ``flat_problem.pack_problem`` packs it, which a caller that runs many line
+    searches on one problem packs once; packed here when not given.  The plain
+    version reads the problem itself."""
     if n_candidates < 1:
         raise ValueError(f"n_candidates must be >= 1, got {n_candidates}")
     if xs.device.type == "cpu":
         return linesearch_reference(
             problem, xs, us, k, K, mult_val, mult_jac, mu, n_candidates
         )
-    return _launch(problem, xs, us, k, K, mult_val, mult_jac, mu, n_candidates)
+    plan = plan_launch(problem, xs, us, k, K, mult_val, mult_jac, mu, n_candidates, flat)
+    return launch_plan(plan)
 
 
-def _batch_last(a, rows):
-    """[B, T, …] → contiguous [T, rows, B]."""
-    return a.reshape(a.shape[0], a.shape[1], rows).permute(1, 2, 0).contiguous()
+class LaunchPlan(NamedTuple):
+    """One launch of the kernel, ready to go: the batch-major device tensors
+    (inputs, then the outputs it writes) and the packed problem.  A plan can
+    be launched again.  Each launch fills ``geometry`` with the kernel's own
+    launch plan: threads a lane, lanes a block and shared-memory bytes a
+    block."""
+
+    tensors: list  # xs, us, k, K, mult_val, mult_jac, mask, mu, xs_out, us_out, step
+    flat: FlatProblem
+    n_candidates: int
+    geometry: dict
 
 
-def pack_batch_last(problem, xs, us, k, K, mult_val, mult_jac, mu):
+def plan_launch(
+    problem, xs, us, k, K, mult_val, mult_jac, mu, n_candidates: int = 7, flat=None
+) -> LaunchPlan:
     """Check the batch-major inputs against the problem's flat-lane class and
-    return what ``linesearch_packed`` takes: (the packed problem, the kernel's
-    eight input arrays: xs [T+1, nx, B], us, k [T, m, B], K [T, m·nx, B],
-    pe [T, e, B], pex [T, e·nx, B], the mask [T, e], mu [B])."""
-    flat = pack_problem(problem)
+    the kernel's instantiations and allocate the outputs.  A non-contiguous
+    input is made contiguous; nothing is transposed or copied to the device."""
+    if flat is None:
+        flat = pack_problem(problem)
     B, Tp1, nx = xs.shape
     T, m, e = Tp1 - 1, us.shape[-1], mult_val.shape[-1]
     dtype, dev = xs.dtype, xs.device
@@ -147,12 +164,18 @@ def pack_batch_last(problem, xs, us, k, K, mult_val, mult_jac, mu):
         )
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernel takes float32 or float64, got {dtype}")
+    if not 1 <= n_candidates <= MAX_CANDIDATES:
+        raise ValueError(
+            f"the kernel takes 1 to {MAX_CANDIDATES} candidates, got {n_candidates}"
+        )
+    if T < 1:
+        raise ValueError(f"the kernel takes a horizon of at least 1 step, got {T}")
     expected = dict(
         xs=(B, T + 1, nx), us=(B, T, m), k=(B, T, m), K=(B, T, m, nx),
-        mult_val=(B, T, e), mult_jac=(B, T, e, nx), mu=(B,), consts=(5,),
+        mult_val=(B, T, e), mult_jac=(B, T, e, nx), mask=(T, e), mu=(B,), consts=(5,),
     )  # fmt: skip
-    given = dict(xs=xs, us=us, k=k, K=K, mult_val=mult_val, mult_jac=mult_jac, mu=mu,
-                 consts=flat.consts)  # fmt: skip
+    given = dict(xs=xs, us=us, k=k, K=K, mult_val=mult_val, mult_jac=mult_jac,
+                 mask=flat.mask, mu=mu, consts=flat.consts)  # fmt: skip
     for name, x in given.items():
         if x.device != dev or x.dtype != dtype:
             raise ValueError(f"{name}: {x.dtype} on {x.device}, expected {dtype} on {dev}")
@@ -160,51 +183,48 @@ def pack_batch_last(problem, xs, us, k, K, mult_val, mult_jac, mu):
             raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {expected[name]}")
     if T != flat.horizon:
         raise ValueError(f"trajectory of {T} steps for a problem of horizon {flat.horizon}")
-    return flat, [
-        _batch_last(xs, nx), _batch_last(us, m), _batch_last(k, m), _batch_last(K, m * nx),
-        _batch_last(mult_val, e), _batch_last(mult_jac, e * nx),
-        torch.as_tensor(flat.mask, dtype=dtype, device=dev).contiguous(), mu.contiguous(),
-    ]  # fmt: skip
+    inputs = [given[n].contiguous() for n in ("xs", "us", "k", "K", "mult_val", "mult_jac",
+                                              "mask", "mu")]  # fmt: skip
+    outputs = [torch.empty_like(inputs[0]), torch.empty_like(inputs[1]), torch.empty_like(mu)]
+    return LaunchPlan(inputs + outputs, flat, n_candidates, {})
 
 
-def linesearch_packed(flat, inputs, n_candidates):
-    """Launch the kernel on ``pack_batch_last``'s arrays.  Returns the
-    batch-last (xs [T+1, nx, B], us [T, m, B], step [B])."""
+def launch_plan(plan: LaunchPlan):
+    """Launch the kernel once on ``plan``.  Returns the plan's output tensors
+    (xs [B, T+1, nx], us [B, T, m], step [B]), contiguous batch-major."""
     global LAUNCHES
-    if not 1 <= n_candidates <= MAX_CANDIDATES:
-        raise ValueError(
-            f"the kernel takes 1 to {MAX_CANDIDATES} candidates, got {n_candidates}"
-        )
-    xs, us = inputs[0], inputs[1]
-    (Tp1, nx, B), m, e = xs.shape, us.shape[1], flat.e
-    dtype, dev = xs.dtype, xs.device
-    xs_o = torch.empty((Tp1, nx, B), dtype=dtype, device=dev)
-    us_o = torch.empty((Tp1 - 1, m, B), dtype=dtype, device=dev)
-    step = torch.empty((B,), dtype=dtype, device=dev)
-    tensors = list(inputs) + [xs_o, us_o, step]
-    ptrs = (ctypes.c_void_p * len(tensors))(*[x.data_ptr() for x in tensors])
+    xs, us = plan.tensors[0], plan.tensors[1]
+    (B, Tp1, nx), m, flat = xs.shape, us.shape[-1], plan.flat
+    ptrs = (ctypes.c_void_p * len(plan.tensors))(*[x.data_ptr() for x in plan.tensors])
     fn = _kernel_fn()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    geometry = (ctypes.c_int * 3)()
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream(xs.device).cuda_stream
         rc = fn(
-            int(dtype == torch.float64), flat.class_id, nx, m, e, Tp1 - 1, B, n_candidates,
-            flat.advance, ctypes.cast(ptrs, ctypes.c_void_p), flat.consts.data_ptr(), stream,
+            int(xs.dtype == torch.float64), flat.class_id, nx, m, flat.e, Tp1 - 1, B,
+            plan.n_candidates, flat.advance, ctypes.cast(ptrs, ctypes.c_void_p),
+            flat.consts.data_ptr(), ctypes.cast(geometry, ctypes.c_void_p), stream,
         )  # fmt: skip
+    if rc == -1:  # the only gate plan_launch cannot check: the shared memory
+        raise ValueError(_NO_FIT.format(T=Tp1 - 1, C=plan.n_candidates, dtype=xs.dtype))
     if rc != 0:
         raise RuntimeError(f"linesearch_flat kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
-    return xs_o, us_o, step
+    plan.geometry.update(threads_per_lane=geometry[0], lanes_per_block=geometry[1],
+                         smem_bytes=geometry[2])  # fmt: skip
+    return tuple(plan.tensors[8:11])
 
 
-def _launch(problem, xs, us, k, K, mult_val, mult_jac, mu, n_candidates):
-    flat, inputs = pack_batch_last(problem, xs, us, k, K, mult_val, mult_jac, mu)
-    xs_o, us_o, step = linesearch_packed(flat, inputs, n_candidates)
-    return xs_o.permute(2, 0, 1), us_o.permute(2, 0, 1), step
+_NO_FIT = (
+    "the line-search kernel keeps a lane's inputs and its candidates' rollouts in "
+    "one block's shared memory (232,448 bytes): T = {T} with {C} candidates in "
+    "{dtype} does not fit (every T <= 256 does, at up to 31 candidates in float64)"
+)
 
 
 def _kernel_fn():
     lib = _build.load(SOURCE)
     fn = lib.ddp_linesearch_flat
-    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     return fn

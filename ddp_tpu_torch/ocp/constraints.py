@@ -34,7 +34,7 @@ class ConfigTarget(nn.Module):
         super().__init__()
         self.model = model
         self.register_buffer("target", target)
-        self.active_ts = tuple(active_ts)
+        self.active_ts = active_ts  # any schedule with `t in active_ts`, kept as given
 
     @property
     def ne(self) -> int:
@@ -62,7 +62,7 @@ class FrameTarget(nn.Module):
         self.model = model
         self.register_buffer("target", target)  # [3]
         self.frame_id = int(frame_id)
-        self.active_ts = tuple(active_ts)
+        self.active_ts = active_ts  # any schedule with `t in active_ts`, kept as given
 
     def value(self, t, x, u):
         del t, u

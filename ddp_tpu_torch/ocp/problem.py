@@ -97,8 +97,12 @@ class Problem(nn.Module):
         return self.constraint.ne
 
     def eq_mask(self) -> np.ndarray:
-        """Static [T, ne] 0/1 activity mask."""
+        """Static [T, ne] 0/1 activity mask: the constraint's per-row
+        ``row_mask(t)`` where it has one, else ``active(t)`` for every row."""
         T, ne = self.horizon, self.ne
+        if hasattr(self.constraint, "row_mask"):
+            rows = [self.constraint.row_mask(t) for t in range(T)]
+            return np.stack(rows).astype(np.float64) if T else np.zeros((0, ne))
         return np.array(
             [[float(self.constraint.active(t))] * ne for t in range(T)],
             dtype=np.float64,

@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from ddp_tpu_torch.diagnostics.asserts import ddp_assert, val
 from ddp_tpu_torch.kernels.fd_derivs import fd_derivs
 from ddp_tpu_torch.kernels.fd_derivs2 import fd_derivs2
 from ddp_tpu_torch.kernels.flat_problem import pack_problem
@@ -204,13 +205,16 @@ def _linesearch_seq(problem, xs, us, k, K, mults, mu, n_candidates):
     return xs_b, us_b, step_b
 
 
-def _linesearch_kernel(problem, xs, us, k, K, mults, mu, n_candidates):
+def _linesearch_kernel(problem, xs, us, k, K, mults, mu, n_candidates, flat):
     """The fused line-search kernel (``kernels/linesearch_flat.py``): one launch
-    for all candidates, the incumbent row and the accepted rollout.  It reads
+    for all candidates, the incumbent row and the accepted rollout, on the
+    problem ``flat`` as ``pack_problem`` packed it once for the solve.  It reads
     the multipliers as anchored at ``xs`` (``mults.origin == xs[:, :-1]``),
     which holds at both call sites: ``init_multipliers``/``update_origin``
     anchor them there just before.  Returns (xs, us, step [B])."""
-    return linesearch_flat(problem, xs, us, k, K, mults.val, mults.jac, mu, n_candidates)
+    return linesearch_flat(
+        problem, xs, us, k, K, mults.val, mults.jac, mu, n_candidates, flat=flat
+    )
 
 
 def _kernel_derivatives(problem):
@@ -386,10 +390,12 @@ def _solve_batched(
             f"x0s is {dtype} on {device} but the problem is {ref.dtype} on "
             f"{ref.device}; move one with .to(device, dtype)"
         )
-    if x0s.dim() != 2 or x0s.shape[-1] != problem.nx:
-        raise ValueError(f"x0s must be [B, {problem.nx}], got {tuple(x0s.shape)}")
-    if params.max_iterations < 1:
-        raise ValueError("max_iterations must be >= 1")
+    ddp_assert(
+        val(x0s.ndim, "x0s.ndim") == 2,
+        val(x0s.shape[-1], "x0s state dim") == problem.nx,
+        val(params.max_iterations, "max_iterations") >= 1,
+        msg="solve_batched() preconditions",
+    )
     if n_reg_levels < 1:
         raise ValueError("n_reg_levels must be >= 1")
     B = x0s.shape[0]
@@ -414,10 +420,10 @@ def _solve_batched(
     else:
         run_backward = _backward_multi_reg
     if forward == "kernel":
-        pack_problem(problem)  # raises for a problem outside the flat-lane class
-    linesearch = {
-        "sweep": _linesearch_sweep, "seq": _linesearch_seq, "kernel": _linesearch_kernel,
-    }[forward]  # fmt: skip
+        # packed once a solve; raises for a problem outside the flat-lane class
+        linesearch = functools.partial(_linesearch_kernel, flat=pack_problem(problem))
+    else:
+        linesearch = {"sweep": _linesearch_sweep, "seq": _linesearch_seq}[forward]
     derivatives = _kernel_derivatives(problem) if deriv == "kernel" else problem.derivatives
 
     # --- pre-loop backward/forward ---

@@ -1,9 +1,9 @@
 """The CUDA sources of kernels #1 (``csrc/riccati_small.cu``), #2
-(``csrc/fd_derivs.cu``: primal, q and v passes, its v pass also built in the
-variant that computes the kinematics again), #3 (``csrc/fd_derivs2.cu``) and
-#5 (``csrc/flat_solve.cu``: a lane per group of threads in shared memory,
-barriers between its phases) compiled as host C++ and run block by block on
-the CPU (``tests/cuda_host/``: one std::thread per GPU thread, barriers for
+(``csrc/fd_derivs.cu``: primal, q and v passes), #3 (``csrc/fd_derivs2.cu``),
+#4 (``csrc/linesearch_flat.cu``) and #5 (``csrc/flat_solve.cu``: both a lane
+per group of threads in shared memory, barriers between their phases)
+compiled as host C++ and run block by block on the CPU
+(``tests/cuda_host/``: one std::thread per GPU thread, barriers for
 ``__syncthreads``/``__syncwarp``, the dynamic shared memory a static buffer),
 in float64, against their plain PyTorch versions on the same numpy-seeded
 inputs.
@@ -31,6 +31,8 @@ from ddp_tpu_torch.convert import problem_from_numpy
 from ddp_tpu_torch.kernels import fd_derivs as fd
 from ddp_tpu_torch.kernels import fd_derivs2 as fd2
 from ddp_tpu_torch.kernels import flat_solve as fs
+from ddp_tpu_torch.kernels import linesearch_flat as lsf
+from ddp_tpu_torch.kernels.flat_problem import pack_problem
 from ddp_tpu_torch.kernels import riccati_small as rs
 from ddp_tpu_torch.models import robots
 from ddp_tpu_torch.solver import batched as tbatched
@@ -47,6 +49,7 @@ CUTS = {
     "flat_solve.cu": "// ------------------------------------------------------------ launch",
     "fd_derivs2.cu": "template <typename S, int NV>\nint launch(",
     "riccati_small.cu": "// ------------------------------------------------------------ launch",
+    "linesearch_flat.cu": "// ------------------------------------------------------------ launch",
 }
 DYNAMIC_SMEM = "extern __shared__ __align__(16) unsigned char smem_raw[];"
 FLAGS = {
@@ -295,3 +298,104 @@ def test_flat_solve_kernel_matches_plain_version(flat_solve_host, tmp_path, n_ls
             assert float((g - r)[lanes].abs().max()) <= 1e-9 * scale, name
     assert torch.equal(got.mu, ref.mu) and torch.equal(got.reg, ref.reg)
     assert bool((got.us[3] == (0.0 if us0 is None else us0[3])).all()) and float(got.reg[3]) > 0
+
+
+# ------------------------------------------------------------- kernel #4
+
+
+@pytest.fixture(scope="module", params=sorted(FLAGS))
+def ls_host(request, tmp_path_factory):
+    out_dir = tmp_path_factory.mktemp("ls")
+    return build("linesearch_flat.cu", "linesearch_flat_host.cpp", out_dir, request.param)
+
+
+LS_T = 12
+# per-lane factors on the feed-forward gains (chip_smoke.py's GAIN_SCALES):
+# overlong steps, so that lanes accept different rungs of the ladder
+LS_GAINS = (1.5, 2.5, 5.0, 7.0, 11.0, 13.0, 100.0, 1000.0)
+
+
+def ls_inputs(B, constrained):
+    """A numpy-seeded line-search state of the pendulum headline's class at
+    T = 12 (target 2.0 two steps past the horizon, or unconstrained): a
+    rollout from random x0s and us, random multipliers, μ = 1e3, the gains of
+    a backward sweep at reg = 0 with lane i's k times LS_GAINS[i % 8], and
+    anti-descent gains (k = 1e3, K = 0) on every 5th lane from lane 3.
+    Returns (problem, (xs, us, k, K, mult_val, mult_jac, mu), the anti-descent
+    lanes)."""
+    spec = dict(
+        mass=1.0, length=1.0, dt=0.01, c=1.0, target=np.array([2.0]) if constrained else None,
+        active_ts=(LS_T,), advance_times=2, horizon=LS_T, second_order=False,
+    )  # fmt: skip
+    problem = problem_from_numpy(spec, device="cpu", dtype=torch.float64)
+    rng = np.random.default_rng(7)
+    x0s, us = t(0.5 * rng.normal(size=(B, 2))), t(0.2 * rng.normal(size=(B, LS_T, 1)))
+    xs = problem.rollout(x0s, us)
+    e = problem.ne
+    val, jac = t(0.3 * rng.normal(size=(B, LS_T, e))), t(0.1 * rng.normal(size=(B, LS_T, e, 2)))
+    mu = t(np.full(B, 1e3))
+    k, K, ok = tbatched._backward_sweep(problem.derivatives(xs, us), val, jac, mu, t(np.zeros(B)))
+    assert bool(ok.all())
+    bad = torch.from_numpy(np.arange(B) % 5 == 3)
+    k = torch.where(bad[:, None, None], 1e3, k * t(np.resize(LS_GAINS, B))[:, None, None])
+    K = torch.where(bad[:, None, None, None], 0.0, K)
+    return problem, (xs, us, k, K, val, jac, mu), bad
+
+
+@pytest.mark.parametrize(
+    "n_cand,constrained,B",
+    [(1, True, 40), (4, True, 70), (7, True, 40), (4, False, 96)],
+    ids=["C1", "C4", "C7", "C4_e0"],
+)
+def test_linesearch_kernel_matches_plain_version(ls_host, tmp_path, n_cand, constrained, B):
+    """The kernel on the pendulum headline's class at T = 12 against its plain
+    version, over blocks of 32 lanes with a ragged last one (B = 96 with 4
+    candidates is three whole blocks), lanes accepting different steps and
+    anti-descent lanes rejecting all of them: every step equal, xs and us
+    within 1e-10 of each array's largest entry, the rejected lanes' inputs
+    back bit for bit."""
+    problem, state, bad = ls_inputs(B, constrained)
+    flat = pack_problem(problem)
+    for name, x in zip(("xs", "us", "k", "K", "pe", "pex", "mu"), state):
+        dump(x, tmp_path / f"{name}.f64")
+    dump(flat.mask, tmp_path / "mask.f64")
+    dump(flat.consts, tmp_path / "consts.f64")
+    args = [flat.e, LS_T, B, n_cand, flat.advance, tmp_path]
+    run([str(ls_host), *map(str, args)])
+    xs_k = torch.from_numpy(np.fromfile(tmp_path / "xs_out.f64").reshape(B, LS_T + 1, 2))
+    us_k = torch.from_numpy(np.fromfile(tmp_path / "us_out.f64").reshape(B, LS_T, 1))
+    step_k = torch.from_numpy(np.fromfile(tmp_path / "step.f64"))
+    xs_r, us_r, step_r = lsf.linesearch_reference(problem, *state, n_cand)
+    assert torch.equal(step_k, step_r)
+    rejected = step_r == 0
+    assert bool(rejected[bad].all()) and bool((step_r[~bad] > 0).any())
+    if n_cand > 1:
+        assert len(set(step_r[~bad].tolist())) >= 2  # lanes take different rungs
+    for got, ref in ((xs_k, xs_r), (us_k, us_r)):
+        assert bool(torch.isfinite(got).all())  # every entry written
+        assert float((got - ref).abs().max()) <= 1e-10 * max(1.0, float(ref.abs().max()))
+    assert torch.equal(xs_k[rejected], state[0][rejected])
+    assert torch.equal(us_k[rejected], state[1][rejected])
+    G, lpb, _ = np.fromfile(tmp_path / "plan.i32", dtype=np.int32).tolist()
+    assert (G, lpb) == (2 if n_cand == 1 else 8, 32)
+
+
+def test_linesearch_plan_fits_every_horizon_to_256(ls_host):
+    """One lane's row grows with T and C, so the plan of T = 256 at 31
+    candidates in float64 (about 209 KB a lane) bounds every smaller case:
+    it must fit one block's shared memory, and T = 300 must not (the wrapper
+    raises ValueError there).  The headline (T = 32, 4 candidates, float32)
+    takes 8 threads a lane and 32 lanes a block."""
+
+    def plan(T, C, item):
+        proc = subprocess.run(
+            [str(ls_host), "plan", str(T), str(C), str(item)], capture_output=True, text=True,
+            timeout=60, env=dict(os.environ, **RUN_ENV),
+        )  # fmt: skip
+        return proc.returncode, proc.stdout.split()
+
+    rc, (G, lpb, smem) = plan(256, 31, 8)
+    assert rc == 0 and (G, lpb) == ("32", "1") and 200_000 < int(smem) <= 232_448
+    assert plan(300, 31, 8)[0] == 4
+    rc, (G, lpb, _) = plan(32, 4, 4)
+    assert rc == 0 and (G, lpb) == ("8", "32")

@@ -18,6 +18,7 @@ from ddp_tpu.solver import al as jal
 from ddp_tpu.solver import batched as jbatched
 from ddp_tpu.solver.solve import Method as JMethod
 from ddp_tpu.solver.solve import SolverParams as JParams
+from ddp_tpu_torch.kernels import flat_problem
 from ddp_tpu_torch.kernels import linesearch_flat as lsf
 from ddp_tpu_torch.solver import batched as tbatched
 from ddp_tpu_torch.solver.solve import Method, SolverParams
@@ -129,6 +130,48 @@ def test_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
         port_linesearch(tp, s, 0)
 
 
+def test_plan_launch_passes_batch_major_inputs_as_they_stand():
+    """The launch half of the wrapper (checked here on CPU tensors; it only
+    checks and allocates): contiguous batch-major inputs go to the kernel as
+    the very same tensors, a non-contiguous one is made contiguous once, the
+    outputs are contiguous batch-major, the packed problem's mask is a tensor
+    on the inputs' device; bad counts, horizons and packed problems raise."""
+    _, tp, s = linesearch_state(B, H, np.float64)
+    args = [t(s[n]) for n in ("xs", "us", "k", "K", "val", "jac", "mu")]
+    flat = flat_problem.pack_problem(tp)
+    assert isinstance(flat.mask, torch.Tensor) and flat.mask.shape == (H, 1)
+    plan = lsf.plan_launch(tp, *args, 4, flat=flat)
+    for given, passed in zip(args[:6] + [flat.mask, args[6]], plan.tensors[:8]):
+        assert passed is given
+    shapes = [tuple(x.shape) for x in plan.tensors[8:]]
+    assert shapes == [(B, H + 1, 2), (B, H, 1), (B,)]
+    assert all(x.is_contiguous() for x in plan.tensors[8:]) and plan.flat is flat
+    K_strided = args[3].transpose(0, 1).contiguous().transpose(0, 1)
+    plan = lsf.plan_launch(tp, *args[:3], K_strided, *args[4:], 4, flat=flat)
+    assert plan.tensors[3].is_contiguous() and torch.equal(plan.tensors[3], args[3])
+    with pytest.raises(ValueError, match="1 to 31 candidates"):
+        lsf.plan_launch(tp, *args, 32, flat=flat)
+    with pytest.raises(ValueError, match="horizon"):
+        lsf.plan_launch(tp, *args, 4, flat=flat._replace(horizon=H + 1))
+    with pytest.raises(ValueError, match="consts"):
+        lsf.plan_launch(tp, *args, 4, flat=flat._replace(consts=flat.consts.float()))
+
+
+def test_solve_packs_the_problem_once(monkeypatch):
+    """solve_batched(forward="kernel") packs the problem before its loop and
+    hands it to every line search of the solve."""
+    _, tp = both_problems(8, np.float64)
+    packed, seen = [], []
+    real_pack, real_ls = tbatched.pack_problem, tbatched.linesearch_flat
+    monkeypatch.setattr(tbatched, "pack_problem",
+                        lambda p: packed.append(real_pack(p)) or packed[-1])  # fmt: skip
+    monkeypatch.setattr(tbatched, "linesearch_flat",
+                        lambda *a, flat: seen.append(flat) or real_ls(*a, flat=flat))  # fmt: skip
+    params = SolverParams(**dict(PARAMS, max_iterations=2))
+    tbatched.solve_batched(tp, params, t(headline_x0s(2, np.float64)), forward="kernel")
+    assert len(packed) == 1 and len(seen) == 3 and all(f is packed[0] for f in seen)
+
+
 # ------------------------------------------------------------- whole solve
 
 PARAMS = dict(max_iterations=4, threshold=1e-5, mu=1e4, inner_iters_max=1)
@@ -174,8 +217,9 @@ def test_default_candidates_follow_jax_pallas(monkeypatch):
     for name in ("linesearch_flat", "_linesearch_sweep"):
         real = getattr(tbatched, name)
         monkeypatch.setattr(
-            tbatched, name, lambda *a, real=real, name=name: (seen.append((name, a[-1])), real(*a))[1]
-        )
+            tbatched, name,
+            lambda *a, real=real, name=name, **kw: (seen.append((name, a[-1])), real(*a, **kw))[1],
+        )  # fmt: skip
     params = SolverParams(**PARAMS)
     tbatched.solve_batched(tp, params._replace(max_iterations=1), t(x0s), n_reg_levels=1)
     assert set(seen) == {("_linesearch_sweep", 8)}

@@ -118,6 +118,55 @@ def test_constraint_rows_only_at_the_active_step(derivs_pair):
     assert bool((td.equ[:, active] != 0).all())
 
 
+def test_eq_mask_takes_row_mask_and_keeps_the_schedule():
+    """A constraint's ``row_mask`` decides the activity mask in both packages
+    (here it drops every other step of its schedule), a ``range`` schedule is
+    kept as given, and the flat-lane packer refuses what lies outside its
+    class: the subclass, and a schedule that cannot be listed."""
+    import dataclasses
+
+    from ddp_tpu.ocp import constraints as jcons
+    from ddp_tpu.ocp.problem import Problem as JProblem
+    from ddp_tpu_torch.kernels.flat_problem import pack_problem
+    from ddp_tpu_torch.ocp import constraints as tcons
+    from ddp_tpu_torch.ocp.problem import Problem as TProblem
+
+    Hm = 12
+
+    def every_fourth(con, t):
+        return np.array([t in con.active_ts and t % 4 == 0])
+
+    @dataclasses.dataclass(frozen=True)
+    class JRowMasked(jcons.ConfigTarget):
+        row_mask = every_fourth
+
+    class TRowMasked(tcons.ConfigTarget):
+        row_mask = every_fourth
+
+    class Odd:  # a schedule that answers `t in` and cannot be listed
+        def __contains__(self, t):
+            return t % 2 == 1
+
+    jp, tp = both_problems(Hm, np.float64)
+    schedule = range(0, Hm, 2)
+    jcon = JRowMasked(model=jp.model, target=jp.constraint.inner.inner.target, active_ts=schedule)
+    tcon = TRowMasked(tp.model, tp.constraint.inner.inner.target, schedule)
+    assert tcon.active_ts is schedule
+    jmask = JProblem(dynamics=jp.dynamics, cost=jp.cost, constraint=jcon, horizon=Hm).eq_mask()
+    tprob = TProblem(tp.dynamics, tp.cost, tcon, Hm)
+    np.testing.assert_array_equal(tprob.eq_mask(), jmask)
+    assert jmask[:, 0].tolist() == [float(t % 4 == 0) for t in range(Hm)]
+    assert tprob.active_ts() == (0, 4, 8)
+    with pytest.raises(ValueError, match="TRowMasked"):
+        pack_problem(tprob)
+    plain = tcons.ConfigTarget(tp.model, tcon.target, schedule)
+    assert pack_problem(TProblem(tp.dynamics, tp.cost, plain, Hm)).active_ts == (0, 2, 4, 6, 8, 10)
+    odd = TProblem(tp.dynamics, tp.cost, tcons.ConfigTarget(tp.model, tcon.target, Odd()), Hm)
+    assert odd.active_ts() == tuple(range(1, Hm, 2))
+    with pytest.raises(ValueError, match="Odd schedule"):
+        pack_problem(odd)
+
+
 def test_update_origin(traj, mults):
     jp, tp, _, _, xs = traj
     ref = jax.vmap(lambda m_, x: jal.update_origin(jp.model, m_, x))(mults, xs)
@@ -396,6 +445,15 @@ def test_bad_inputs_raise(traj):
         tbatched.solve_batched(tp, SolverParams(**HEADLINE), t(x0s), backward="pallas")
     with pytest.raises(ValueError, match="float32"):
         tbatched.solve_batched(tp, SolverParams(**HEADLINE), t(x0s).float())
+    # the reference's three preconditions, through ddp_assert as in ddp_tpu
+    for bad_x0s, params, failed in (
+        (t(x0s[0]), HEADLINE, "x0s.ndim = 1 == 2"),
+        (t(np.zeros((2, 3))), HEADLINE, "x0s state dim = 3 == 2"),
+        (t(x0s), dict(HEADLINE, max_iterations=0), "max_iterations = 0 >= 1"),
+    ):
+        with pytest.raises(AssertionError, match="solve_batched\\(\\) preconditions") as exc:
+            tbatched.solve_batched(tp, SolverParams(**params), bad_x0s)
+        assert f"[FAILED] {failed}" in str(exc.value)
     # a second-order problem's derivatives work (they used to raise); what
     # raises is precomputed Jacobians without the dynamics Hessian
     second = problem_from_numpy(
