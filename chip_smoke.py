@@ -14,10 +14,12 @@
    within the bars): (n, m, e) = (2, 1, 1) at B=4096, T=32 in f32 and f64
    with one level, a ragged B=1000, one lane forced non-PD; (12, 6, 6) at
    B=512, T=16 and (14, 7, 3) at B=256, T=16 in f64 and f32 with 4 levels,
-   (14, 7, 3) at a ragged B=1000; with the second-order terms (non-zero
-   rank-3 slabs) (2, 1, 1) at B=4096, T=32, (4, 2, 2) at a ragged B=1000,
-   (14, 7, 3) at B=256, T=16 in f64 and f32, one lane forced non-PD; and the
-   ladder itself at (14, 7, 3) both orders and (4, 2, 2): a lane that fails
+   (14, 7, 3) at a ragged B=1000; (12, 6, 12) at B=256, T=32 with 4 levels
+   in f64 and f32 and with one level and lane 3 forced non-PD; with the
+   second-order terms (non-zero rank-3 slabs) (2, 1, 1) at B=4096, T=32,
+   (4, 2, 2) at a ragged B=1000, (14, 7, 3) at B=256, T=16 in f64 and f32,
+   one lane forced non-PD; and the ladder itself at (14, 7, 3) both orders,
+   (12, 6, 12) and (4, 2, 2): a lane that fails
    at reg and at the first escalation takes the second level, bit for bit
    what a launch at that level alone gives, and a lane no level saves keeps
    level 0's NaN gains and reg.
@@ -74,7 +76,22 @@
    finiteness, the chain's feasible share against the Gauss-Newton stage's,
    then the same stage through deriv="jvp", backward="sweep", and both in f64
    at 2 iterations (us within 1e-7 of each lane's largest |u|, identical μ).
-7. times: each kernel vs its plain version at its main-path shape (CUDA
+7. quadrotor main path: bench.py's quaternion-manifold row (256 freeflyers
+   to a state target at rest, H=32, f32, 36 AL iterations, inner_iters_max=3,
+   8 candidates of forward="seq"), built from a numpy spec through
+   convert.problem_from_numpy, through solve_batched with backward="kernel"
+   (the Riccati kernel at (12, 6, 12), 37 launches sweeping 4 levels each, no
+   other kernel); checks finiteness, every terminal quaternion's norm within
+   1e-5 of 1, the feasible share against ddp_tpu's for the same recipe on the
+   CPU (0.9921875) less 0.01, then the same solve with backward="sweep"
+   (shares within 0.01), and both in f64 at 16 lanes (us within 1e-7 of each
+   lane's largest |u|, identical μ).
+8. ddp_tpu_torch.solve on the card: the golden file's configuration
+   (pendulum, T=200, full DDP, f64, SolverParams(200, 1e-9, mu=1e8), x0 = 0)
+   converged in ≤ 200 iterations within 1e-9 (us) and 1e-11 (xs) of
+   tests/golden_pendulum_reference.npz, and tests/test_model_zoo.py's
+   quadrotor solve (f64, H=24, opt_constr < 1e-3); wall times.
+9. times: each kernel vs its plain version at its main-path shape (CUDA
    events around one call, median of 20; the second-order fd and the line
    search's plain versions median of 5; the whole solve's plain version is
    the one run of phase 3; the line-search kernel also by its device time
@@ -96,10 +113,12 @@ import statistics
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from ddp_tpu_torch import solve as ddp_solve
 from ddp_tpu_torch.convert import problem_from_numpy
 from ddp_tpu_torch.kernels import _build
 from ddp_tpu_torch.kernels import fd_derivs as fd
@@ -109,7 +128,7 @@ from ddp_tpu_torch.kernels import linesearch_flat as lsf
 from ddp_tpu_torch.kernels import riccati_small as rs
 from ddp_tpu_torch.kernels.flat_problem import pack_problem
 from ddp_tpu_torch.models import robots
-from ddp_tpu_torch.models.base import state_pack
+from ddp_tpu_torch.models.base import state_integrate, state_pack
 from ddp_tpu_torch.ocp import constraints, costs, dynamics
 from ddp_tpu_torch.ocp.problem import Problem
 from ddp_tpu_torch.ocp.problem import Derivs
@@ -155,6 +174,17 @@ FD_F32_VS_PLAIN = 2.0
 DDP = SolverParams(max_iterations=4, threshold=1e-5, mu=1e4, inner_iters_max=1)
 DDP_COLD = DDP._replace(max_iterations=12)
 DDP_KW = dict(n_linesearch=4, forward="seq", matmul_precision="highest")
+# bench.py's quadrotor row: 256 freeflyers to a state target at rest, H=32,
+# 36 AL iterations, f32, the Riccati kernel at (12, 6, 12)
+QUAD_B, QUAD_H, QUAD_B64 = 256, 32, 16
+QUAD = SolverParams(max_iterations=36, threshold=1e-5, mu=1e4, inner_iters_max=3)
+QUAD_KW = dict(n_linesearch=8, forward="seq", matmul_precision="highest")
+QUAD_REG_LEVELS = 4  # solve_batched's default ladder depth
+# ddp_tpu's feasible share (opt_constr < 1e-2) for the same recipe on the
+# CPU (backward="sweep", jit, f32): tests/test_torch_reference_draws.py
+# quadrotor_share
+QUAD_JAX_CPU_SHARE = 0.9921875
+GOLDEN = Path(__file__).resolve().parent / "tests" / "golden_pendulum_reference.npz"
 # published peaks of one H100 SXM used for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12  # outside the tensor cores
@@ -812,6 +842,163 @@ def arm_second_order_path(x32, u32, gn_k, gn_j, gn64):
     )
 
 
+# ----------------------------------------------------- quadrotor and solve
+
+
+def model_leaves(model):
+    """``convert.robot_model_from_numpy``'s leaves of a port RobotModel."""
+    leaves = {k: None if getattr(model, k) is None else getattr(model, k).cpu().numpy()
+              for k in ("jp_rot", "jp_trans", "axes", "inertias", "gravity", "frame_rot",
+                        "frame_trans", "damping", "q_lower", "q_upper", "v_limit", "tau_limit")}  # fmt: skip
+    leaves.update({k: getattr(model, k) for k in ("joint_types", "parents", "frame_bodies",
+                                                   "frame_names", "name")})  # fmt: skip
+    return leaves
+
+
+def quadrotor_spec(horizon):
+    """bench.py's quadrotor row as ``convert.problem_from_numpy``'s numpy
+    spec: the freeflyer (``robots.quadrotor``'s leaves), Euler dt = 0.02,
+    ½‖u‖², a StateTarget at q0 ⊕ (0.3, −0.2, 0.4, 0, 0, 0.2) at rest two
+    steps past the horizon, Gauss-Newton.  The goal is integrated in f64 on
+    the CPU."""
+    quad = robots.quadrotor(device="cpu", dtype=torch.float64)
+    q_goal = quad.integrate(quad.neutral_configuration(),
+                            torch.tensor([0.3, -0.2, 0.4, 0.0, 0.0, 0.2], dtype=torch.float64))  # fmt: skip
+    target = np.concatenate([q_goal.numpy(), np.zeros(6)])
+    return dict(
+        robot=model_leaves(quad), dt=0.02, c=1.0, horizon=horizon, second_order=False,
+        constraint=dict(kind="state", target=target, active_ts=(horizon,), advance_times=2),
+    )  # fmt: skip
+
+
+def quadrotor_row(dtype, Bk=None):
+    """The row's problem on the card and its inputs: x0s = x0 ⊕ 0.05·N(0, 1)
+    (the draws of ``default_rng(0)``, rounded to float32 as bench.py's),
+    us0 = the gravity compensation rnea(q, 0, 0) tiled over the horizon."""
+    Bk = QUAD_B if Bk is None else Bk
+    problem = problem_from_numpy(quadrotor_spec(QUAD_H), device=DEV, dtype=dtype)
+    quad = problem.model
+    kw = dict(dtype=dtype, device=DEV)
+    rng = np.random.default_rng(0)
+    dxs = torch.tensor(0.05 * rng.standard_normal((QUAD_B, 12)).astype(np.float32)[:Bk], **kw)
+    x0 = state_pack(quad.neutral_configuration(), torch.zeros(6, **kw))
+    x0s = state_integrate(quad, x0.expand(Bk, -1), dxs)
+    zero_v = torch.zeros(6, **kw)
+    us0 = quad.rnea(x0s[:, :7], zero_v, zero_v)[:, None, :].repeat(1, QUAD_H, 1)
+    return problem, x0s, us0
+
+
+def quad_solve(problem, x0s, us0, backward):
+    res = solve_batched(problem, QUAD, x0s, us_init=us0, backward=backward, **QUAD_KW)
+    torch.cuda.synchronize()
+    return res
+
+
+def quadrotor_path():
+    """Phase 7: the quadrotor row through the Riccati kernel at (12, 6, 12)
+    and through the sweep, its checks, and both in f64 at 16 lanes.  Returns
+    the kernel route's (launches, levels swept), and the two routes' shares
+    and wall times (one solve each, the row's times)."""
+    p32, x32, u32 = quadrotor_row(torch.float32)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res_k = quad_solve(p32, x32, u32, "kernel")
+    wall_k = time.perf_counter() - t0
+    counts, levels = launch_counts(), rs.LEVELS_SWEPT
+    # one backward call before the loop and one per iteration, each one launch
+    # for the whole ladder; no other kernel
+    expected = dict(riccati=1 + QUAD.max_iterations, fd=0, fd2=0, linesearch=0, flat_solve=0)
+    check(counts == expected, f"quadrotor launches {counts} != {expected}")
+    check(levels == expected["riccati"] * QUAD_REG_LEVELS, f"quadrotor levels swept {levels}")
+    for name in RESULT_FIELDS:
+        check(bool(torch.isfinite(getattr(res_k, name)).all()), f"quadrotor: non-finite {name}")
+    check(res_k.us.shape == (QUAD_B, QUAD_H, 6) and res_k.xs.shape == (QUAD_B, QUAD_H + 1, 13),
+          "quadrotor: result shapes")  # fmt: skip
+    qn = torch.linalg.vector_norm(res_k.xs[:, -1, 3:7].double(), dim=-1)
+    qn_err = float((qn - 1).abs().max())
+    check(qn_err <= 1e-5, f"quadrotor terminal quaternion norms off by {qn_err}")
+    frac_k = float((res_k.opt_constr < 1e-2).float().mean())
+    check(frac_k >= QUAD_JAX_CPU_SHARE - 0.01,
+          f"quadrotor feasible share {frac_k} below ddp_tpu's {QUAD_JAX_CPU_SHARE} - 0.01")  # fmt: skip
+    t0 = time.perf_counter()
+    res_s = quad_solve(p32, x32, u32, "sweep")
+    wall_s = time.perf_counter() - t0
+    frac_s = float((res_s.opt_constr < 1e-2).float().mean())
+    check(abs(frac_k - frac_s) <= 0.01, f"quadrotor feasible shares {frac_k} vs {frac_s}")
+    check(bool(torch.isfinite(res_s.us).all()), "quadrotor sweep: non-finite us")
+    agree, worst = lane_agreement(res_k, res_s)
+    say("quadrotor_f32", B=QUAD_B, H=QUAD_H, iters=QUAD.max_iterations, launches=counts,
+        levels_swept=levels, frac_kernel=frac_k, frac_sweep=frac_s,
+        frac_ddp_tpu_cpu=QUAD_JAX_CPU_SHARE,
+        p99_eq=f"{float(torch.quantile(res_k.opt_constr, 0.99)):.3e}",
+        quat_norm_max_err=f"{qn_err:.3e}", lanes_us_agree=agree, us_max_scaled_err=f"{worst:.3e}",
+        mu_equal=float((res_k.mu == res_s.mu).float().mean()),
+        first_solve_s_kernel=f"{wall_k:.3f}", solve_s_sweep=f"{wall_s:.3f}")  # fmt: skip
+
+    p64, x64, u64 = quadrotor_row(torch.float64, QUAD_B64)
+    r64_k = quad_solve(p64, x64, u64, "kernel")
+    r64_s = quad_solve(p64, x64, u64, "sweep")
+    diff = (r64_k.us - r64_s.us).abs().amax(dim=(1, 2))
+    scale = r64_s.us.abs().amax(dim=(1, 2)).clamp(min=1.0)
+    err64 = float((diff / scale).max())
+    check(err64 <= 1e-7, f"quadrotor f64 us max scaled err {err64}")
+    check(torch.equal(r64_k.mu, r64_s.mu), "quadrotor f64 per-lane mu differs")
+    say("quadrotor_f64", B=QUAD_B64, iters=QUAD.max_iterations, us_max_scaled_err=f"{err64:.3e}",
+        mu_identical=True, frac_kernel=float((r64_k.opt_constr < 1e-2).float().mean()))  # fmt: skip
+    return (counts["riccati"], levels), dict(
+        frac_kernel=frac_k, frac_sweep=frac_s, wall_kernel=wall_k, wall_sweep=wall_s
+    )
+
+
+def golden_problem():
+    """The reference's pendulum problem (tests/test_reference_parity.py's
+    golden configuration): T = 200, a configuration target q = 3.14 two steps
+    past the horizon, ½‖u‖², full DDP, f64, on the card."""
+    spec = dict(mass=1.0, length=1.0, dt=0.01, c=1.0, target=np.array([3.14]),
+                active_ts=(200,), advance_times=2, horizon=200, second_order=True)  # fmt: skip
+    return problem_from_numpy(spec, device=DEV, dtype=torch.float64)
+
+
+def solve_path():
+    """Phase 8: ``ddp_tpu_torch.solve`` on CUDA tensors — the golden file's
+    configuration against its committed controls (max|Δu| < 1e-9,
+    max|Δx| < 1e-11, converged in ≤ 200 iterations) and
+    tests/test_model_zoo.py's quadrotor solve (f64, H = 24, opt_constr <
+    1e-3).  Returns the wall times."""
+    golden = np.load(GOLDEN)
+    problem = golden_problem()
+    t0 = time.perf_counter()
+    res = ddp_solve(problem, SolverParams(200, 1e-9, mu=1e8), torch.zeros(2, dtype=torch.float64, device=DEV))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(res.us.device.type == "cuda", "solve: result not on the card")
+    du = float(np.abs(res.us.cpu().numpy() - golden["us"]).max())
+    dx = float(np.abs(res.xs.cpu().numpy() - golden["xs"]).max())
+    iters = int(res.stats.iterations)
+    check(bool(res.stats.converged) and iters <= 200, f"solve: not converged in 200 iterations ({iters})")
+    check(du < 1e-9 and dx < 1e-11, f"solve: golden max|du| {du:.3e}, max|dx| {dx:.3e}")
+    say("solve_golden", T=200, iters=iters, max_du=f"{du:.3e}", max_dx=f"{dx:.3e}",
+        opt_lag=f"{float(res.stats.opt_lag):.3e}", opt_constr=f"{float(res.stats.opt_constr):.3e}",
+        wall_s=f"{wall:.3f}", s_per_iteration=f"{wall / iters:.4f}")  # fmt: skip
+
+    H = 24
+    quad = problem_from_numpy(quadrotor_spec(H), device=DEV, dtype=torch.float64)
+    m = quad.model
+    kw = dict(dtype=torch.float64, device=DEV)
+    q0, zero_v = m.neutral_configuration(), torch.zeros(6, **kw)
+    us0 = m.rnea(q0, zero_v, zero_v)[None].repeat(H, 1)
+    t0 = time.perf_counter()
+    rq = ddp_solve(quad, SolverParams(40, 1e-8, mu=1e4, inner_iters_max=3), torch.cat([q0, zero_v]),
+                   us_init=us0)  # fmt: skip
+    torch.cuda.synchronize()
+    wall_q = time.perf_counter() - t0
+    oc = float(rq.stats.opt_constr)
+    check(bool(torch.isfinite(rq.us).all()) and oc < 1e-3, f"quadrotor solve: opt_constr {oc}")
+    say("solve_quadrotor", H=H, iters=int(rq.stats.iterations), opt_constr=f"{oc:.3e}",
+        wall_s=f"{wall_q:.3f}")  # fmt: skip
+    return dict(golden_s=wall, golden_iters=iters, quadrotor_s=wall_q)
+
+
 # ------------------------------------------------------------------ timing
 
 
@@ -1185,6 +1372,16 @@ def riccati_checks():
     out["arm_err32"] = kernel_vs_plain("armdims_f32_B256_T16", *arm_in, ARM_REG_LEVELS, 2e-3, 2e-4)[0]
     kernel_vs_plain("armdims_ragged_f32_B1000_T16", *spd_inputs(1000, ARM_H, 14, 7, 3, torch.float32),
                     ARM_REG_LEVELS, 2e-3, 2e-4)  # fmt: skip
+    # the quadrotor row's (12, 6, 12) at its shape and ladder depth
+    quad_64 = spd_inputs(QUAD_B, QUAD_H, 12, 6, 12, torch.float64)
+    kernel_vs_plain("quaddims_f64_B256_T32", *quad_64, QUAD_REG_LEVELS, 1e-9, 1e-9)
+    quad_in = spd_inputs(QUAD_B, QUAD_H, 12, 6, 12, torch.float32)
+    out["quad_err32"] = kernel_vs_plain("quaddims_f32_B256_T32", *quad_in, QUAD_REG_LEVELS,
+                                        2e-3, 2e-4)[0]  # fmt: skip
+    _, ok, _ = kernel_vs_plain("quaddims_nonpd_lane3_f64_B256_T32",
+                               *spd_inputs(QUAD_B, QUAD_H, 12, 6, 12, torch.float64, bad_lane=3),
+                               1, 1e-9, 1e-9)  # fmt: skip
+    check(not bool(ok[3]) and int(ok.sum()) == ok.numel() - 1, "only lane 3 may fail (12, 6, 12)")
     # … with the second-order terms, non-zero rank-3 slabs
     kernel_vs_plain("so_headline_f32_B4096_T32",
                     *spd_inputs(B, T, 2, 1, 1, torch.float32, second_order=True),
@@ -1210,6 +1407,7 @@ def riccati_checks():
     # the ladder: lane 1 takes level 2, lane 2 no level, the others level 0
     for name, dims, dtype, so, bars in (
         ("ladder_armdims_f64_B256_T16", (14, 7, 3), torch.float64, False, (1e-9, 1e-9)),
+        ("ladder_quaddims_f32_B256_T16", (12, 6, 12), torch.float32, False, (2e-3, 2e-4)),
         ("ladder_so_armdims_f64_B256_T16", (14, 7, 3), torch.float64, True, (1e-9, 1e-9)),
         ("ladder_so_armdims_f32_B256_T16", (14, 7, 3), torch.float32, True, (2e-3, 2e-4)),
         ("ladder_so_n4m2e2_f64_B1000_T16", (4, 2, 2), torch.float64, True, (1e-9, 1e-9)),
@@ -1228,7 +1426,7 @@ def riccati_checks():
         say("kernel", case=name, lane1_level=2, lane1_bitwise_vs_level_alone=True,
             lane2_saved=False)  # fmt: skip
     out.update(f32_in=f32_in, arm_in=arm_in, arm2_in=arm2_in, arm_64=arm_64, arm2_64=arm2_64,
-               ur5_64=ur5_64)  # fmt: skip
+               ur5_64=ur5_64, quad_in=quad_in, quad_64=quad_64)  # fmt: skip
     return out
 
 
@@ -1301,7 +1499,13 @@ def main():
     )
     del gn64
 
-    # 7. times
+    # 7. quadrotor row through the Riccati kernel at (12, 6, 12)
+    (quad_launches, quad_levels), quad = quadrotor_path()
+
+    # 8. the single-trajectory entry point on the card
+    solve_walls = solve_path()
+
+    # 9. times
     rt = {
         "headline": time_ladder(card, "n2m1e1", f32_in, 1, (T, 2, 1, 1, B)),
         "arm": time_ladder(card, "n14m7e3", arm_in, ARM_REG_LEVELS, (ARM_H, 14, 7, 3, ARM_B)),
@@ -1310,7 +1514,17 @@ def main():
         "arm_so": time_ladder(card, "n14m7e3", arm2_in, ARM_REG_LEVELS, (ARM_H, 14, 7, 3, ARM_B), True),
         "arm_so_f64": time_ladder(card, "n14m7e3", k3["arm2_64"], ARM_REG_LEVELS,
                                   (ARM_H, 14, 7, 3, ARM_B), True),
+        "quad": time_ladder(card, "n12m6e12", k3["quad_in"], QUAD_REG_LEVELS,
+                            (QUAD_H, 12, 6, 12, QUAD_B)),
+        "quad_f64": time_ladder(card, "n12m6e12", k3["quad_64"], QUAD_REG_LEVELS,
+                                (QUAD_H, 12, 6, 12, QUAD_B)),
     }  # fmt: skip
+    for key in ("quad", "quad_f64"):
+        inputs, mu, reg = k3["quad_in" if key == "quad" else "quad_64"]
+        plan = rs.plan_launch(*inputs, mu, torch.stack(_reg_levels(mu, reg, QUAD_REG_LEVELS)))
+        rt[key]["device_ms"] = device_ms(lambda: rs.launch_plan(plan))
+    say("time_backward_device", card=f"'{card}'", shape=f"n12m6e12_T{QUAD_H}_B{QUAD_B}_L{QUAD_REG_LEVELS}",
+        device_ms_f32=f"{rt['quad']['device_ms']:.4f}", device_ms_f64=f"{rt['quad_f64']['device_ms']:.4f}")  # fmt: skip
     solve(p32, x32, "kernel")  # warm-up
     torch.cuda.reset_peak_memory_stats()
     walls = []
@@ -1413,6 +1627,13 @@ def main():
             solves_per_s=f"{ARM_B / arm_walls[deriv]:.1f}",
             peak_mem_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")  # fmt: skip
 
+    say("time_quadrotor_solve", card=f"'{card}'", B=QUAD_B,
+        solve_s_kernel=f"{quad['wall_kernel']:.3f}", solve_s_sweep=f"{quad['wall_sweep']:.3f}",
+        solves_per_s_kernel=f"{QUAD_B / quad['wall_kernel']:.2f}",
+        solves_per_s_sweep=f"{QUAD_B / quad['wall_sweep']:.2f}",
+        golden_solve_s=f"{solve_walls['golden_s']:.3f}",
+        quadrotor_single_solve_s=f"{solve_walls['quadrotor_s']:.3f}")  # fmt: skip
+
     fd2_ms = event_ms(lambda: fd2.fd_derivs2(panda32, *fd_in))
     fd2_plain_ms = event_ms(lambda: fd2.fd_derivs2_reference(panda32, *fd_in), reps=5)
     fd2_bound, fd2_bound_by = fd2_bound_ms(panda32, N)
@@ -1455,6 +1676,12 @@ def main():
                 launches=arm_rs_launches, levels_swept=arm_rs_levels, max_abs_err=k3["arm_err32"],
                 f64_ms=rt["arm_f64"]["ms"],
                 ur5dims_f64_ms=rt["ur5_f64"]["ms"],
+            ),
+            "quadrotor_path": dict(
+                rt["quad"], shape=f"n12m6e12_T{QUAD_H}_B{QUAD_B}_L{QUAD_REG_LEVELS}_f32",
+                launches=quad_launches, levels_swept=quad_levels, max_abs_err=k3["quad_err32"],
+                f64_ms=rt["quad_f64"]["ms"], device_f64_ms=rt["quad_f64"]["device_ms"],
+                solves_per_s=QUAD_B / quad["wall_kernel"], **quad,
             ),
         },
         {

@@ -6,6 +6,7 @@ Mirrors ``ddp_tpu``'s layout (``models/``, ``ocp/``, ``solver/``,
 imports torch and numpy only — never JAX.
 """
 
-from ddp_tpu_torch.solver.solve import Method, SolverParams
+from ddp_tpu_torch.models import pendulum
+from ddp_tpu_torch.solver.solve import Method, SolverParams, solve
 
-__all__ = ["Method", "SolverParams"]
+__all__ = ["Method", "SolverParams", "solve", "pendulum"]

@@ -25,7 +25,7 @@
 //
 // Two programs.
 //
-// Large dims, n >= 12 ((12, 6, 6) and (14, 7, 3)): one block per lane, one
+// Large dims, n >= 12 ((12, 6, 6), (12, 6, 12) and (14, 7, 3)): one block per lane, one
 // warp per level.  Inputs are read lane-major, straight from the batch-major
 // [B, T, ...] tensors of Derivs (a lane's step slab is contiguous): the block
 // copies lane b's step t-1 into shared memory with cp.async (4- or 8-byte
@@ -638,6 +638,7 @@ int dispatch(int second_order, int n, int m, int e, const Args<S>& a, cudaStream
   }
   if (n == 2 && m == 1 && e == 1) return launch<S, 2, 1, 1, false>(a, s);
   if (n == 12 && m == 6 && e == 6) return launch<S, 12, 6, 6, false>(a, s);
+  if (n == 12 && m == 6 && e == 12) return launch<S, 12, 6, 12, false>(a, s);
   if (n == 14 && m == 7 && e == 3) return launch<S, 14, 7, 3, false>(a, s);
   return kNoInstantiation;
 }

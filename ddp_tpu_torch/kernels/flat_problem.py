@@ -93,7 +93,8 @@ def pack_problem(problem) -> FlatProblem:
             raise outside(f"a {kind} schedule that is not a list of steps") from None
         target = con.target
     else:
-        raise outside(f"{type(con).__name__} on a {type(con.model).__name__}")
+        on = getattr(con, "model", None)
+        raise outside(f"{type(con).__name__}" + (f" on a {type(on).__name__}" if on is not None else ""))
     if not isinstance(model, Pendulum):
         raise outside(f"a {type(model).__name__} model")
     if not isinstance(problem.cost, QuadControlCost):

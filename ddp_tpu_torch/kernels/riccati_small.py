@@ -27,8 +27,9 @@ from ddp_tpu_torch.kernels import _build
 
 SOURCE = "riccati_small.cu"
 # (n, m, e) the CUDA source instantiates: the pendulum headline, UR5 with a
-# configuration target, panda7 with a frame target
-KERNEL_DIMS = ((2, 1, 1), (12, 6, 6), (14, 7, 3))
+# configuration target, the quadrotor with a state target, panda7 with a
+# frame target
+KERNEL_DIMS = ((2, 1, 1), (12, 6, 6), (12, 6, 12), (14, 7, 3))
 # … and with the second-order terms: pendulum, cartpole/acrobot with a
 # configuration target, panda7 with a frame target
 KERNEL_DIMS_SECOND_ORDER = ((2, 1, 1), (4, 2, 2), (14, 7, 3))

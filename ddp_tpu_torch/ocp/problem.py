@@ -1,18 +1,22 @@
 """Problem aggregate: dynamics + cost + equality constraint + derivatives
 (≙ ddp_tpu/ocp/problem.py).
 
-Every trajectory argument carries a leading batch dim: ``xs`` is
-[B, T+1, nx] and ``us`` is [B, T, nu].  Derivatives are ``torch.func.jacfwd``
-of the tangent-space local maps
+Every trajectory argument of ``derivatives`` carries a leading batch dim:
+``xs`` is [B, T+1, nx] and ``us`` is [B, T, nu].  Derivatives are
+``torch.func.jacfwd`` of the tangent-space local maps
 
     l̃(dx, du)  = l(t, x ⊕ dx, u + du)
+    f̃(dx, du)  = f(t, x ⊕ dx, u + du) ⊖ f(t, x, u)
     eq̃(dx, du) = eq(t, x ⊕ dx, u + du)
 
-under ``vmap`` over the batch, with the dynamics Jacobians assembled from the
-Euler-step structure (``EulerDynamics.jacobians``).  With
-``second_order=True`` (full DDP) the dynamics Hessian is ``jacfwd`` of that
-assembled Jacobian and the constraint Hessian ``jacfwd∘jacfwd`` at the active
-steps; with ``second_order=False`` (Gauss-Newton) both are zero.
+under ``vmap`` over the batch.  Dynamics with assembled Jacobians
+(``EulerDynamics.jacobians``, any joint type) give fx, fu directly; others
+(RK4) take the generic path: the coordinate Jacobian of the raw next state,
+chained through the manifold difference at it.  With ``second_order=True``
+(full DDP) the dynamics Hessian is ``jacfwd`` of the assembled Jacobian on
+vector-space configurations, else ``jacfwd∘jacfwd`` of f̃, and the
+constraint Hessian ``jacfwd∘jacfwd`` at the active steps; with
+``second_order=False`` (Gauss-Newton) both are zero.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 from torch import nn
 from torch.func import jacfwd, vmap
 
-from ddp_tpu_torch.models.base import state_integrate
+from ddp_tpu_torch.models.base import state_difference, state_integrate
 from ddp_tpu_torch.ocp.dynamics import _vector_space_config
 
 
@@ -32,6 +36,16 @@ from ddp_tpu_torch.ocp.dynamics import _vector_space_config
 # over the assembled Jacobian (itself 2·nv directions of RNEA) are live at
 # once for every sample of a chunk
 _HESSIAN_CHUNK = 1024
+
+
+def _chunked(fn, z0, *samples):
+    """``fn(z0, *samples)`` over the samples (leading dim) in chunks of
+    ``_HESSIAN_CHUNK``, concatenated (each output of a tuple)."""
+    n, c = samples[0].shape[0], _HESSIAN_CHUNK
+    outs = [fn(z0, *(a[i : i + c] for a in samples)) for i in range(0, n, c)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
 
 
 class Derivs(NamedTuple):
@@ -96,6 +110,35 @@ class Problem(nn.Module):
     def ne(self) -> int:
         return self.constraint.ne
 
+    def f(self, t, x, u):
+        return self.dynamics(t, x, u)
+
+    def l(self, t, x, u):  # noqa: E743 — the reference's name
+        return self.cost.stage(t, x, u)
+
+    def lf(self, x):
+        return self.cost.terminal(x)
+
+    def eq(self, t, x, u):
+        """Unmasked constraint value; the solvers go through ``eq_all`` and
+        ``derivatives``, which apply the activity mask."""
+        return self.constraint.value(t, x, u)
+
+    def eq_all(self, xs: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
+        """Masked constraint values of whole trajectories, xs [..., T+1, nx],
+        us [..., T, nu] → [..., T, ne]: evaluated only at the active steps,
+        zero elsewhere."""
+        T, ne = self.horizon, self.ne
+        kw = dict(dtype=xs.dtype, device=xs.device)
+        out = torch.zeros(us.shape[:-2] + (T, ne), **kw)
+        active = self.active_ts()
+        if ne == 0 or not active:
+            return out
+        mask = torch.as_tensor(self.eq_mask(), **kw)
+        ts_a = torch.as_tensor(active, device=xs.device)
+        out[..., ts_a, :] = self.constraint.value(ts_a, xs[..., ts_a, :], us[..., ts_a, :])
+        return out * mask
+
     def eq_mask(self) -> np.ndarray:
         """Static [T, ne] 0/1 activity mask: the constraint's per-row
         ``row_mask(t)`` where it has one, else ``active(t)`` for every row."""
@@ -121,19 +164,64 @@ class Problem(nn.Module):
             xs.append(x)
         return torch.stack(xs, dim=-2)
 
+    def _stage_local(self, z, t, x, u):
+        """l̃(z) = l(t, x ⊕ dx, u + du) of one sample, z = (dx, du)."""
+        ndx = self.ndx
+        return self.cost.stage(t, state_integrate(self.model, x, z[:ndx]), u + z[ndx:])
+
+    def _generic_dynamics_derivatives(self, ts, x, u, z0):
+        """(lz, fx, fu, lzz, fzz) over flat samples (ts [N], x [N, nx],
+        u [N, nu]) for dynamics without assembled Jacobians, or a
+        second-order problem on a manifold configuration (≙ ``per_t``):
+        the Jacobian of (l, f_raw) over z in one ``jacfwd`` (the primal kept
+        as aux), chained through E = ∂(f_raw ⊖ ·)/∂x_next at f_raw; with
+        ``second_order`` the Hessians of (l, f_raw ⊖ f(z)) by
+        ``jacfwd∘jacfwd``, else lzz alone and fzz None."""
+        model = self.model
+        ndx = self.ndx
+
+        def g(z, t, x_, u_):
+            xp = state_integrate(model, x_, z[:ndx])
+            up = u_ + z[ndx:]
+            f_raw = self.dynamics(t, xp, up)
+            return (self.cost.stage(t, xp, up), f_raw), f_raw
+
+        (lz, fz_raw), f_raw = vmap(jacfwd(g, has_aux=True), in_dims=(None, 0, 0, 0))(
+            z0, ts, x, u
+        )
+        E = vmap(jacfwd(lambda xn, base: state_difference(model, base, xn)))(f_raw, f_raw)
+        fz = E @ fz_raw  # [N, ndx, nz]
+        if self.second_order:
+
+            def g2(z, t, x_, u_, base):
+                xp = state_integrate(model, x_, z[:ndx])
+                up = u_ + z[ndx:]
+                return self.cost.stage(t, xp, up), state_difference(
+                    model, base, self.dynamics(t, xp, up)
+                )
+
+            hess = vmap(jacfwd(jacfwd(g2)), in_dims=(None, 0, 0, 0, 0))
+            lzz, fzz = _chunked(hess, z0, ts, x, u, f_raw)
+        else:
+            lzz = vmap(jacfwd(jacfwd(self._stage_local)), in_dims=(None, 0, 0, 0))(z0, ts, x, u)
+            fzz = None
+        return lz, fz[..., :ndx], fz[..., ndx:], lzz, fzz
+
     def derivatives(
         self, xs: torch.Tensor, us: torch.Tensor, fx_fu=None, f_hess=None
     ) -> Derivs:
         """All first/second-order derivatives along (xs [B, T+1, nx],
         us [B, T, nu]).
 
-        Cost derivatives and assembled Euler Jacobians at every step; the
-        constraint's value, Jacobian and (``second_order``) Hessian only at
-        the statically-active steps (``active_ts``), scattered into the dense
-        [B, T, …] arrays.  With ``second_order`` the dynamics Hessian is the
-        forward derivative of the assembled Jacobian, exact on vector-space
-        configurations (charts are translations, so ∂(J at z)/∂z is the
-        local map's Hessian); without it the f and eq Hessians are zero.
+        Cost derivatives and the dynamics Jacobians at every step (assembled
+        Euler Jacobians where the dynamics have them, the generic chain
+        otherwise); the constraint's value, Jacobian and (``second_order``)
+        Hessian only at the statically-active steps (``active_ts``),
+        scattered into the dense [B, T, …] arrays.  With ``second_order`` the
+        dynamics Hessian is the forward derivative of the assembled Jacobian
+        on a vector-space configuration (charts are translations, so
+        ∂(J at z)/∂z is the local map's Hessian) and ``jacfwd∘jacfwd`` of
+        f̃ elsewhere; without it the f and eq Hessians are zero.
 
         ``fx_fu``: optional precomputed tangent-space dynamics Jacobians
         (fx [B, T, ndx, ndx], fu [B, T, ndx, nu]) — e.g. from the batched
@@ -157,17 +245,6 @@ class Problem(nn.Module):
                 "(dynamics.jacobians is the producer of valid tangent-space "
                 "fx/fu); other models need the generic JVP path"
             )
-        if not analytic_ok:
-            raise NotImplementedError(
-                "the generic JVP derivative path (models without assembled "
-                "fd_derivatives) is still to be ported (ROADMAP slice B)"
-            )
-        if self.second_order and fx_fu is None and not _vector_space_config(self.model):
-            raise NotImplementedError(
-                "second_order=True on manifold configurations needs the "
-                "generic jacfwd∘jacfwd path through the manifold difference, "
-                "still to be ported (ROADMAP slice B)"
-            )
         model = self.model
         ndx, nu, ne, T = self.ndx, self.nu, self.ne, self.horizon
         B = xs.shape[0]
@@ -176,38 +253,35 @@ class Problem(nn.Module):
         mask = torch.as_tensor(self.eq_mask(), **kw)
         z0 = torch.zeros(nz, **kw)
 
-        # ---- cost + dynamics: every timestep (≙ per_t_analytic) ----
+        # ---- cost + dynamics: every timestep (≙ per_t_analytic, per_t) ----
         x = xs[:, :-1].reshape(B * T, -1)
         u = us.reshape(B * T, nu)
         ts = torch.arange(T, device=xs.device).repeat(B)
 
-        def c(z, t, x_, u_):
-            return self.cost.stage(t, state_integrate(model, x_, z[:ndx]), u_ + z[ndx:])
-
-        lz = vmap(jacfwd(c), in_dims=(None, 0, 0, 0))(z0, ts, x, u)
-        lzz = vmap(jacfwd(jacfwd(c)), in_dims=(None, 0, 0, 0))(z0, ts, x, u)
+        c = self._stage_local
         fzz = None  # stays None in Gauss-Newton mode: zero Hessian
-        if fx_fu is not None:
-            fx, fu = fx_fu
-            fzz = f_hess
+        # the assembled Jacobians where the dynamics have them; in full DDP
+        # only on a vector-space configuration (≙ the analytic2 condition)
+        assembled = analytic_ok and (not self.second_order or _vector_space_config(model))
+        if fx_fu is None and not assembled:
+            lz, fx, fu, lzz, fzz = self._generic_dynamics_derivatives(ts, x, u, z0)
         else:
-            _, fx, fu = self.dynamics.jacobians(ts, x, u)
-            if self.second_order:
-                # forward-over-assembled-analytic (≙ the analytic2 branch)
-                def jac_flat(z, t, x_, u_):
-                    _, fx_, fu_ = self.dynamics.jacobians(
-                        t, state_integrate(model, x_, z[:ndx]), u_ + z[ndx:]
-                    )
-                    return torch.cat([fx_, fu_], dim=-1)
+            lz = vmap(jacfwd(c), in_dims=(None, 0, 0, 0))(z0, ts, x, u)
+            lzz = vmap(jacfwd(jacfwd(c)), in_dims=(None, 0, 0, 0))(z0, ts, x, u)
+            if fx_fu is not None:
+                fx, fu = fx_fu
+                fzz = f_hess
+            else:
+                _, fx, fu = self.dynamics.jacobians(ts, x, u)
+                if self.second_order:
+                    # forward-over-assembled-analytic (≙ the analytic2 branch)
+                    def jac_flat(z, t, x_, u_):
+                        _, fx_, fu_ = self.dynamics.jacobians(
+                            t, state_integrate(model, x_, z[:ndx]), u_ + z[ndx:]
+                        )
+                        return torch.cat([fx_, fu_], dim=-1)
 
-                hess = vmap(jacfwd(jac_flat), in_dims=(None, 0, 0, 0))
-                fzz = torch.cat(
-                    [
-                        hess(z0, ts[i : i + _HESSIAN_CHUNK], x[i : i + _HESSIAN_CHUNK],
-                             u[i : i + _HESSIAN_CHUNK])
-                        for i in range(0, B * T, _HESSIAN_CHUNK)
-                    ]
-                )  # fmt: skip
+                    fzz = _chunked(vmap(jacfwd(jac_flat), in_dims=(None, 0, 0, 0)), z0, ts, x, u)
         if fzz is None:
             fzz = torch.zeros(B, T, ndx, nz, nz, **kw)
         fzz = fzz.reshape(B, T, ndx, nz, nz)

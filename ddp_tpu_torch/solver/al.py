@@ -42,6 +42,28 @@ def full_fp32_matmuls():
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
+@contextlib.contextmanager
+def matmul_precision(precision):
+    """float32 matmul precision on the card for the duration of a solve:
+    "highest" → full float32, "high"/"default" → TF32 allowed, None → the
+    process setting untouched.  Restored on exit; no effect on the CPU.  The
+    gate-critical stages stay in full float32 under any setting
+    (``full_fp32_matmuls``)."""
+    if precision is None:
+        yield
+        return
+    if precision not in ("highest", "high", "default"):
+        raise ValueError(
+            f"unknown matmul_precision {precision!r}; have None, 'highest', 'high', 'default'"
+        )
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = precision != "highest"
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
 def mv(A, x):
     """Batched matrix-vector product A·x: [..., r, c] × [..., c] → [..., r]."""
     return (A @ x[..., None])[..., 0]
@@ -52,16 +74,16 @@ def tmv(A, x):
     return (A.transpose(-1, -2) @ x[..., None])[..., 0]
 
 
-def init_multipliers(problem, xs) -> AffineMults:
-    """Zero multipliers anchored at the trajectory states xs [..., T+1, nx]."""
+def init_multipliers(problem, xs, jac_init: torch.Tensor | None = None) -> AffineMults:
+    """Zero multipliers anchored at the trajectory states xs [..., T+1, nx].
+    ``jac_init`` [..., T, ne, ndx] replaces the zero state-feedback term: the
+    reference starts from a random one (ddp.hpp:759-764); zeros converge to
+    the same optimum."""
     T, ne, ndx = problem.horizon, problem.ne, problem.ndx
     batch = xs.shape[:-2]
     kw = dict(dtype=xs.dtype, device=xs.device)
-    return AffineMults(
-        val=torch.zeros(batch + (T, ne), **kw),
-        jac=torch.zeros(batch + (T, ne, ndx), **kw),
-        origin=xs[..., :-1, :],
-    )
+    jac = torch.zeros(batch + (T, ne, ndx), **kw) if jac_init is None else jac_init
+    return AffineMults(val=torch.zeros(batch + (T, ne), **kw), jac=jac, origin=xs[..., :-1, :])
 
 
 def eval_mults(model, mults: AffineMults, xs) -> torch.Tensor:
@@ -105,7 +127,7 @@ def al_costs(problem, xs, us, mults: AffineMults, mu) -> torch.Tensor:
 
 
 def optimality_constr(derivs) -> torch.Tensor:
-    """max_t ‖eq_t‖ per lane: [B]."""
+    """max_t ‖eq_t‖ per trajectory: [...]."""
     norms = torch.linalg.vector_norm(derivs.eq, dim=-1)
     if norms.shape[-1] == 0:
         return norms.new_zeros(norms.shape[:-1])
@@ -124,34 +146,34 @@ def _scaled_norm(x):
 
 @full_fp32_matmuls()
 def _adjoint_scores(derivs, mult_val, mult_jac, mu):
-    """Reverse adjoint recursion shared by optimality_obj/lag; ``mu`` None
-    drops the μ·eq penalty terms.  The lag measure is only reported, so its
-    norm is kept from overflowing on a lane whose multipliers raced past
-    1e19 in float32; the obj measure feeds the plateau gate and keeps the
-    plain norm, as ddp_tpu's, so the AL schedule stays the reference's."""
+    """Reverse adjoint recursion shared by optimality_obj/lag over
+    trajectories with any leading batch dims (none for one trajectory, whose
+    2-D products give ``ddp_tpu``'s bits on the CPU); ``mu`` None drops the
+    μ·eq penalty terms.  The lag measure is only reported, so its norm is
+    kept from overflowing on a lane whose multipliers raced past 1e19 in
+    float32; the obj measure feeds the plateau gate and keeps the plain norm,
+    as ddp_tpu's, so the AL schedule stays the reference's."""
     norm = (lambda x: torch.linalg.vector_norm(x, dim=-1)) if mu is not None else _scaled_norm
     adj = derivs.lfx
     scores = []
-    for t in reversed(range(derivs.lx.shape[1])):
-        lu, fu, eqv = derivs.lu[:, t], derivs.fu[:, t], derivs.eq[:, t]
-        eqx, equ = derivs.eqx[:, t], derivs.equ[:, t]
-        pe, pex = mult_val[:, t], mult_jac[:, t]
+    for t in reversed(range(derivs.lx.shape[-2])):
+        lu, fu, eqv = derivs.lu[..., t, :], derivs.fu[..., t, :, :], derivs.eq[..., t, :]
+        eqx, equ = derivs.eqx[..., t, :, :], derivs.equ[..., t, :, :]
+        pe, pex = mult_val[..., t, :], mult_jac[..., t, :, :]
+        fx, lx = derivs.fx[..., t, :, :], derivs.lx[..., t, :]
         if mu is None:
             lu_aug = lu + tmv(equ, pe) + tmv(fu, adj)
-            adj = tmv(derivs.fx[:, t], adj) + derivs.lx[:, t] + tmv(eqx, pe) + tmv(pex, eqv)
+            adj = tmv(fx, adj) + lx + tmv(eqx, pe) + tmv(pex, eqv)
         else:
-            m = mu[:, None]
+            m = mu[..., None]
             lu_aug = lu + tmv(equ, pe) + m * tmv(equ, eqv) + tmv(fu, adj)
-            adj = (
-                tmv(derivs.fx[:, t], adj) + derivs.lx[:, t] + m * tmv(eqx, eqv)
-                + tmv(eqx, pe) + tmv(pex, eqv)
-            )  # fmt: skip
+            adj = tmv(fx, adj) + lx + m * tmv(eqx, eqv) + tmv(eqx, pe) + tmv(pex, eqv)
         scores.append(norm(lu_aug))
     return torch.stack(scores, dim=-1).amax(dim=-1)
 
 
 def optimality_obj(problem, derivs, mult_val, mult_jac, mu) -> torch.Tensor:
-    """max_t ‖∂L_aug/∂u_t‖ per lane via the reverse adjoint recursion.
+    """max_t ‖∂L_aug/∂u_t‖ per trajectory via the reverse adjoint recursion.
     ``mult_val``/``mult_jac`` must be expressed at the trajectory (origin ==
     x_t), which update_origin guarantees."""
     del problem

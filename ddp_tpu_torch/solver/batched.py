@@ -24,7 +24,6 @@ flat-lane problem, the fused line-search kernel (``forward="kernel"``,
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import NamedTuple
 
@@ -38,7 +37,7 @@ from ddp_tpu_torch.kernels.linesearch_flat import linesearch as linesearch_flat
 from ddp_tpu_torch.kernels.riccati_small import backward_ladder
 from ddp_tpu_torch.ocp.dynamics import EulerDynamics, _vector_space_config
 from ddp_tpu_torch.solver import al as al_mod
-from ddp_tpu_torch.solver.riccati import factor_solve
+from ddp_tpu_torch.solver.riccati import backward_sweep
 from ddp_tpu_torch.solver.rollout import feedback_rollout
 from ddp_tpu_torch.solver.solve import Method, SolverParams
 
@@ -68,44 +67,7 @@ def _reg_levels(mu, reg, n_levels):
 def _backward_sweep(derivs, mult_val, mult_jac, mu, reg):
     """One batched Riccati sweep (no retry): returns (k [B,T,nu],
     K [B,T,nu,ndx], ok [B])."""
-
-    tmv = al_mod.tmv
-
-    def contract(v, H):  # einsum("o,oij->ij") per lane
-        return torch.einsum("bo,boij->bij", v, H)
-
-    d = derivs
-    T, nu = d.lu.shape[1], d.lu.shape[2]
-    I_u = torch.eye(nu, dtype=d.lx.dtype, device=d.lx.device)
-    mu1, mu2 = mu[:, None], mu[:, None, None]
-    Vx, Vxx = d.lfx, d.lfxx
-    ks, Ks = [None] * T, [None] * T
-    ok = torch.ones(mu.shape, dtype=torch.bool, device=mu.device)
-    for t in reversed(range(T)):
-        fx, fu, eqv, eqx, equ = d.fx[:, t], d.fu[:, t], d.eq[:, t], d.eqx[:, t], d.equ[:, t]
-        pe, pex = mult_val[:, t], mult_jac[:, t]
-        tmp = pe + mu1 * eqv
-        tmp2 = pex + mu2 * eqx
-        Qx = d.lx[:, t] + tmv(fx, Vx) + tmv(eqx, tmp) + tmv(pex, eqv)
-        Qu = d.lu[:, t] + tmv(fu, Vx) + tmv(equ, tmp)
-        Qxx = (
-            d.lxx[:, t] + fx.mT @ Vxx @ fx + eqx.mT @ tmp2 + pex.mT @ eqx
-            + contract(tmp, d.eqxx[:, t]) + contract(Vx, d.fxx[:, t])
-        )  # fmt: skip
-        Quu = (
-            d.luu[:, t] + fu.mT @ Vxx @ fu + mu2 * equ.mT @ equ
-            + contract(tmp, d.equu[:, t]) + contract(Vx, d.fuu[:, t])
-        )  # fmt: skip
-        Qux = (
-            d.lux[:, t] + fu.mT @ Vxx @ fx + equ.mT @ tmp2
-            + contract(tmp, d.equx[:, t]) + contract(Vx, d.fux[:, t])
-        )  # fmt: skip
-        ok_t, k, K = factor_solve(Quu + reg[:, None, None] * I_u, Qu, Qux)
-        Vx = Qx + tmv(Qux, k)
-        Vxx = Qxx + Qux.mT @ K
-        ks[t], Ks[t] = k, K
-        ok = ok & ok_t
-    return torch.stack(ks, dim=1), torch.stack(Ks, dim=1), ok
+    return backward_sweep(derivs, mult_val, mult_jac, mu, reg)[:3]
 
 
 def _backward_multi_reg(derivs, mult_val, mult_jac, mu, reg, n_levels):
@@ -276,28 +238,6 @@ def _kernel_derivatives(problem):
     return derivatives
 
 
-@contextlib.contextmanager
-def _matmul_precision(precision):
-    """float32 matmul precision on the card for the duration of a solve:
-    "highest" → full float32, "high"/"default" → TF32 allowed, None → the
-    process setting untouched.  Restored on exit; no effect on the CPU.  The
-    gate-critical stages stay in full float32 under any setting
-    (``al.full_fp32_matmuls``)."""
-    if precision is None:
-        yield
-        return
-    if precision not in ("highest", "high", "default"):
-        raise ValueError(
-            f"unknown matmul_precision {precision!r}; have None, 'highest', 'high', 'default'"
-        )
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = precision != "highest"
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
-
-
 def _check_backends(backward, forward, deriv):
     deferred = {
         ("backward", "assoc"): "ROADMAP slice H",
@@ -369,7 +309,7 @@ def solve_batched(
     by a few full-DDP iterations on the ``second_order`` twin of the problem;
     the multipliers are re-anchored at the new initial rollout."""
     _check_backends(backward, forward, deriv)
-    with _matmul_precision(matmul_precision):
+    with al_mod.matmul_precision(matmul_precision):
         return _solve_batched(
             problem, params, x0s, us_init, method, n_linesearch, backward,
             forward, deriv, n_reg_levels,

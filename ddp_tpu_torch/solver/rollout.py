@@ -1,15 +1,27 @@
-"""Closed-loop rollout (≙ ddp_tpu/solver/rollout.py::feedback_rollout):
+"""Forward pass: closed-loop rollout and backtracking line search on the AL
+cost (≙ ddp_tpu/solver/rollout.py):
 
     u_t = u_old_t + step·k_t + K_t·(x_t ⊖ x_old_t);  x_{t+1} = f(t, x_t, u_t)
 
-The serial-halving ``forward_pass`` is part of ROADMAP slice D.
+accepted iff Σ(cost_new − cost_old) ≤ 0 on the augmented-Lagrangian cost
+with the old multipliers; otherwise the step halves, down to ``step_min``.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ddp_tpu_torch.models.base import state_difference
+from ddp_tpu_torch.solver.al import AffineMults, al_costs, full_fp32_matmuls
+
+
+class ForwardResult(NamedTuple):
+    xs: torch.Tensor  # [T+1, nx]
+    us: torch.Tensor  # [T, nu]
+    step: torch.Tensor  # accepted (or last tried) step length
+    accepted: torch.Tensor  # bool
 
 
 def feedback_rollout(problem, xs_old, us_old, k, K, step):
@@ -26,3 +38,35 @@ def feedback_rollout(problem, xs_old, us_old, k, K, step):
         xs.append(x)
         us.append(u)
     return torch.stack(xs, dim=-2), torch.stack(us, dim=-2)
+
+
+@full_fp32_matmuls()
+def forward_pass(
+    problem,
+    xs_old,
+    us_old,
+    k,
+    K,
+    mults: AffineMults,
+    mu,
+    do_linesearch: bool = True,
+    step_min: float = 1e-10,
+) -> ForwardResult:
+    """The serial line search of one trajectory (xs_old [T+1, nx], us_old
+    and k [T, nu], K [T, nu, ndx], μ 0-d): step 1, then halved while the
+    AL cost rose and the step is at least 2·``step_min``.  Returns the last
+    rollout tried, accepted or not, as the reference does."""
+    cost_old = torch.sum(al_costs(problem, xs_old, us_old, mults, mu))
+
+    def try_step(step):
+        xs, us = feedback_rollout(problem, xs_old, us_old, k, K, step)
+        return xs, us, torch.sum(al_costs(problem, xs, us, mults, mu)) - cost_old <= 0
+
+    step = torch.ones((), dtype=xs_old.dtype, device=xs_old.device)
+    xs, us, accepted = try_step(step)
+    if not do_linesearch:
+        return ForwardResult(xs=xs, us=us, step=step, accepted=torch.ones((), dtype=torch.bool, device=step.device))
+    while not bool(accepted) and bool(step >= 2 * step_min):
+        step = step * 0.5
+        xs, us, accepted = try_step(step)
+    return ForwardResult(xs=xs, us=us, step=step, accepted=accepted)

@@ -86,6 +86,7 @@ int main(int argc, char** argv) {
   if (so && n == 14 && m == 7 && e == 3) return run<14, 7, 3, true>(T, B, L, dir);
   if (!so && n == 2 && m == 1 && e == 1) return run<2, 1, 1, false>(T, B, L, dir);
   if (!so && n == 12 && m == 6 && e == 6) return run<12, 6, 6, false>(T, B, L, dir);
+  if (!so && n == 12 && m == 6 && e == 12) return run<12, 6, 12, false>(T, B, L, dir);
   if (!so && n == 14 && m == 7 && e == 3) return run<14, 7, 3, false>(T, B, L, dir);
   return 2;
 }

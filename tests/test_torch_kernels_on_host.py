@@ -207,11 +207,12 @@ def ladder_inputs(B, T, n, m, e, second_order, seed):
         (False, (14, 7, 3), 3, 5, 4),
         (True, (14, 7, 3), 3, 5, 4),
         (False, (12, 6, 6), 3, 4, 1),
+        (False, (12, 6, 12), 3, 4, 4),
         (False, (2, 1, 1), 37, 6, 1),
         (True, (2, 1, 1), 37, 6, 3),
         (True, (4, 2, 2), 37, 6, 4),
     ],
-    ids=["gn_n14_L4", "so_n14_L4", "gn_n12_L1", "gn_n2_L1", "so_n2_L3", "so_n4_L4"],
+    ids=["gn_n14_L4", "so_n14_L4", "gn_n12_L1", "gn_n12_e12_L4", "gn_n2_L1", "so_n2_L3", "so_n4_L4"],
 )
 def test_riccati_ladder_kernel_matches_plain_version(riccati_host, tmp_path, second_order, dims, B, T, L):
     """Both programs (a block per lane and a warp per level at n >= 12; a

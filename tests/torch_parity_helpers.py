@@ -110,29 +110,91 @@ def both_robots(jmodel):
     )
 
 
+def schedule_spec(ts):
+    """``convert.schedule_from_spec``'s plain form of a ddp_tpu schedule."""
+    if isinstance(ts, constraints.EveryK):
+        return {"every_k": ts.k, "offset": ts.offset}
+    if isinstance(ts, constraints.InRange):
+        return {"in_range": (ts.begin, ts.end)}
+    return tuple(int(x) for x in ts)
+
+
+def constraint_spec(con) -> dict:
+    """``convert.constraint_from_spec``'s spec of a ddp_tpu constraint."""
+    times = 0
+    while isinstance(con, constraints.AdvanceTime):
+        con, times = con.inner, times + 1
+    if isinstance(con, constraints.NoConstraint):
+        return dict(kind="none")
+    if isinstance(con, constraints.StackConstraints):
+        out = dict(kind="stack", parts=[constraint_spec(p) for p in con.parts])
+    else:
+        kind = {
+            constraints.ConfigTarget: "config", constraints.StateTarget: "state",
+            constraints.FrameTarget: "frame", constraints.TrajectoryConfigTarget: "trajectory_config",
+        }[type(con)]  # fmt: skip
+        out = dict(kind=kind, active_ts=schedule_spec(con.active_ts))
+        if kind == "trajectory_config":
+            out["targets"] = np.asarray(con.targets)
+        else:
+            out["target"] = np.asarray(con.target)
+        if kind == "frame":
+            out["frame_id"] = con.frame_id
+    out["advance_times"] = times
+    return out
+
+
+def cost_spec(cost) -> dict:
+    """``convert.cost_from_spec``'s spec of a ddp_tpu cost."""
+    if isinstance(cost, costs.QuadControlCost):
+        return dict(kind="quad_control", c=np.asarray(cost.c))
+    if isinstance(cost, costs.QuadTrackingCost):
+        keys = ("x_ref", "q_diag", "r_diag", "qf_diag")
+        return dict(kind="quad_tracking", **{k: np.asarray(getattr(cost, k)) for k in keys})
+    keys = ("x_ref", "q_diag", "v_diag", "r_diag", "terminal_scale")
+    return dict(kind="manifold_tracking", **{k: np.asarray(getattr(cost, k)) for k in keys})
+
+
 def spec_of(problem) -> dict:
-    """problem_from_numpy's spec, read from a ddp_tpu Problem's leaves."""
+    """problem_from_numpy's spec, read from a ddp_tpu Problem's leaves: the
+    short form (``target``, ``active_ts``, ``advance_times``, ``c``) where
+    the problem has one, the ``constraint``/``cost``/``discretization``
+    specs otherwise."""
     con, times = problem.constraint, 0
     while isinstance(con, constraints.AdvanceTime):
         con, times = con.inner, times + 1
     unconstrained = isinstance(con, constraints.NoConstraint)
+    short = (
+        unconstrained or type(con) in (constraints.ConfigTarget, constraints.FrameTarget)
+        and isinstance(con.active_ts, tuple)
+    )
     spec = dict(
         dt=np.asarray(problem.dynamics.dt),
-        c=np.asarray(problem.cost.c),
-        target=None if unconstrained else np.asarray(con.target),
-        active_ts=() if unconstrained else con.active_ts,
-        advance_times=times,
         horizon=problem.horizon,
         second_order=problem.second_order,
     )
+    if isinstance(problem.dynamics, dynamics.RK4Dynamics):
+        spec["discretization"] = "rk4"
+    if isinstance(problem.cost, costs.QuadControlCost):
+        spec["c"] = np.asarray(problem.cost.c)
+    else:
+        spec["cost"] = cost_spec(problem.cost)
+    if short:
+        spec.update(
+            target=None if unconstrained else np.asarray(con.target),
+            active_ts=() if unconstrained else con.active_ts,
+            advance_times=times,
+        )
+        if isinstance(con, constraints.FrameTarget):
+            spec["frame_id"] = con.frame_id
+    else:
+        spec["constraint"] = constraint_spec(problem.constraint)
     if isinstance(problem.model, JRobotModel):
         spec["robot"] = robot_leaves(problem.model)
     else:
         spec.update(
             mass=np.asarray(problem.model.mass), length=np.asarray(problem.model.length)
         )
-    if isinstance(con, constraints.FrameTarget):
-        spec["frame_id"] = con.frame_id
     return spec
 
 
