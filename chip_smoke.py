@@ -18,13 +18,16 @@
    in f64 and f32 and with one level and lane 3 forced non-PD; with the
    second-order terms (non-zero rank-3 slabs) (2, 1, 1) at B=4096, T=32,
    (4, 2, 2) at a ragged B=1000, (14, 7, 3) at B=256, T=16 in f64 and f32,
-   one lane forced non-PD; and the ladder itself at (14, 7, 3) both orders,
-   (12, 6, 12) and (4, 2, 2): a lane that fails
+   one lane forced non-PD, (12, 6, 6) at B=512, T=16 with 4 levels in f64
+   and f32 and with one level and lane 3 forced non-PD, (2, 1, 2) at B=1000, T=30; and the
+   ladder itself at (14, 7, 3) both orders, (12, 6, 12), (4, 2, 2) and
+   (12, 6, 6) second order in both types: a lane that fails
    at reg and at the first escalation takes the second level, bit for bit
    what a launch at that level alone gives, and a lane no level saves keeps
    level 0's NaN gains and reg.
    fd-derivatives, first and second order: panda7 at N=4096 in f32 and f64,
-   cartpole at N=4096 in f64, a ragged N=1000; each output array is held to
+   cartpole at N=4096 in f64, a ragged N=1000, UR5 (nv = 6) at N=8192 in
+   f32 and f64 and at a ragged N=1000 in both; each output array is held to
    a bar relative to its largest entry, and the f32 kernel, row by row, to a
    multiple of the f32 plain version's distance from the f64 kernel; the
    second-order kernel's H must be exactly symmetric with exactly zero ττ
@@ -91,17 +94,43 @@
    converged in ≤ 200 iterations within 1e-9 (us) and 1e-11 (xs) of
    tests/golden_pendulum_reference.npz, and tests/test_model_zoo.py's
    quadrotor solve (f64, H=24, opt_constr < 1e-3); wall times.
-9. times: each kernel vs its plain version at its main-path shape (CUDA
+9. the UR5 chain: benchmarks/arm_second_order.py's recipe at full size
+   (512 UR5 arms to the configuration q0 ⊕ 0.05·(1 … 6) two steps past H=16,
+   f32, x0 = rest + 0.1·N(0, 1)): 8 Gauss-Newton iterations through
+   deriv="kernel", backward="kernel", forward="seq", n_linesearch=4,
+   matmul_precision="high" (10 fd and 9 Riccati launches at (12, 6, 6)), then
+   4 full-DDP iterations warm-started on them (6 fd2 and 5 second-order
+   Riccati launches), each stage's counts exact; the Gauss-Newton share
+   against ddp_tpu's on the CPU (1.0) less 0.01, the chain's against the
+   Gauss-Newton share less 0.01, finite results; the same chain through
+   jvp/sweep (shares within 0.02), both routes in f64 at 16 lanes (us within
+   1e-7 of each lane's largest |u|, identical μ).
+10. the UR5 MPC replan (bench.py's: the chain's Gauss-Newton problem at
+   B=1, 3 AL iterations) through make_mpc_step on the default route
+   (backward="sweep") and through the Riccati kernel (backward="kernel", 4
+   launches a replan): a warm-up, then 40 replans from x0 at rest with the
+   carry carried, each timed to a torch.cuda.synchronize (p50, p99);
+   finite u0 and carry; both routes in f64 for 6 replans (u0 within 1e-7 of
+   |u0|, identical μ); run_mpc and the closed loop of both routes for 20
+   steps in f64 (each step's states within 1e-7 of their scale, or within
+   what 1e-15 on x0 does to the sweep route's, whichever is larger); and
+   test_aux_subsystems.py's pendulum receding-horizon loop (a StateTarget at
+   H=30, full DDP, 120 replans, f64) through the kernel at (2, 1, 2) second
+   order, ending within 0.02 of q = 3.14 with |v| < 0.1.
+11. times: each kernel vs its plain version at its main-path shape (CUDA
    events around one call, median of 20; the second-order fd and the line
    search's plain versions median of 5; the whole solve's plain version is
    the one run of phase 3; the line-search kernel also by its device time
    alone, 50 launches queued behind a sleep kernel), each beside its bound —
    the Riccati ladder at (2, 1, 1), at (14, 7, 3) in both orders and types
-   and at (12, 6, 6) in f64, on a launch plan and through its wrapper — and
-   solves/s of the main paths, paths A and B included (median of 3 after a
-   warm-up).
+   and at (12, 6, 6) in both orders (f32, device time alone too) and types,
+   at one lane as the MPC replans launch it ((12, 6, 6) f32, (2, 1, 2)
+   second order f64), on a launch plan and through its wrapper; the fd kernels on panda7 and on
+   UR5 — and solves/s of the main paths, paths A and B included (median of
+   3 after a warm-up), of the UR5 chain on both routes (median of 2).
 
-Every phase prints one line; any failure raises and the exit code is not 0.
+Every phase prints one line (phase 3 one a case); any failure raises and
+the exit code is not 0.
 The last lines are a JSON object describing the kernels and the JSON result
 {"ok": true, "device": {...}}.  There is no CPU path.
 """
@@ -140,6 +169,7 @@ from ddp_tpu_torch.solver.batched import (
     _reg_levels,
     solve_batched,
 )
+from ddp_tpu_torch.solver import mpc
 from ddp_tpu_torch.solver.solve import SolverParams
 
 B, T = 4096, 32
@@ -184,6 +214,24 @@ QUAD_REG_LEVELS = 4  # solve_batched's default ladder depth
 # CPU (backward="sweep", jit, f32): tests/test_torch_reference_draws.py
 # quadrotor_share
 QUAD_JAX_CPU_SHARE = 0.9921875
+# benchmarks/arm_second_order.py's UR5 chain: 512 arms to the configuration
+# q0 ⊕ 0.05·(1 … 6) at H=16, f32, 8 Gauss-Newton iterations, then 4 full-DDP
+# iterations warm-started on them; its f64 route check at 16 lanes
+UR5_B, UR5_H, UR5_B64 = 512, 16, 16
+UR5_GN = SolverParams(max_iterations=8, threshold=1e-5, mu=1e4, inner_iters_max=1)
+UR5_DDP = SolverParams(max_iterations=4, threshold=1e-5, mu=1e4, inner_iters_max=1)
+UR5_KW = dict(n_linesearch=4, forward="seq", matmul_precision="high")
+UR5_REG_LEVELS = 4  # solve_batched's default ladder depth
+# ddp_tpu's feasible share after the Gauss-Newton stage on the CPU (jvp/sweep,
+# jit, f32): tests/test_torch_reference_draws.py ur5_share
+UR5_JAX_CPU_SHARE = 1.0
+# bench.py's UR5 MPC replan: the chain's Gauss-Newton problem at B = 1, 3 AL
+# iterations a replan, 40 timed replans from x0 at rest with the carry carried
+MPC = SolverParams(max_iterations=3, threshold=1e-5, mu=1e4, inner_iters_max=1)
+MPC_REPLANS, MPC_LOOP_STEPS = 40, 20
+# test_aux_subsystems.py::test_mpc_receding_horizon's pendulum loop
+PEND_MPC = SolverParams(max_iterations=4, threshold=1e-6, mu=1e6)
+PEND_MPC_H, PEND_MPC_REPLANS = 30, 120
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden_pendulum_reference.npz"
 # published peaks of one H100 SXM used for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -999,6 +1047,257 @@ def solve_path():
     return dict(golden_s=wall, golden_iters=iters, quadrotor_s=wall_q)
 
 
+# ------------------------------------------------------- UR5 chain and MPC
+
+
+def ur5_problem(dtype, second_order=False):
+    """benchmarks/arm_second_order.py's problem (bench.py's MPC replan's at
+    second_order=False): Euler UR5 (dt = 0.01), ½‖u‖², the configuration
+    q0 ⊕ 0.05·(1 … 6) at H = 16, advanced twice."""
+    kw = dict(dtype=dtype, device=DEV)
+    arm = robots.ur5(**kw)
+    dyn = dynamics.euler(arm, 0.01)
+    q_target = arm.integrate(arm.neutral_configuration(), torch.tensor(0.05 * np.arange(1.0, 7.0), **kw))
+    con = constraints.advance_time(constraints.ConfigTarget(arm, q_target, (UR5_H,)), dyn, times=2)
+    return Problem(dyn, costs.quad_control(1.0, **kw), con, UR5_H, second_order=second_order)
+
+
+def ur5_x0s(dtype, Bk):
+    """x0 = neutral at rest + 0.1·N(0, 1) from default_rng(0), the first
+    ``Bk`` of the chain's 512 draws."""
+    rng = np.random.default_rng(0)
+    return torch.tensor(0.1 * rng.standard_normal((UR5_B, 12))[:Bk], dtype=dtype, device=DEV)
+
+
+def ur5_chain(dtype, Bk, deriv, backward):
+    """The Gauss-Newton stage, then the full-DDP stage warm-started on its
+    (us, mults, μ, reg, w, n).  Returns ((stage results), (launch counts
+    and levels swept of each stage), (wall seconds of each stage))."""
+    x0s = ur5_x0s(dtype, Bk)
+    kw = dict(deriv=deriv, backward=backward, **UR5_KW)
+    out, counts, walls = [], [], []
+    for problem, params, warm in (
+        (ur5_problem(dtype), UR5_GN, None),
+        (ur5_problem(dtype, second_order=True), UR5_DDP, True),
+    ):  # fmt: skip
+        if warm:
+            r1 = out[0]
+            kw.update(us_init=r1.us, mults_init=r1.mults, mu_init=r1.mu, reg_init=r1.reg,
+                      w_init=r1.w, n_init=r1.n)  # fmt: skip
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out.append(solve_batched(problem, params, x0s, **kw))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append(dict(launch_counts(), riccati_second_order=rs.LAUNCHES_SECOND_ORDER,
+                           levels_swept=rs.LEVELS_SWEPT))  # fmt: skip
+    return tuple(out), tuple(counts), tuple(walls)
+
+
+def lane_scaled_err(a, b):
+    """max over lanes of max_t |Δu| / max(1, max_t |u|)."""
+    diff = (a.us - b.us).abs().amax(dim=(1, 2))
+    return float((diff / b.us.abs().amax(dim=(1, 2)).clamp(min=1.0)).max())
+
+
+def ur5_chain_path():
+    """Phase 9: benchmarks/arm_second_order.py's UR5 chain at full size
+    through kernels #2 and #1 (Gauss-Newton stage) and #3 and #1 with the
+    second-order terms (full-DDP stage), each stage's launches exactly; the
+    feasible shares against ddp_tpu's on the CPU; the same chain through
+    jvp/sweep, and both routes in f64 at 16 lanes."""
+    (gn, dd), (c_gn, c_dd), (w_gn, w_dd) = ur5_chain(torch.float32, UR5_B, "kernel", "kernel")
+    # a derivative pass before the loop, one per iteration and one for the
+    # final optimality; a backward call before the loop and one per
+    # iteration, each one launch for the whole ladder
+    expect_gn = dict(riccati=1 + UR5_GN.max_iterations, fd=2 + UR5_GN.max_iterations, fd2=0,
+                     linesearch=0, flat_solve=0, riccati_second_order=0,
+                     levels_swept=(1 + UR5_GN.max_iterations) * UR5_REG_LEVELS)  # fmt: skip
+    n_dd = 1 + UR5_DDP.max_iterations
+    expect_dd = dict(riccati=n_dd, fd=0, fd2=2 + UR5_DDP.max_iterations, linesearch=0,
+                     flat_solve=0, riccati_second_order=n_dd, levels_swept=n_dd * UR5_REG_LEVELS)  # fmt: skip
+    check(c_gn == expect_gn, f"UR5 Gauss-Newton stage launches {c_gn} != {expect_gn}")
+    check(c_dd == expect_dd, f"UR5 full-DDP stage launches {c_dd} != {expect_dd}")
+    overflow = [check_finite(r, f"UR5 {what}") for r, what in ((gn, "GN stage"), (dd, "chain"))]
+    check(dd.us.shape == (UR5_B, UR5_H, 6) and dd.xs.shape == (UR5_B, UR5_H + 1, 12), "UR5 shapes")
+    frac_gn = float((gn.opt_constr < 1e-2).float().mean())
+    frac = float((dd.opt_constr < 1e-2).float().mean())
+    check(frac_gn >= UR5_JAX_CPU_SHARE - 0.01,
+          f"UR5 GN share {frac_gn} below ddp_tpu's {UR5_JAX_CPU_SHARE} - 0.01")  # fmt: skip
+    check(frac >= frac_gn - 0.01, f"UR5 chain share {frac} vs its GN stage's {frac_gn}")
+    (gn_j, dd_j), c_j, (wj_gn, wj_dd) = ur5_chain(torch.float32, UR5_B, "jvp", "sweep")
+    check(all(sum(v for k, v in c.items() if k != "levels_swept") == 0 for c in c_j),
+          f"a kernel ran on the jvp/sweep route: {c_j}")  # fmt: skip
+    check_finite(dd_j, "UR5 chain jvp/sweep")
+    frac_gn_j = float((gn_j.opt_constr < 1e-2).float().mean())
+    frac_j = float((dd_j.opt_constr < 1e-2).float().mean())
+    check(abs(frac_gn - frac_gn_j) <= 0.02 and abs(frac - frac_j) <= 0.02,
+          f"UR5 routes' shares: GN {frac_gn} vs {frac_gn_j}, chain {frac} vs {frac_j}")  # fmt: skip
+    say("ur5_chain_f32", B=UR5_B, H=UR5_H, gn_iters=UR5_GN.max_iterations,
+        ddp_iters=UR5_DDP.max_iterations, launches_gn=c_gn, launches_ddp=c_dd,
+        frac_gn=frac_gn, frac_chain=frac, frac_gn_jvp_sweep=frac_gn_j,
+        frac_chain_jvp_sweep=frac_j, frac_ddp_tpu_cpu_gn=UR5_JAX_CPU_SHARE,
+        p99_eq_gn=f"{float(torch.quantile(gn.opt_constr, 0.99)):.3e}",
+        p99_eq_chain=f"{float(torch.quantile(dd.opt_constr, 0.99)):.3e}",
+        opt_lag_overflow_lanes=overflow, mu_max=f"{float(dd.mu.max()):.1e}",
+        us_moved=f"{float((dd.us - gn.us).abs().max()):.3e}",
+        us_max_scaled_err_routes=f"{lane_scaled_err(dd, dd_j):.3e}",
+        mu_equal=float((dd.mu == dd_j.mu).float().mean()),
+        stage_s_kernel=[f"{w_gn:.3f}", f"{w_dd:.3f}"], stage_s_jvp_sweep=[f"{wj_gn:.3f}", f"{wj_dd:.3f}"])  # fmt: skip
+
+    (g64_k, d64_k), _, _ = ur5_chain(torch.float64, UR5_B64, "kernel", "kernel")
+    (g64_j, d64_j), _, _ = ur5_chain(torch.float64, UR5_B64, "jvp", "sweep")
+    errs = []
+    for a, b, stage in ((g64_k, g64_j, "GN stage"), (d64_k, d64_j, "chain")):
+        errs.append(lane_scaled_err(a, b))
+        check(errs[-1] <= 1e-7, f"UR5 f64 {stage}: us max scaled err {errs[-1]}")
+        check(torch.equal(a.mu, b.mu), f"UR5 f64 {stage}: per-lane mu differs")
+    say("ur5_chain_f64", B=UR5_B64, us_max_scaled_err=[f"{e:.3e}" for e in errs], mu_identical=True,
+        frac_chain=float((d64_k.opt_constr < 1e-2).float().mean()))  # fmt: skip
+    return dict(launches_gn=c_gn, launches_ddp=c_dd, frac_gn=frac_gn, frac_chain=frac,
+                frac_gn_jvp_sweep=frac_gn_j, frac_chain_jvp_sweep=frac_j,
+                walls_kernel=[w_gn + w_dd], walls_jvp_sweep=[wj_gn + wj_dd])  # fmt: skip
+
+
+def replans(step, x, carry, n, timed=False):
+    """``n`` replans of ``step`` from the measured state ``x`` (held, as
+    bench.py's replans are), the carry carried.  Returns the outputs, and
+    with ``timed`` each replan's synchronized wall seconds and launches."""
+    outs, walls, counts = [], [], []
+    for _ in range(n):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = step(x, carry)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append(dict(launch_counts(), levels_swept=rs.LEVELS_SWEPT))
+        outs.append(out)
+        carry = out.carry
+    return (outs, walls, counts) if timed else outs
+
+
+def carry_leaves(carry):
+    return [x for a in carry if a is not None for x in (a if isinstance(a, tuple) else (a,))]
+
+
+def closed_loop(problem, step, x0, n):
+    """run_mpc's loop around ``step``: replan, apply u0 to the problem's own
+    dynamics.  Returns the states [n + 1, nx]."""
+    carry = mpc.init_carry(problem, dtype=x0.dtype, x0=x0)
+    x, xs = x0, [x0]
+    for t in range(n):
+        out = step(x, carry)
+        x, carry = problem.dynamics(t, x, out.u0), out.carry
+        xs.append(x)
+    return torch.stack(xs)
+
+
+def pendulum_state_problem():
+    """test_aux_subsystems.py::test_mpc_receding_horizon's problem on the
+    card: the pendulum to [q, v] = [3.14, 0] two steps past H = 30, ½‖u‖²,
+    full DDP, f64."""
+    spec = dict(mass=1.0, length=1.0, dt=0.01, c=1.0, horizon=PEND_MPC_H, second_order=True,
+                constraint=dict(kind="state", target=np.array([3.14, 0.0]),
+                                active_ts=(PEND_MPC_H,), advance_times=2))  # fmt: skip
+    return problem_from_numpy(spec, device=DEV, dtype=torch.float64)
+
+
+def ur5_mpc_path():
+    """Phase 10: bench.py's UR5 MPC replan through ``make_mpc_step`` on the
+    default route (backward="sweep") and through kernel #1 at (12, 6, 6),
+    B = 1 (backward="kernel"): a warm-up replan, then 40 timed replans from
+    x0 at rest with the carry carried; launches per replan exactly; u0 and the
+    carry finite; both routes in f64 (u0 within 1e-7 of |u0|, identical μ);
+    ``run_mpc`` and the closed loop of both routes for 20 steps in f64, held
+    to the loop's own amplification of one ulp of x0; and
+    test_mpc_receding_horizon's pendulum loop through the kernel."""
+    out = {}
+    for backward in ("sweep", "kernel"):
+        problem = ur5_problem(torch.float32)
+        step = mpc.make_mpc_step(problem, MPC, backward=backward)
+        x0 = state_pack(problem.model.neutral_configuration(), torch.zeros(6, device=DEV))
+        warm = replans(step, x0, mpc.init_carry(problem), 1)[-1]  # bench.py's compile call
+        outs, walls, counts = replans(step, x0, warm.carry, MPC_REPLANS, timed=True)
+        n_bwd = 1 + MPC.max_iterations
+        expect = dict(riccati=n_bwd if backward == "kernel" else 0, fd=0, fd2=0, linesearch=0,
+                      flat_solve=0, levels_swept=n_bwd * UR5_REG_LEVELS if backward == "kernel" else 0)  # fmt: skip
+        check(all(c == expect for c in counts), f"UR5 replan launches ({backward}) {counts[0]} != {expect}")
+        for o in outs:
+            check(bool(torch.isfinite(o.u0).all() and torch.isfinite(o.K0).all()), f"UR5 replan {backward}: u0")
+            check(all(bool(torch.isfinite(x).all()) for x in carry_leaves(o.carry)),
+                  f"UR5 replan {backward}: non-finite carry")  # fmt: skip
+        ms = 1e3 * np.asarray(walls)
+        out[backward] = dict(p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)),
+                             launches_per_replan=counts[0], opt_constr_last=float(outs[-1].opt_constr))  # fmt: skip
+        say("ur5_mpc_f32", backward=backward, replans=MPC_REPLANS, T=UR5_H,
+            iters=MPC.max_iterations, p50_ms=f"{out[backward]['p50_ms']:.2f}",
+            p99_ms=f"{out[backward]['p99_ms']:.2f}", min_ms=f"{ms.min():.2f}",
+            launches_per_replan=counts[0], opt_constr_first=f"{float(outs[0].opt_constr):.3e}",
+            opt_constr_last=f"{float(outs[-1].opt_constr):.3e}",
+            mu_last=f"{float(outs[-1].carry.mu):.1e}")  # fmt: skip
+
+    # f64: both routes replan for replan from the same states
+    p64 = ur5_problem(torch.float64)
+    x0 = state_pack(p64.model.neutral_configuration(), torch.zeros(6, dtype=torch.float64, device=DEV))
+    r64 = {b: replans(mpc.make_mpc_step(p64, MPC, backward=b), x0, mpc.init_carry(p64), 6)
+           for b in ("sweep", "kernel")}  # fmt: skip
+    err = 0.0
+    for a, b in zip(r64["kernel"], r64["sweep"]):
+        e = float((a.u0 - b.u0).abs().max() / b.u0.abs().max().clamp(min=1.0))
+        check(e <= 1e-7, f"UR5 replan f64 u0 routes differ by {e:.3e} of |u0|")
+        check(float(a.carry.mu) == float(b.carry.mu), "UR5 replan f64: μ differs between routes")
+        err = max(err, e)
+    # closed loops: run_mpc (the default route), and make_mpc_step's
+    # replans on both routes around the same plant
+    xs_run, us_run, _ = mpc.run_mpc(p64, MPC, x0, MPC_LOOP_STEPS)
+    torch.cuda.synchronize()
+    check(xs_run.shape == (MPC_LOOP_STEPS + 1, 12) and bool(torch.isfinite(xs_run).all()),
+          "run_mpc: non-finite states")  # fmt: skip
+    # The loop amplifies roundoff: this script's first run on an H100 80GB
+    # HBM3 moved the sweep route's states by 3.3e-6 of their scale after 20
+    # steps when x0 moved by 1e-15, and the two routes' by 2.5e-7.  So each
+    # step's states are held within 1e-7 of the scale or within what one
+    # ulp of x0 does to the same route, whichever is larger.
+    one_ulp = x0.clone()
+    one_ulp[6] += 1e-15
+    loops = {b: closed_loop(p64, mpc.make_mpc_step(p64, MPC, backward=b.split("_")[0]), x, MPC_LOOP_STEPS)
+             for b, x in (("sweep", x0), ("kernel", x0), ("sweep_1ulp", one_ulp))}  # fmt: skip
+    check(all(bool(torch.isfinite(xs).all()) for xs in loops.values()), "UR5 closed loop: non-finite")
+    scale = loops["sweep"].abs().max()
+    step_err = (loops["kernel"] - loops["sweep"]).abs().amax(dim=1) / scale
+    step_ulp = (loops["sweep_1ulp"] - loops["sweep"]).abs().amax(dim=1) / scale
+    check(bool((step_err <= torch.clamp(step_ulp, min=1e-7)).all()),
+          f"UR5 closed loops' states differ by {step_err.tolist()} of their scale, one ulp of x0 "
+          f"by {step_ulp.tolist()}")  # fmt: skip
+    say("ur5_mpc_f64", replans=6, u0_max_scaled_err=f"{err:.3e}", mu_identical=True,
+        run_mpc_steps=MPC_LOOP_STEPS, closed_loop_state_err=f"{float(step_err.max()):.3e}",
+        closed_loop_one_ulp_x0=f"{float(step_ulp.max()):.3e}", state_scale=f"{float(scale):.3e}",
+        q_final_run_mpc=[f"{v:.4f}" for v in xs_run[-1, :6].tolist()])  # fmt: skip
+
+    # the pendulum's receding-horizon loop through the kernel (full DDP at
+    # (2, 1, 2)), with test_mpc_receding_horizon's bars
+    pend = pendulum_state_problem()
+    step = mpc.make_mpc_step(pend, PEND_MPC, backward="kernel")
+    carry, x = mpc.init_carry(pend), torch.zeros(2, dtype=torch.float64, device=DEV)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(PEND_MPC_REPLANS):
+        o = step(x, carry)
+        carry, x = o.carry, pend.dynamics(0, x, o.u0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_launch = PEND_MPC_REPLANS * (1 + PEND_MPC.max_iterations)
+    check(rs.LAUNCHES == rs.LAUNCHES_SECOND_ORDER == n_launch,
+          f"pendulum MPC launches {rs.LAUNCHES} ({rs.LAUNCHES_SECOND_ORDER} 2nd order) != {n_launch}")  # fmt: skip
+    check(bool(torch.isfinite(x).all()), "pendulum MPC: non-finite state")
+    check(abs(float(x[0]) - 3.14) < 0.02 and abs(float(x[1])) < 0.1, f"pendulum MPC ended at {x.tolist()}")
+    say("pendulum_mpc_f64", backward="kernel", replans=PEND_MPC_REPLANS, launches=n_launch,
+        q=f"{float(x[0]):.5f}", v=f"{float(x[1]):.3e}", wall_s=f"{wall:.3f}",
+        ms_per_replan=f"{1e3 * wall / PEND_MPC_REPLANS:.2f}")  # fmt: skip
+    out["pendulum"] = dict(launches=n_launch, ms_per_replan=1e3 * wall / PEND_MPC_REPLANS)
+    return out
+
+
 # ------------------------------------------------------------------ timing
 
 
@@ -1362,10 +1661,11 @@ def riccati_checks():
     _, ok, _ = kernel_vs_plain("nonpd_lane3_f64_B1000",
                                *pendulum_inputs(1000, torch.float64, 3), 1, 1e-10, 1e-10)  # fmt: skip
     check(not bool(ok[3]) and int(ok.sum()) == ok.numel() - 1, "only lane 3 may fail")
-    ur5_64 = spd_inputs(512, 16, 12, 6, 6, torch.float64)
-    kernel_vs_plain("ur5dims_f64_B512_T16", *ur5_64, ARM_REG_LEVELS, 1e-9, 1e-9)
-    kernel_vs_plain("ur5dims_f32_B512_T16", *spd_inputs(512, 16, 12, 6, 6, torch.float32),
-                    ARM_REG_LEVELS, 2e-3, 2e-4)  # fmt: skip
+    ur5_64 = spd_inputs(UR5_B, UR5_H, 12, 6, 6, torch.float64)
+    kernel_vs_plain("ur5dims_f64_B512_T16", *ur5_64, UR5_REG_LEVELS, 1e-9, 1e-9)
+    ur5_in = spd_inputs(UR5_B, UR5_H, 12, 6, 6, torch.float32)
+    out["ur5_err32"] = kernel_vs_plain("ur5dims_f32_B512_T16", *ur5_in, UR5_REG_LEVELS, 2e-3, 2e-4)[0]
+    out["ur5_in"] = ur5_in
     arm_64 = spd_inputs(ARM_B, ARM_H, 14, 7, 3, torch.float64)
     kernel_vs_plain("armdims_f64_B256_T16", *arm_64, ARM_REG_LEVELS, 1e-9, 1e-9)
     arm_in = spd_inputs(ARM_B, ARM_H, 14, 7, 3, torch.float32)
@@ -1399,6 +1699,24 @@ def riccati_checks():
                                *spd_inputs(1000, 16, 4, 2, 2, torch.float64, True, bad_lane=3),
                                1, 1e-9, 1e-9, True)  # fmt: skip
     check(not bool(ok[3]) and int(ok.sum()) == ok.numel() - 1, "only lane 3 may fail (2nd order)")
+    # UR5 under its 6-row ConfigTarget with the second-order terms (the UR5
+    # chain's full-DDP stage), at its shape and ladder depth
+    ur5so_64 = spd_inputs(UR5_B, UR5_H, 12, 6, 6, torch.float64, second_order=True)
+    kernel_vs_plain("so_ur5dims_f64_B512_T16", *ur5so_64, UR5_REG_LEVELS, 1e-9, 1e-9, True)
+    ur5so_in = spd_inputs(UR5_B, UR5_H, 12, 6, 6, torch.float32, second_order=True)
+    out["ur5so_err32"] = kernel_vs_plain("so_ur5dims_f32_B512_T16", *ur5so_in, UR5_REG_LEVELS,
+                                         2e-3, 2e-4, True)[0]  # fmt: skip
+    _, ok, _ = kernel_vs_plain("so_ur5dims_nonpd_lane3_f64_B512_T16",
+                               *spd_inputs(UR5_B, UR5_H, 12, 6, 6, torch.float64, True, bad_lane=3),
+                               1, 1e-9, 1e-9, True)  # fmt: skip
+    check(not bool(ok[3]) and int(ok.sum()) == ok.numel() - 1, "only lane 3 may fail (12, 6, 6) 2nd order")
+    # the pendulum under a 2-row StateTarget, full DDP (the MPC loop of phase 10)
+    kernel_vs_plain("so_pendulum_state_f64_B1000_T30",
+                    *spd_inputs(1000, PEND_MPC_H, 2, 1, 2, torch.float64, second_order=True),
+                    UR5_REG_LEVELS, 1e-10, 1e-10, True)  # fmt: skip
+    kernel_vs_plain("so_pendulum_state_f32_B1000_T30",
+                    *spd_inputs(1000, PEND_MPC_H, 2, 1, 2, torch.float32, second_order=True),
+                    UR5_REG_LEVELS, 2e-4, 2e-5, True)  # fmt: skip
     arm2_64 = spd_inputs(ARM_B, ARM_H, 14, 7, 3, torch.float64, second_order=True)
     kernel_vs_plain("so_armdims_f64_B256_T16", *arm2_64, ARM_REG_LEVELS, 1e-9, 1e-9, True)
     arm2_in = spd_inputs(ARM_B, ARM_H, 14, 7, 3, torch.float32, second_order=True)
@@ -1411,6 +1729,8 @@ def riccati_checks():
         ("ladder_so_armdims_f64_B256_T16", (14, 7, 3), torch.float64, True, (1e-9, 1e-9)),
         ("ladder_so_armdims_f32_B256_T16", (14, 7, 3), torch.float32, True, (2e-3, 2e-4)),
         ("ladder_so_n4m2e2_f64_B1000_T16", (4, 2, 2), torch.float64, True, (1e-9, 1e-9)),
+        ("ladder_so_ur5dims_f64_B256_T16", (12, 6, 6), torch.float64, True, (1e-9, 1e-9)),
+        ("ladder_so_ur5dims_f32_B256_T16", (12, 6, 6), torch.float32, True, (2e-3, 2e-4)),
     ):  # fmt: skip
         Bk = 1000 if dims[0] == 4 else ARM_B
         inputs, mu, reg = spd_inputs(Bk, ARM_H, *dims, dtype, so, ladder=True)
@@ -1426,7 +1746,8 @@ def riccati_checks():
         say("kernel", case=name, lane1_level=2, lane1_bitwise_vs_level_alone=True,
             lane2_saved=False)  # fmt: skip
     out.update(f32_in=f32_in, arm_in=arm_in, arm2_in=arm2_in, arm_64=arm_64, arm2_64=arm2_64,
-               ur5_64=ur5_64, quad_in=quad_in, quad_64=quad_64)  # fmt: skip
+               ur5_64=ur5_64, quad_in=quad_in, quad_64=quad_64, ur5so_in=ur5so_in,
+               ur5so_64=ur5so_64)  # fmt: skip
     return out
 
 
@@ -1449,17 +1770,33 @@ def kernel_checks():
     fd_kernel_vs_plain(f"fd2_cartpole_f64_N{N}", robots.cartpole(device=DEV, dtype=torch.float64),
                        N, torch.float64, second=True)  # fmt: skip
     fd_kernel_vs_plain("fd2_panda7_ragged_f64_N1000", panda64, 1000, torch.float64, second=True)
+    # UR5 (nv = 6) at the UR5 chain's B·H samples
+    ur5_32 = robots.ur5(device=DEV, dtype=torch.float32)
+    ur5_64 = robots.ur5(device=DEV, dtype=torch.float64)
+    NU = UR5_B * UR5_H
+    ur5_fd_err32, ur5_fd_in = fd_kernel_vs_plain(f"ur5_f32_N{NU}", ur5_32, NU, torch.float32, ur5_64)
+    fd_kernel_vs_plain(f"ur5_f64_N{NU}", ur5_64, NU, torch.float64)
+    fd_kernel_vs_plain("ur5_ragged_f64_N1000", ur5_64, 1000, torch.float64)
+    fd_kernel_vs_plain("ur5_ragged_f32_N1000", ur5_32, 1000, torch.float32, ur5_64)
+    ur5_fd2_err32, _ = fd_kernel_vs_plain(f"fd2_ur5_f32_N{NU}", ur5_32, NU, torch.float32, ur5_64,
+                                          second=True)  # fmt: skip
+    fd_kernel_vs_plain(f"fd2_ur5_f64_N{NU}", ur5_64, NU, torch.float64, second=True)
+    fd_kernel_vs_plain("fd2_ur5_ragged_f64_N1000", ur5_64, 1000, torch.float64, second=True)
+    fd_kernel_vs_plain("fd2_ur5_ragged_f32_N1000", ur5_32, 1000, torch.float32, ur5_64, second=True)
 
     # … the fused line search and the whole solve of the flat-lane class
     ls_problem, ls_state, ls_err32 = linesearch_checks()
     fs_err32, fs_plain_s = flat_solve_checks()
 
     return dict(rc, panda32=panda32, panda64=panda64, fd_in=fd_in, fd_err32=fd_err32,
-                fd2_err32=fd2_err32, ls_problem=ls_problem, ls_state=ls_state,
+                fd2_err32=fd2_err32, ur5_model32=ur5_32, ur5_model64=ur5_64, ur5_fd_in=ur5_fd_in,
+                ur5_fd_err32=ur5_fd_err32, ur5_fd2_err32=ur5_fd2_err32,
+                ls_problem=ls_problem, ls_state=ls_state,
                 ls_err32=ls_err32, fs_err32=fs_err32, fs_plain_s=fs_plain_s)  # fmt: skip
 
 
 def main():
+    t_start = time.perf_counter()
     # 1. device
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA card: torch.cuda.is_available() is False")
@@ -1505,7 +1842,14 @@ def main():
     # 8. the single-trajectory entry point on the card
     solve_walls = solve_path()
 
-    # 9. times
+    # 9. the UR5 Gauss-Newton → full-DDP chain through #1, #2 and #3 at UR5's
+    # dimensions
+    ur5c = ur5_chain_path()
+
+    # 10. the UR5 MPC replan, both routes, and the closed loops
+    ur5m = ur5_mpc_path()
+
+    # 11. times
     rt = {
         "headline": time_ladder(card, "n2m1e1", f32_in, 1, (T, 2, 1, 1, B)),
         "arm": time_ladder(card, "n14m7e3", arm_in, ARM_REG_LEVELS, (ARM_H, 14, 7, 3, ARM_B)),
@@ -1518,7 +1862,25 @@ def main():
                             (QUAD_H, 12, 6, 12, QUAD_B)),
         "quad_f64": time_ladder(card, "n12m6e12", k3["quad_64"], QUAD_REG_LEVELS,
                                 (QUAD_H, 12, 6, 12, QUAD_B)),
+        "ur5": time_ladder(card, "n12m6e6", k3["ur5_in"], UR5_REG_LEVELS, (UR5_H, 12, 6, 6, UR5_B)),
+        "ur5_so": time_ladder(card, "n12m6e6", k3["ur5so_in"], UR5_REG_LEVELS,
+                              (UR5_H, 12, 6, 6, UR5_B), True),
+        "ur5_so_f64": time_ladder(card, "n12m6e6", k3["ur5so_64"], UR5_REG_LEVELS,
+                                  (UR5_H, 12, 6, 6, UR5_B), True),
+        # one lane, as the MPC replans launch it
+        "ur5_replan": time_ladder(card, "n12m6e6", spd_inputs(1, UR5_H, 12, 6, 6, torch.float32),
+                                  UR5_REG_LEVELS, (UR5_H, 12, 6, 6, 1)),
+        "pendulum_replan_so_f64": time_ladder(
+            card, "n2m1e2", spd_inputs(1, PEND_MPC_H, 2, 1, 2, torch.float64, True),
+            UR5_REG_LEVELS, (PEND_MPC_H, 2, 1, 2, 1), True),
     }  # fmt: skip
+    for key, so, triplet in (("ur5", False, "ur5_in"), ("ur5_so", True, "ur5so_in")):
+        inputs, mu, reg = k3[triplet]
+        plan = rs.plan_launch(*inputs, mu, torch.stack(_reg_levels(mu, reg, UR5_REG_LEVELS)), so)
+        rt[key]["device_ms"] = device_ms(lambda: rs.launch_plan(plan))
+    say("time_backward_device", card=f"'{card}'", shape=f"n12m6e6_T{UR5_H}_B{UR5_B}_L{UR5_REG_LEVELS}",
+        device_ms_f32=f"{rt['ur5']['device_ms']:.4f}",
+        device_ms_2nd_order_f32=f"{rt['ur5_so']['device_ms']:.4f}")  # fmt: skip
     for key in ("quad", "quad_f64"):
         inputs, mu, reg = k3["quad_in" if key == "quad" else "quad_64"]
         plan = rs.plan_launch(*inputs, mu, torch.stack(_reg_levels(mu, reg, QUAD_REG_LEVELS)))
@@ -1627,6 +1989,36 @@ def main():
             solves_per_s=f"{ARM_B / arm_walls[deriv]:.1f}",
             peak_mem_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")  # fmt: skip
 
+    # kernels #2 and #3 at UR5's chain shape, and the chain on both routes
+    ur5_32, ur5_64, ur5_fd_in = k3["ur5_model32"], k3["ur5_model64"], k3["ur5_fd_in"]
+    NU = UR5_B * UR5_H
+    ur5_fd_f64_in = tuple(x.double() for x in ur5_fd_in)
+    ufd = dict(ms=event_ms(lambda: fd.fd_derivs(ur5_32, *ur5_fd_in)),
+               plain_ms=event_ms(lambda: fd.fd_derivs_reference(ur5_32, *ur5_fd_in), reps=5),
+               f64_ms=event_ms(lambda: fd.fd_derivs(ur5_64, *ur5_fd_f64_in)))  # fmt: skip
+    ufd["bound_ms"], ufd["bound_by"] = fd_bound_ms(ur5_32, NU)
+    ufd2 = dict(ms=event_ms(lambda: fd2.fd_derivs2(ur5_32, *ur5_fd_in)),
+                plain_ms=event_ms(lambda: fd2.fd_derivs2_reference(ur5_32, *ur5_fd_in), reps=3),
+                f64_ms=event_ms(lambda: fd2.fd_derivs2(ur5_64, *ur5_fd_f64_in), reps=5))  # fmt: skip
+    ufd2["bound_ms"], ufd2["bound_by"] = fd2_bound_ms(ur5_32, NU)
+    for name, t in (("fd_derivs", ufd), ("fd_derivs2", ufd2)):
+        say("time_" + name, card=f"'{card}'", shape=f"ur5_N{NU}_f32", kernel_ms=f"{t['ms']:.4f}",
+            plain_ms=f"{t['plain_ms']:.4f}", bound_ms=f"{t['bound_ms']:.5f}", bound_by=t["bound_by"],
+            kernel_over_bound=f"{t['ms'] / t['bound_ms']:.1f}", kernel_f64_ms=f"{t['f64_ms']:.4f}")  # fmt: skip
+    for route, walls in (("kernel", ur5c["walls_kernel"]), ("jvp_sweep", ur5c["walls_jvp_sweep"])):
+        walls.append(sum(ur5_chain(torch.float32, UR5_B, *(("kernel", "kernel") if route == "kernel"
+                                                            else ("jvp", "sweep")))[2]))  # fmt: skip
+        ur5c["solves_per_s_" + route] = UR5_B / statistics.median(walls)
+    say("time_ur5_chain", card=f"'{card}'", B=UR5_B,
+        chain_s_kernel=[f"{w:.3f}" for w in ur5c["walls_kernel"]],
+        chain_s_jvp_sweep=[f"{w:.3f}" for w in ur5c["walls_jvp_sweep"]],
+        solves_per_s_kernel=f"{ur5c['solves_per_s_kernel']:.1f}",
+        solves_per_s_jvp_sweep=f"{ur5c['solves_per_s_jvp_sweep']:.1f}",
+        mpc_replan_p50_ms_kernel=f"{ur5m['kernel']['p50_ms']:.2f}",
+        mpc_replan_p99_ms_kernel=f"{ur5m['kernel']['p99_ms']:.2f}",
+        mpc_replan_p50_ms_sweep=f"{ur5m['sweep']['p50_ms']:.2f}",
+        mpc_replan_p99_ms_sweep=f"{ur5m['sweep']['p99_ms']:.2f}")  # fmt: skip
+
     say("time_quadrotor_solve", card=f"'{card}'", B=QUAD_B,
         solve_s_kernel=f"{quad['wall_kernel']:.3f}", solve_s_sweep=f"{quad['wall_sweep']:.3f}",
         solves_per_s_kernel=f"{QUAD_B / quad['wall_kernel']:.2f}",
@@ -1662,6 +2054,7 @@ def main():
         chain_solves_per_s_jvp_sweep=f"{ARM_B / (arm_walls['jvp'] + chain['wall_jvp_sweep']):.1f}",
         peak_mem_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")  # fmt: skip
 
+    say("total", wall_s=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
         {
             "name": "riccati_small_bwd", "route": "cuda",
@@ -1683,6 +2076,17 @@ def main():
                 f64_ms=rt["quad_f64"]["ms"], device_f64_ms=rt["quad_f64"]["device_ms"],
                 solves_per_s=QUAD_B / quad["wall_kernel"], **quad,
             ),
+            "ur5_path": dict(
+                rt["ur5"], shape=f"n12m6e6_T{UR5_H}_B{UR5_B}_L{UR5_REG_LEVELS}_f32",
+                launches=ur5c["launches_gn"]["riccati"],
+                levels_swept=ur5c["launches_gn"]["levels_swept"], max_abs_err=k3["ur5_err32"],
+                chain_solves_per_s_kernel=ur5c["solves_per_s_kernel"],
+                chain_solves_per_s_jvp_sweep=ur5c["solves_per_s_jvp_sweep"],
+                frac_gn=ur5c["frac_gn"], frac_chain=ur5c["frac_chain"],
+                mpc_replan_kernel=ur5m["kernel"], mpc_replan_sweep=ur5m["sweep"],
+                replan_shape=dict(rt["ur5_replan"], shape=f"n12m6e6_T{UR5_H}_B1_L{UR5_REG_LEVELS}_f32",
+                                  launches_per_replan=ur5m["kernel"]["launches_per_replan"]["riccati"]),
+            ),
         },
         {
             "name": "fd_derivs", "route": "cuda",
@@ -1691,6 +2095,8 @@ def main():
             "launches": arm_fd_launches, "max_abs_err": fd_err32, "ms": fd_ms,
             "plain_ms": fd_plain_ms, "bound_ms": fd_bound, "bound_by": fd_bound_by,
             "library_ms": None, "f64_ms": fd_f64_ms,
+            "ur5_path": dict(ufd, shape=f"ur5_N{NU}_f32", launches=ur5c["launches_gn"]["fd"],
+                             max_abs_err=k3["ur5_fd_err32"]),
         },
         {
             "name": "fd_derivs2", "route": "cuda",
@@ -1699,6 +2105,8 @@ def main():
             "launches": fd2_launches, "max_abs_err": fd2_err32, "ms": fd2_ms,
             "plain_ms": fd2_plain_ms, "bound_ms": fd2_bound, "bound_by": fd2_bound_by,
             "library_ms": None, "f64_ms": fd2_f64_ms,
+            "ur5_path": dict(ufd2, shape=f"ur5_N{NU}_f32", launches=ur5c["launches_ddp"]["fd2"],
+                             max_abs_err=k3["ur5_fd2_err32"]),
         },
         {
             "name": "riccati_small_bwd_second_order", "route": "cuda",
@@ -1710,6 +2118,16 @@ def main():
             "bound_by": rt["arm_so"]["bound_by"], "library_ms": None,
             "wrapper_call_ms": rt["arm_so"]["wrapper_call_ms"],
             "f64_ms": rt["arm_so_f64"]["ms"],
+            "ur5_path": dict(
+                rt["ur5_so"], shape=f"n12m6e6_T{UR5_H}_B{UR5_B}_L{UR5_REG_LEVELS}_f32",
+                launches=ur5c["launches_ddp"]["riccati_second_order"],
+                levels_swept=ur5c["launches_ddp"]["levels_swept"], max_abs_err=k3["ur5so_err32"],
+                f64_ms=rt["ur5_so_f64"]["ms"], chain_solves_per_s=ur5c["solves_per_s_kernel"],
+            ),
+            "pendulum_mpc_path": dict(
+                rt["pendulum_replan_so_f64"], shape=f"n2m1e2_T{PEND_MPC_H}_B1_L{UR5_REG_LEVELS}_f64",
+                **ur5m["pendulum"],
+            ),
         },
         {
             "name": "linesearch_flat", "route": "cuda",

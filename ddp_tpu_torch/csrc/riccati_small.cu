@@ -632,7 +632,9 @@ template <typename S>
 int dispatch(int second_order, int n, int m, int e, const Args<S>& a, cudaStream_t s) {
   if (second_order) {
     if (n == 2 && m == 1 && e == 1) return launch<S, 2, 1, 1, true>(a, s);
+    if (n == 2 && m == 1 && e == 2) return launch<S, 2, 1, 2, true>(a, s);
     if (n == 4 && m == 2 && e == 2) return launch<S, 4, 2, 2, true>(a, s);
+    if (n == 12 && m == 6 && e == 6) return launch<S, 12, 6, 6, true>(a, s);
     if (n == 14 && m == 7 && e == 3) return launch<S, 14, 7, 3, true>(a, s);
     return kNoInstantiation;
   }

@@ -118,11 +118,18 @@ def _report(kind: str, msg: str, conds: list[Cond], file: str, line: int) -> str
 
 
 def _native_report(kind: str, expr: str, file: str, line: int, msg: str) -> None:
-    """Hook for the native colored reporter (``ddp_tpu``'s routes the report
-    through ``cpp/ddp_runtime.cpp``'s ``ddp_report_failure`` when that library
-    is loaded).  A no-op here until the port has ``utils/native.py``; the
-    report still reaches the caller in the ``AssertionError``'s text."""
-    del kind, expr, file, line, msg
+    """Route through the native colored reporter (``cpp/ddp_runtime.cpp``'s
+    ``ddp_report_failure``, ``utils/native.py``) when it loads, non-fatally:
+    the Python side owns control flow, and the report also reaches the
+    caller in the ``AssertionError``'s text."""
+    try:
+        from ddp_tpu_torch.utils.native import load
+
+        lib = load()
+        if lib is not None:
+            lib.ddp_report_failure(kind.encode(), expr.encode(), file.encode(), line, msg.encode())
+    except Exception:  # noqa: BLE001 — reporting must never mask the assert
+        pass
 
 
 def ddp_assert(*conds: Any, msg: str = "") -> None:

@@ -30,9 +30,10 @@ SOURCE = "riccati_small.cu"
 # configuration target, the quadrotor with a state target, panda7 with a
 # frame target
 KERNEL_DIMS = ((2, 1, 1), (12, 6, 6), (12, 6, 12), (14, 7, 3))
-# … and with the second-order terms: pendulum, cartpole/acrobot with a
-# configuration target, panda7 with a frame target
-KERNEL_DIMS_SECOND_ORDER = ((2, 1, 1), (4, 2, 2), (14, 7, 3))
+# … and with the second-order terms: the pendulum with a configuration and
+# with a state target, cartpole/acrobot and UR5 with a configuration target,
+# panda7 with a frame target
+KERNEL_DIMS_SECOND_ORDER = ((2, 1, 1), (2, 1, 2), (4, 2, 2), (12, 6, 6), (14, 7, 3))
 # the most reg levels one launch sweeps (a warp, or a row of threads, each)
 MAX_LEVELS = 16
 # kernel launches since import (or since a caller reset it), how many of

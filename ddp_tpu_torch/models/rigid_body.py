@@ -641,6 +641,9 @@ def build_model(
          axis=3, mass=float, com=3, inertia=3×3,
          limit=dict(lower=, upper=, velocity=, effort=))  # optional, 1-DoF
 
+    ``spatial_inertia=6×6`` in place of mass/com/inertia gives the body's
+    spatial inertia about its origin directly (the URDF loader's accumulated
+    link inertias).
     frames: list of dict(name=..., body=int, rot=3×3, trans=3).
     """
     f64 = np.float64
@@ -651,7 +654,9 @@ def build_model(
     axes = axes / np.maximum(np.linalg.norm(axes, axis=1, keepdims=True), 1e-12)
     inertias = np.stack(
         [
-            spatial_inertia(
+            np.asarray(j["spatial_inertia"], f64)
+            if "spatial_inertia" in j
+            else spatial_inertia(
                 j.get("mass", 1.0),
                 j.get("com", np.zeros(3)),
                 j.get("inertia", np.eye(3) * 1e-3),

@@ -1,10 +1,8 @@
-"""Built-in robot constructors (≙ ddp_tpu/models/robots.py).
-
-``ur5`` and ``load_urdf`` need the URDF parser, which is still to be ported
-(ROADMAP slice B: models/urdf.py, models/reduced.py, utils/native.py).
-"""
+"""Built-in robot constructors (≙ ddp_tpu/models/robots.py)."""
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -15,21 +13,14 @@ from ddp_tpu_torch.models.rigid_body import (
     build_model,
     double_pendulum,
 )
+from ddp_tpu_torch.models.urdf import load_urdf
+
+ASSETS = Path(__file__).resolve().parent / "assets"
 
 
-def load_urdf(path: str, *, device, dtype) -> RobotModel:
-    raise NotImplementedError(
-        "the URDF parser is still to be ported (ROADMAP slice B: models/urdf.py, "
-        "models/reduced.py, utils/native.py)"
-    )
-
-
-def ur5(*, device, dtype) -> RobotModel:
-    """6-DoF UR5 arm from the bundled URDF."""
-    raise NotImplementedError(
-        "ur5 reads a URDF, and the URDF parser is still to be ported "
-        "(ROADMAP slice B: models/urdf.py, models/reduced.py, utils/native.py)"
-    )
+def ur5(*, device: torch.device | str, dtype: torch.dtype) -> RobotModel:
+    """6-DoF UR5 arm from the bundled URDF (``assets/ur5.urdf``)."""
+    return load_urdf(str(ASSETS / "ur5.urdf"), device=device, dtype=dtype)
 
 
 def panda7(*, device: torch.device | str, dtype: torch.dtype) -> RobotModel:

@@ -42,6 +42,23 @@ from ddp_tpu_torch.solver.rollout import feedback_rollout
 from ddp_tpu_torch.solver.solve import Method, SolverParams
 
 
+class BatchSolveHistory(NamedTuple):
+    """Per-iteration solver state for the whole batch, [I, B] each: the
+    production path's counterpart of solve(history=True)'s SolveHistory.
+    Recorded by solve_batched(..., history=True) after each outer iteration;
+    the pre-loop backward/forward pair is not an outer iteration and is not
+    recorded."""
+
+    mu: torch.Tensor
+    reg: torch.Tensor
+    step: torch.Tensor
+    opt_obj: torch.Tensor
+    opt_lag: torch.Tensor
+    opt_constr: torch.Tensor
+    upd_success: torch.Tensor
+    upd_failure: torch.Tensor
+
+
 class BatchSolveResult(NamedTuple):
     xs: torch.Tensor  # [B, T+1, nx]
     us: torch.Tensor  # [B, T, nu]
@@ -54,6 +71,7 @@ class BatchSolveResult(NamedTuple):
     reg: torch.Tensor  # [B]
     w: torch.Tensor  # [B] inner-convergence gate tolerance
     n: torch.Tensor  # [B] constraint-progress gate tolerance
+    history: BatchSolveHistory | None = None  # history=True only
 
 
 def _reg_levels(mu, reg, n_levels):
@@ -298,6 +316,7 @@ def solve_batched(
     reg_init: torch.Tensor | float | None = None,  # [B] (or scalar) warm-start reg
     w_init: torch.Tensor | float | None = None,  # [B] inner-gate tolerance state
     n_init: torch.Tensor | float | None = None,  # [B] progress-gate tolerance state
+    history: bool = False,  # record BatchSolveHistory ([I, B] per iteration)
 ) -> BatchSolveResult:
     """Fixed-budget batched AL-DDP: exactly ``params.max_iterations`` outer
     iterations for every lane (converged lanes no-op through the line search
@@ -307,19 +326,21 @@ def solve_batched(
     The ``*_init`` arguments warm-start a solve from a previous result's
     (mults, mu, reg, w, n) — e.g. a Gauss-Newton solve to feasibility followed
     by a few full-DDP iterations on the ``second_order`` twin of the problem;
-    the multipliers are re-anchored at the new initial rollout."""
+    the multipliers are re-anchored at the new initial rollout.
+    ``history=True`` records ``BatchSolveHistory`` after each outer
+    iteration; the result is the same bits with it as without."""
     _check_backends(backward, forward, deriv)
     with al_mod.matmul_precision(matmul_precision):
         return _solve_batched(
             problem, params, x0s, us_init, method, n_linesearch, backward,
             forward, deriv, n_reg_levels,
-            (mults_init, mu_init, reg_init, w_init, n_init),
+            (mults_init, mu_init, reg_init, w_init, n_init), history,
         )  # fmt: skip
 
 
 def _solve_batched(
     problem, params, x0s, us_init, method, n_linesearch, backward, forward,
-    deriv, n_reg_levels, warm,
+    deriv, n_reg_levels, warm, history,
 ):  # fmt: skip
     T, nu = problem.horizon, problem.nu
     model = problem.model
@@ -407,6 +428,7 @@ def _solve_batched(
     oo_prev = torch.full((B,), torch.inf, **kw)
     just_changed = torch.ones(B, dtype=torch.bool, device=device)
     inner = torch.ones(B, dtype=torch.int32, device=device)  # pre-loop ran once
+    rows = []
 
     for _ in range(params.max_iterations):
         derivs = derivatives(xs, us)
@@ -473,6 +495,8 @@ def _solve_batched(
         )
         xs = _bwhere(ok, xs1, xs)
         us = _bwhere(ok, us1, us)
+        if history:
+            rows.append(BatchSolveHistory(mu_new, reg, step, oo, olag, oc, upd_s, upd_f))
         mu, w, n = mu_new, w_new, n_new
         oo_prev = oo
         just_changed = upd_s | upd_f
@@ -492,4 +516,5 @@ def _solve_batched(
         reg=reg,
         w=w,
         n=n,
+        history=BatchSolveHistory(*map(torch.stack, zip(*rows))) if history else None,
     )

@@ -83,6 +83,8 @@ int main(int argc, char** argv) {
   const std::string dir = argv[8];
   if (so && n == 2 && m == 1 && e == 1) return run<2, 1, 1, true>(T, B, L, dir);
   if (so && n == 4 && m == 2 && e == 2) return run<4, 2, 2, true>(T, B, L, dir);
+  if (so && n == 2 && m == 1 && e == 2) return run<2, 1, 2, true>(T, B, L, dir);
+  if (so && n == 12 && m == 6 && e == 6) return run<12, 6, 6, true>(T, B, L, dir);
   if (so && n == 14 && m == 7 && e == 3) return run<14, 7, 3, true>(T, B, L, dir);
   if (!so && n == 2 && m == 1 && e == 1) return run<2, 1, 1, false>(T, B, L, dir);
   if (!so && n == 12 && m == 6 && e == 6) return run<12, 6, 6, false>(T, B, L, dir);

@@ -117,7 +117,7 @@ def fd_host(request, tmp_path_factory):
     return build("fd_derivs.cu", "fd_derivs_host.cpp", tmp_path_factory.mktemp("fd"), request.param)
 
 
-@pytest.fixture(scope="module", params=["cartpole", "panda7"])
+@pytest.fixture(scope="module", params=["cartpole", "panda7", "ur5"])
 def fd_case(request, fd_host, tmp_path_factory):
     """The host-built primal, q and v passes and the plain version on 40
     numpy-seeded samples (a block of 64 with its ragged edge)."""
@@ -147,7 +147,7 @@ FD2_OUTPUTS = ("a", "da_dq", "da_dv", "Minv", "H")
 FD2_BARS = (1e-9, 1e-9, 1e-9, 1e-9, 1e-8)
 
 
-@pytest.fixture(scope="module", params=["cartpole", "panda7"])
+@pytest.fixture(scope="module", params=["cartpole", "panda7", "ur5"])
 def fd2_case(request, fd2_host, tmp_path_factory):
     """The host-built kernel and the plain version on 3 numpy-seeded samples."""
     N = 3
@@ -207,12 +207,14 @@ def ladder_inputs(B, T, n, m, e, second_order, seed):
         (False, (14, 7, 3), 3, 5, 4),
         (True, (14, 7, 3), 3, 5, 4),
         (False, (12, 6, 6), 3, 4, 1),
+        (True, (12, 6, 6), 3, 4, 4),
         (False, (12, 6, 12), 3, 4, 4),
         (False, (2, 1, 1), 37, 6, 1),
         (True, (2, 1, 1), 37, 6, 3),
+        (True, (2, 1, 2), 37, 6, 4),
         (True, (4, 2, 2), 37, 6, 4),
     ],
-    ids=["gn_n14_L4", "so_n14_L4", "gn_n12_L1", "gn_n12_e12_L4", "gn_n2_L1", "so_n2_L3", "so_n4_L4"],
+    ids=["gn_n14_L4", "so_n14_L4", "gn_n12_L1", "so_n12_L4", "gn_n12_e12_L4", "gn_n2_L1", "so_n2_L3", "so_n2_e2_L4", "so_n4_L4"],
 )
 def test_riccati_ladder_kernel_matches_plain_version(riccati_host, tmp_path, second_order, dims, B, T, L):
     """Both programs (a block per lane and a warp per level at n >= 12; a

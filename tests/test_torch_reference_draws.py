@@ -9,6 +9,10 @@ tier-1:
 - ``quadrotor_share``: ddp_tpu's feasible share for the quadrotor row's
   recipe (bench.py's, B = 256, H = 32, 36 iterations, f32, jit,
   backward="sweep"), the bar chip_smoke.py holds the port to (~2 min);
+- ``ur5_share``: ddp_tpu's feasible share after the Gauss-Newton stage of
+  benchmarks/arm_second_order.py's UR5 chain (B = 512, H = 16, 8 iterations,
+  f32, jit, deriv="jvp", backward="sweep"), the bar chip_smoke.py holds the
+  port's UR5 chain to (~2 min);
 - ``arm_lanes``: the arm fleet of examples/torch_arm_lanes.py at a seed
   (default 3) through jvp/sweep in both packages: feasible shares and the
   lanes whose opt_lag is not finite (~3 min);
@@ -93,6 +97,38 @@ def quadrotor_share():
           f"{float(np.abs(qn - 1).max()):.3e}")  # fmt: skip
 
 
+def ur5_share():
+    from ddp_tpu.models import base
+    from ddp_tpu.models.robots import ur5
+    from ddp_tpu.ocp import constraints, costs, dynamics
+    from ddp_tpu.ocp.problem import Problem
+    from ddp_tpu.solver.batched import solve_batched
+    from ddp_tpu.solver.solve import SolverParams
+
+    dtype, B, H = jnp.float32, 512, 16
+    arm = ur5(dtype=dtype)
+    dyn = dynamics.euler(arm, 0.01)
+    q0 = arm.neutral_configuration()
+    q_target = arm.integrate(q0, jnp.asarray(0.05 * np.arange(1.0, 7.0), dtype))
+    con = constraints.advance_time(
+        constraints.ConfigTarget(model=arm, target=q_target, active_ts=(H,)), dyn, times=2
+    )
+    problem = Problem(dynamics=dyn, cost=costs.quad_control(1.0, dtype=dtype), constraint=con,
+                      horizon=H, second_order=False)  # fmt: skip
+    params = SolverParams(max_iterations=8, threshold=1e-5, mu=1e4, inner_iters_max=1)
+    x0 = base.state_pack(q0, jnp.zeros(arm.nv, dtype))
+    rng = np.random.default_rng(0)
+    x0s = jnp.asarray(np.asarray(x0)[None] + 0.1 * rng.standard_normal((B, 2 * arm.nv)), dtype)
+    t0 = time.perf_counter()
+    r = jax.jit(lambda x: solve_batched(problem, params, x, backward="sweep", deriv="jvp",
+                                        matmul_precision="high", n_linesearch=4,
+                                        forward="seq"))(x0s)  # fmt: skip
+    oc = np.asarray(r.opt_constr)
+    print(f"ddp_tpu UR5 Gauss-Newton stage: feasible share {float(np.mean(oc < 1e-2))}, p99 "
+          f"{float(np.percentile(oc, 99)):.3e}, finite us {bool(np.isfinite(np.asarray(r.us)).all())}, "
+          f"{time.perf_counter() - t0:.1f} s")  # fmt: skip
+
+
 def arm_lanes(seed=3):
     from ddp_tpu.models.robots import panda7
     from ddp_tpu.solver.batched import solve_batched as jsolve_batched
@@ -171,7 +207,7 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     what = sys.argv[1] if len(sys.argv) > 1 else ""
-    jobs = dict(quadrotor_share=quadrotor_share, arm_lanes=arm_lanes, golden_draws=golden_draws,
+    jobs = dict(quadrotor_share=quadrotor_share, ur5_share=ur5_share, arm_lanes=arm_lanes, golden_draws=golden_draws,
                 jit_vs_eager=jit_vs_eager)  # fmt: skip
     if what not in jobs:
         sys.exit(f"usage: {sys.argv[0]} {{{','.join(jobs)}}} [seed]")

@@ -176,10 +176,11 @@ def test_second_order_terms_are_not_ported():
     )
     assert bool(ok.all()) and k.shape == (B, H, 1) and K.shape == (B, H, 1, 2)
     assert bool((reg_used == 0).all())
-    f12, pe12, pex12 = second_order_fields(B, H, 12, 6, 6, seed=0)
-    with pytest.raises(ValueError, match=r"\(12, 6, 6\) with second-order terms"):
+    f12, pe12, pex12 = second_order_fields(B, H, 12, 6, 12, seed=0)
+    with pytest.raises(ValueError, match=r"\(12, 6, 12\) with second-order terms"):
         rs.plan_launch(to_torch_derivs(f12), t(pe12), t(pex12), t(np.ones(B)), t(np.zeros((1, B))), True)
-    assert (12, 6, 6) in rs.KERNEL_DIMS  # … while its Gauss-Newton form is there
+    assert (12, 6, 12) in rs.KERNEL_DIMS  # … while its Gauss-Newton form is there
+    assert (12, 6, 6) in rs.KERNEL_DIMS_SECOND_ORDER  # UR5 under its ConfigTarget
 
 
 def test_launch_gates_raise_before_any_build():

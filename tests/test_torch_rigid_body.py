@@ -173,12 +173,15 @@ def test_port_constructor_matches_jax_constructor(name):
 
 
 def test_ee_frame_id_and_deferred_models():
+    """``ee_frame_id`` resolves on panda7 and on the URDF-loaded UR5 (which
+    raised until the URDF loader was ported), through ``ur5`` and through
+    ``load_urdf`` of the bundled file alike."""
     arm = trobots.panda7(device="cpu", dtype=torch.float64)
     assert trobots.ee_frame_id(arm, "ee") == 0
-    with pytest.raises(NotImplementedError, match="slice B"):
-        trobots.ur5(device="cpu", dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="slice B"):
-        trobots.load_urdf("ur5.urdf", device="cpu", dtype=torch.float64)
+    ur5 = trobots.ur5(device="cpu", dtype=torch.float64)
+    assert trobots.ee_frame_id(ur5) == ur5.frame_names.index("ee_link") == 6
+    again = trobots.load_urdf(str(trobots.ASSETS / "ur5.urdf"), device="cpu", dtype=torch.float64)
+    assert trobots.ee_frame_id(again, "ee_link") == 6 and again.nq == again.nv == 6
 
 
 def test_build_model_limits_and_parent_order():

@@ -476,8 +476,12 @@ def test_port_imports_no_jax_and_builds_nothing():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'triton', 'ddp_tpu')]\n"
         "assert not bad, bad\n"
         "assert not _build._LOADED\n"
+        "from ddp_tpu_torch.utils import native\n"
+        "assert native._lib is None and not native._tried\n"
         "for m in ('ops.lie', 'models.rigid_body', 'models.robots', 'kernels.fd_derivs',\n"
-        "          'kernels.fd_derivs2'):\n"
+        "          'kernels.fd_derivs2', 'models.urdf', 'models.reduced', 'utils.native',\n"
+        "          'utils.checkpoint', 'solver.mpc', 'diagnostics.checks',\n"
+        "          'diagnostics.profiling'):\n"
         "    assert 'ddp_tpu_torch.' + m in sys.modules, m\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
