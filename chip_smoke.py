@@ -87,8 +87,8 @@
    other kernel); checks finiteness, every terminal quaternion's norm within
    1e-5 of 1, the feasible share against ddp_tpu's for the same recipe on the
    CPU (0.9921875) less 0.01, then the same solve with backward="sweep"
-   (shares within 0.01), and both in f64 at 16 lanes (us within 1e-7 of each
-   lane's largest |u|, identical μ).
+   (shares within 0.01), and both in f64 at 16 lanes for 12 iterations (us
+   within 1e-7 of each lane's largest |u|, identical μ).
 8. ddp_tpu_torch.solve on the card: the golden file's configuration
    (pendulum, T=200, full DDP, f64, SolverParams(200, 1e-9, mu=1e8), x0 = 0)
    converged in ≤ 200 iterations within 1e-9 (us) and 1e-11 (xs) of
@@ -108,10 +108,10 @@
 10. the UR5 MPC replan (bench.py's: the chain's Gauss-Newton problem at
    B=1, 3 AL iterations) through make_mpc_step on the default route
    (backward="sweep") and through the Riccati kernel (backward="kernel", 4
-   launches a replan): a warm-up, then 40 replans from x0 at rest with the
+   launches a replan): a warm-up, then 20 replans from x0 at rest with the
    carry carried, each timed to a torch.cuda.synchronize (p50, p99);
    finite u0 and carry; both routes in f64 for 6 replans (u0 within 1e-7 of
-   |u0|, identical μ); run_mpc and the closed loop of both routes for 20
+   |u0|, identical μ); run_mpc and the closed loop of both routes for 10
    steps in f64 (each step's states within 1e-7 of their scale, or within
    what 1e-15 on x0 does to the sweep route's, whichever is larger); and
    test_aux_subsystems.py's pendulum receding-horizon loop (a StateTarget at
@@ -127,7 +127,34 @@
    at one lane as the MPC replans launch it ((12, 6, 6) f32, (2, 1, 2)
    second order f64), on a launch plan and through its wrapper; the fd kernels on panda7 and on
    UR5 — and solves/s of the main paths, paths A and B included (median of
-   3 after a warm-up), of the UR5 chain on both routes (median of 2).
+   3 after a warm-up; the arm's routes without one, phase 5 ran them), of
+   the UR5 chain on both routes (median of 2).
+12. the associative-scan backward and the precision envelope: (a) the
+   headline through backward="assoc" (no Riccati launch; the share against
+   ddp_tpu's on the CPU less 0.01; ≥ 99% of lanes within 1e-3 of their
+   largest |u| of the kernel route; the scan's bits with TF32 allowed around
+   it; f64 at 16 lanes against the sweep within 1e-8, identical μ); (b)
+   bench.py's T200 row (H = 200, forward="seq") through assoc, sweep and
+   kernel, one timed solve each, shares, lane agreement with the
+   kernel route (at least ddp_tpu's own routes' agreement there less 0.02:
+   0.9714 and 0.9690 on the CPU), kernel #1 against its plain version on
+   the kernel route's finished inputs (f64 copies at 1e-10; f32, which
+   those inputs are beyond at phase 3's bars, no further from f64 than 2×
+   the plain f32 version), and each backward's call on those inputs at T = 200 and on a
+   finished headline solve's at T = 32 (CUDA events; the device kernels of
+   one call and their device time by torch.profiler); (c) the headline through backward="tf" with
+   precise_cost=True (share ≥ 0.99) and one tf backward call on its finished
+   inputs against kernel #1's float64 instantiation at (2, 1, 1) on float64
+   copies (one launch; ok and reg_used equal, gains within 2·eps32 of each
+   array's largest entry), with the times of the tf call and of the f32 and
+   f64 kernels; (d) ddp_tpu_torch.solve(precise=True) and
+   precise="storage" on tests/test_precise.py's T = 60 configuration beside
+   the plain f32 solve from 22 starts (x0 = 0 timed alone, the others in
+   worker processes), at its anchors' bars on q_T and opt_constr; the
+   anchors' opt_lag bars are draws, in ddp_tpu too, so the envelope must
+   beat the plain solve and the storage mode reach 1e-8 from at least as
+   many starts as ddp_tpu does on the CPU, less two binomial standard
+   deviations (5 and 10 of 22).
 
 Every phase prints one line (phase 3 one a case); any failure raises and
 the exit code is not 0.
@@ -163,6 +190,7 @@ from ddp_tpu_torch.ocp.problem import Problem
 from ddp_tpu_torch.ocp.problem import Derivs
 from ddp_tpu_torch.solver import al
 from ddp_tpu_torch.solver.batched import (
+    _backward_multi_reg,
     _backward_sweep,
     _linesearch_seq,
     _linesearch_sweep,
@@ -170,6 +198,8 @@ from ddp_tpu_torch.solver.batched import (
     solve_batched,
 )
 from ddp_tpu_torch.solver import mpc
+from ddp_tpu_torch.solver import precise
+from ddp_tpu_torch.solver.parallel_riccati import backward_pass_assoc
 from ddp_tpu_torch.solver.solve import SolverParams
 
 B, T = 4096, 32
@@ -208,6 +238,9 @@ DDP_KW = dict(n_linesearch=4, forward="seq", matmul_precision="highest")
 # 36 AL iterations, f32, the Riccati kernel at (12, 6, 12)
 QUAD_B, QUAD_H, QUAD_B64 = 256, 32, 16
 QUAD = SolverParams(max_iterations=36, threshold=1e-5, mu=1e4, inner_iters_max=3)
+# the f64 routes' parity at a third of the row's depth, to keep the whole run
+# well inside its time limit
+QUAD64 = QUAD._replace(max_iterations=12)
 QUAD_KW = dict(n_linesearch=8, forward="seq", matmul_precision="highest")
 QUAD_REG_LEVELS = 4  # solve_batched's default ladder depth
 # ddp_tpu's feasible share (opt_constr < 1e-2) for the same recipe on the
@@ -226,20 +259,69 @@ UR5_REG_LEVELS = 4  # solve_batched's default ladder depth
 # jit, f32): tests/test_torch_reference_draws.py ur5_share
 UR5_JAX_CPU_SHARE = 1.0
 # bench.py's UR5 MPC replan: the chain's Gauss-Newton problem at B = 1, 3 AL
-# iterations a replan, 40 timed replans from x0 at rest with the carry carried
+# iterations a replan, timed replans from x0 at rest with the carry carried
 MPC = SolverParams(max_iterations=3, threshold=1e-5, mu=1e4, inner_iters_max=1)
-MPC_REPLANS, MPC_LOOP_STEPS = 40, 20
+# (timed replans and closed-loop steps, few enough to keep the whole run well
+# inside its time limit)
+MPC_REPLANS, MPC_LOOP_STEPS = 20, 10
 # test_aux_subsystems.py::test_mpc_receding_horizon's pendulum loop
 PEND_MPC = SolverParams(max_iterations=4, threshold=1e-6, mu=1e6)
 PEND_MPC_H, PEND_MPC_REPLANS = 30, 120
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden_pendulum_reference.npz"
+# phase 12: ddp_tpu's feasible shares for the headline recipe on the CPU (jit,
+# f32; tests/test_torch_reference_draws.py assoc_share and tf_share): through
+# backward="assoc" at T = 32 and on the T200 row, and through backward="tf"
+# with precise_cost=True
+ASSOC_JAX_CPU_SHARE = 1.0
+ASSOC_T200_JAX_CPU_SHARE = 1.0
+TF_JAX_CPU_SHARE = 1.0
+# how many lanes ddp_tpu's own assoc and sweep routes leave within 1e-3 of
+# their largest |u| of its Pallas route on the T200 row (the same script's
+# assoc_share; 1.0 for both at T = 32): in float32 at T = 200 roundoff parts
+# the μ paths of a few percent of lanes in the reference itself, so the
+# headline's 0.99 is out of its reach there, and the port's routes are held
+# to the reference's own agreement less 0.02
+T200_JAX_CPU_AGREE = dict(assoc=0.971435546875, sweep=0.968994140625)
+# bench.py's T200 row: the headline recipe at H = 200 with forward="seq"
+T200 = 200
+T200_KW = dict(HEADLINE_KW, forward="seq")
+# tests/test_precise.py's T = 60 configuration for solve(precise=…) from the
+# 22 starts of precise_starts(); the anchors' opt_lag bars are draws there
+# (roundoff parts the schedule's paths): from those starts on the CPU
+# ddp_tpu's envelope ends below its plain solve from 9 and its storage mode
+# below 1e-8 from 14 (tests/test_torch_reference_draws.py precise_draws).
+# Phase 12d holds the port on the card to those counts less two standard
+# deviations of a binomial at the reference's rate (sqrt(22·p·(1-p)) = 2.31
+# and 2.26): a port that converges systematically less often fails, a
+# draw does not
+PRECISE_JAX_CPU_ENVELOPE_BELOW, PRECISE_JAX_CPU_STORAGE_MET = 9, 14
+ENVELOPE_MIN_BELOW, STORAGE_MIN_MET = 5, 10
+# processes that solve the starts after x0 = 0 (one card; the host's cores)
+PRECISE_WORKERS = 8
+PRECISE_H = 60
+
+
+def precise_starts():
+    """x0 = 0, five axis perturbations and 16 seeded ones, float32 (the
+    starts of tests/test_torch_reference_draws.py precise_draws)."""
+    rng = np.random.default_rng(1)
+    axis = ([0.0, 0.0], [1e-6, 0.0], [0.0, 1e-6], [-1e-6, 0.0], [1e-5, 0.0], [0.0, -1e-5])
+    seeded = [s * rng.standard_normal(2) for s in (1e-6, 1e-5) for _ in range(8)]
+    return [np.asarray(x, np.float32) for x in (*axis, *seeded)]
+
+
 # published peaks of one H100 SXM used for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12  # outside the tensor cores
 F64_FLOPS_PER_S = 34e12  # outside the tensor cores (NVIDIA's H100 SXM data sheet)
 
 
+T_START = time.perf_counter()
+
+
 def say(phase, **fields):
+    """One line of the run's output, ending in the seconds since the start."""
+    fields["t"] = f"{time.perf_counter() - T_START:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
@@ -360,6 +442,45 @@ def kernel_vs_plain(name, inputs, mu, reg, n_levels, rtol, atol, second_order=Fa
         ok_lanes=f"{int(got[2].sum())}/{got[2].numel()}",
         lanes_per_level=torch.bincount((levels == got[3]).int().argmax(0), minlength=n_levels).tolist())  # fmt: skip
     return err, got[2], got
+
+
+def kernel_f32_vs_f64(name, inputs, mu, reg, n_levels):
+    """Kernel #1 in f32 on inputs f32 does not resolve to phase 3's bars (a
+    finished solve's at T = 200: the plain f32 version's k is up to 1.2 off
+    float64 there, 3% of a lane's largest entry): one launch, ok and
+    reg_used equal to the plain f32 version's, and each of k, K no further
+    from the plain float64 version on float64 copies of the inputs than
+    FD_F32_VS_PLAIN times the plain f32 version is (max over the lanes both
+    save).  Returns (the kernel's and the plain f32 version's max abs
+    distance from float64, the kernel's max abs difference from the plain
+    f32 version)."""
+    levels = torch.stack(_reg_levels(mu, reg, n_levels))
+    before = (rs.LAUNCHES, rs.LEVELS_SWEPT)
+    got = rs.backward_ladder(*inputs, mu, levels)
+    torch.cuda.synchronize()
+    check((rs.LAUNCHES, rs.LEVELS_SWEPT) == (before[0] + 1, before[1] + n_levels),
+          f"{name}: the wrapper did not launch its kernel once")  # fmt: skip
+    ref = rs.backward_ladder_reference(*inputs, mu, levels)
+    check(torch.equal(got[2], ref[2]), f"{name}: ok vectors differ")
+    check(torch.equal(got[3], ref[3]), f"{name}: reg_used differs")
+    wide = (precise.wide(inputs[0]), inputs[1].double(), inputs[2].double())
+    truth = rs.backward_ladder_reference(*wide, mu.double(), levels.double())
+    keep = ref[2] & truth[2]
+    dist, diff = {}, 0.0
+    for i, label in enumerate(("k", "K")):
+        w = truth[i][keep]
+        check(bool(torch.isfinite(got[i][keep]).all()), f"{name}: non-finite {label}")
+        k_err = float((got[i][keep].double() - w).abs().max())
+        p_err = float((ref[i][keep].double() - w).abs().max())
+        check(k_err <= FD_F32_VS_PLAIN * p_err,
+              f"{name}: {label} {k_err:.3e} from f64, the plain f32 version {p_err:.3e}")  # fmt: skip
+        dist[label] = (k_err, p_err)
+        diff = max(diff, float((got[i][keep] - ref[i][keep]).abs().max()))
+    say("kernel", case=name, levels=n_levels, max_abs_err=f"{diff:.3e}",
+        **{f"{lb}_from_f64_kernel": f"{k:.3e}" for lb, (k, _) in dist.items()},
+        **{f"{lb}_from_f64_plain": f"{p:.3e}" for lb, (_, p) in dist.items()},
+        bar=f"{FD_F32_VS_PLAIN}x plain", ok_lanes=f"{int(got[2].sum())}/{got[2].numel()}")  # fmt: skip
+    return max(k for k, _ in dist.values()), max(p for _, p in dist.values()), diff
 
 
 def fd_inputs(model, N, dtype, seed=5):
@@ -936,15 +1057,15 @@ def quadrotor_row(dtype, Bk=None):
     return problem, x0s, us0
 
 
-def quad_solve(problem, x0s, us0, backward):
-    res = solve_batched(problem, QUAD, x0s, us_init=us0, backward=backward, **QUAD_KW)
+def quad_solve(problem, x0s, us0, backward, params=QUAD):
+    res = solve_batched(problem, params, x0s, us_init=us0, backward=backward, **QUAD_KW)
     torch.cuda.synchronize()
     return res
 
 
 def quadrotor_path():
     """Phase 7: the quadrotor row through the Riccati kernel at (12, 6, 12)
-    and through the sweep, its checks, and both in f64 at 16 lanes.  Returns
+    and through the sweep, its checks, and both in f64 at 16 lanes (``QUAD64``).  Returns
     the kernel route's (launches, levels swept), and the two routes' shares
     and wall times (one solve each, the row's times)."""
     p32, x32, u32 = quadrotor_row(torch.float32)
@@ -984,14 +1105,14 @@ def quadrotor_path():
         first_solve_s_kernel=f"{wall_k:.3f}", solve_s_sweep=f"{wall_s:.3f}")  # fmt: skip
 
     p64, x64, u64 = quadrotor_row(torch.float64, QUAD_B64)
-    r64_k = quad_solve(p64, x64, u64, "kernel")
-    r64_s = quad_solve(p64, x64, u64, "sweep")
+    r64_k = quad_solve(p64, x64, u64, "kernel", QUAD64)
+    r64_s = quad_solve(p64, x64, u64, "sweep", QUAD64)
     diff = (r64_k.us - r64_s.us).abs().amax(dim=(1, 2))
     scale = r64_s.us.abs().amax(dim=(1, 2)).clamp(min=1.0)
     err64 = float((diff / scale).max())
     check(err64 <= 1e-7, f"quadrotor f64 us max scaled err {err64}")
     check(torch.equal(r64_k.mu, r64_s.mu), "quadrotor f64 per-lane mu differs")
-    say("quadrotor_f64", B=QUAD_B64, iters=QUAD.max_iterations, us_max_scaled_err=f"{err64:.3e}",
+    say("quadrotor_f64", B=QUAD_B64, iters=QUAD64.max_iterations, us_max_scaled_err=f"{err64:.3e}",
         mu_identical=True, frac_kernel=float((r64_k.opt_constr < 1e-2).float().mean()))  # fmt: skip
     return (counts["riccati"], levels), dict(
         frac_kernel=frac_k, frac_sweep=frac_s, wall_kernel=wall_k, wall_sweep=wall_s
@@ -1205,10 +1326,10 @@ def pendulum_state_problem():
 def ur5_mpc_path():
     """Phase 10: bench.py's UR5 MPC replan through ``make_mpc_step`` on the
     default route (backward="sweep") and through kernel #1 at (12, 6, 6),
-    B = 1 (backward="kernel"): a warm-up replan, then 40 timed replans from
+    B = 1 (backward="kernel"): a warm-up replan, then ``MPC_REPLANS`` timed replans from
     x0 at rest with the carry carried; launches per replan exactly; u0 and the
     carry finite; both routes in f64 (u0 within 1e-7 of |u0|, identical μ);
-    ``run_mpc`` and the closed loop of both routes for 20 steps in f64, held
+    ``run_mpc`` and the closed loop of both routes for ``MPC_LOOP_STEPS`` steps in f64, held
     to the loop's own amplification of one ulp of x0; and
     test_mpc_receding_horizon's pendulum loop through the kernel."""
     out = {}
@@ -1632,6 +1753,293 @@ def flat_lane_paths(p32, x32, res_s, f64):
     return out["A"]["linesearch"], out["A"]["riccati"], out["B"]["flat_solve"]
 
 
+# --------------------------------------------- phase 12: assoc and the envelope
+
+
+def pendulum_problem(horizon, dtype):
+    return problem_from_numpy(dict(SPEC, horizon=horizon, active_ts=(horizon,)), device=DEV, dtype=dtype)
+
+
+def finished_inputs(problem, res):
+    """A finished solve's backward inputs: (derivs, mult_val, mult_jac), μ, reg."""
+    derivs = problem.derivatives(res.xs, res.us)
+    return (derivs, res.mults.val, res.mults.jac), res.mu, res.reg
+
+
+def device_profile(fn):
+    """Device kernels one call of ``fn`` launches and their summed device
+    time in ms (torch.profiler; the busy time, not the call's span)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return sum(e.count for e in events), sum(e.self_device_time_total for e in events) / 1e3
+
+
+def check_route(res, what, Bk, Tk):
+    for name in RESULT_FIELDS:
+        check(bool(torch.isfinite(getattr(res, name)).all()), f"{what}: non-finite {name}")
+    check(res.us.shape == (Bk, Tk, 1) and res.xs.shape == (Bk, Tk + 1, 2), f"{what}: shapes")
+    return float((res.opt_constr < 1e-2).float().mean())
+
+
+def backward_times(card, label, routes, reps=None):
+    """Each backward route's call on one finished solve's inputs: CUDA events
+    around one call (median of 20, or of ``reps[route]``), and by
+    torch.profiler the device kernels of one call and their summed device
+    time (``device_ms`` cannot time the PyTorch routes: the host takes
+    longer to queue their calls than the sleep holds the stream)."""
+    out = {}
+    for name, fn in routes.items():
+        kernels, busy = device_profile(fn)
+        out[name] = dict(ms=event_ms(fn, reps=(reps or {}).get(name, 20)), device_busy_ms=busy,
+                         device_kernels=kernels)  # fmt: skip
+    say("time_backward_routes", card=f"'{card}'", shape=label,
+        **{f"{k}_{n}": (f"{v:.4f}" if isinstance(v, float) else v)
+           for n, r in out.items() for k, v in r.items()})  # fmt: skip
+    return out
+
+
+def assoc_headline(card):
+    """Phase 12a: the headline through backward="assoc" (no Riccati kernel
+    launch), its share against ddp_tpu's, lane agreement with the kernel
+    route, the scan's bits with TF32 allowed around it, and f64 at 16 lanes
+    against the sweep."""
+    p32, x32 = pendulum_problem(T, torch.float32), headline_x0s(torch.float32)
+    reset_launch_counts()
+    res_a = solve(p32, x32, "assoc")
+    counts = launch_counts()
+    check(counts == dict(riccati=0, fd=0, fd2=0, linesearch=0, flat_solve=0),
+          f"assoc headline: launches {counts}")  # fmt: skip
+    feas = check_route(res_a, "assoc headline", B, T)
+    check(feas >= ASSOC_JAX_CPU_SHARE - 0.01,
+          f"assoc headline share {feas} below ddp_tpu's {ASSOC_JAX_CPU_SHARE} - 0.01")  # fmt: skip
+    res_k = solve(p32, x32, "kernel")
+    agree, worst = lane_agreement(res_a, res_k)
+    check(agree >= 0.99, f"assoc headline: only {agree} of lanes agree with the kernel route")
+    inputs, mu, reg = finished_inputs(p32, res_a)
+
+    def scan(unwrap=lambda f: f):
+        return unwrap(backward_pass_assoc)(*inputs, mu, reg)
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        full = scan()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        guarded, unguarded = scan(), scan(lambda f: f.__wrapped__)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    same = [torch.equal(a, b) for a, b in zip(full, guarded)]
+    check(all(same), "assoc: the pinned scan changed with TF32 allowed around it")
+
+    p64 = pendulum_problem(T, torch.float64)
+    x64 = headline_x0s(torch.float64)[:16]
+    r64_a, r64_s = solve(p64, x64, "assoc"), solve(p64, x64, "sweep")
+    err64 = lane_scaled_err(r64_a, r64_s)
+    mu_parts = torch.nonzero(r64_a.mu != r64_s.mu).flatten().tolist()
+    say("assoc_headline", B=B, T=T, riccati_launches=counts["riccati"], launches=counts,
+        feasible=feas, feasible_ddp_tpu_cpu=ASSOC_JAX_CPU_SHARE, lanes_us_agree_kernel=agree,
+        us_max_scaled_err_kernel=f"{worst:.3e}", mu_equal_kernel=float((res_a.mu == res_k.mu).float().mean()),
+        tf32_pinned_bit_exact=True,
+        tf32_unguarded_changes=not all(torch.equal(a, b) for a, b in zip(full, unguarded)),
+        f64_B=16, f64_us_max_scaled_err=f"{err64:.3e}", f64_mu_lanes_parted=mu_parts)  # fmt: skip
+    check(err64 <= 1e-8, f"assoc f64 us max scaled err {err64} (μ parted on lanes {mu_parts})")
+    check(not mu_parts, f"assoc f64 per-lane μ parts from the sweep's on lanes {mu_parts}")
+    return dict(feasible=feas, lanes_agree=agree, riccati_launches=counts["riccati"])
+
+
+def t200_row(card):
+    """Phase 12b: bench.py's T200 row through assoc, sweep and kernel, one
+    solve each, timed (phase 12a has warmed every route at T = 32; to keep
+    the whole run near 850 s no solve is repeated): shares, lane agreement
+    with the kernel route, solves/s; kernel #1 against its plain version on
+    the kernel route's finished inputs; and each backward's call on them."""
+    p32, x32 = pendulum_problem(T200, torch.float32), headline_x0s(torch.float32)
+    out, res = {}, {}
+    for route in ("assoc", "sweep", "kernel"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res[route] = solve_batched(p32, HEADLINE, x32, backward=route, **T200_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        expected = EXPECTED_LAUNCHES if route == "kernel" else 0
+        check(counts == dict(riccati=expected, fd=0, fd2=0, linesearch=0, flat_solve=0),
+              f"T200 {route}: launches {counts}")  # fmt: skip
+        out[route] = dict(feasible=check_route(res[route], f"T200 {route}", B, T200), solve_s=wall,
+                          solves_per_s=B / wall, riccati_launches=counts["riccati"])  # fmt: skip
+    check(out["assoc"]["feasible"] >= ASSOC_T200_JAX_CPU_SHARE - 0.01,
+          f"T200 assoc share {out['assoc']['feasible']} below ddp_tpu's {ASSOC_T200_JAX_CPU_SHARE} - 0.01")  # fmt: skip
+    for route in ("assoc", "sweep"):
+        agree, worst = lane_agreement(res[route], res["kernel"])
+        bar = T200_JAX_CPU_AGREE[route] - 0.02
+        out[route].update(lanes_us_agree_kernel=agree, us_max_scaled_err_kernel=worst,
+                          mu_equal_kernel=float((res[route].mu == res["kernel"].mu).float().mean()))  # fmt: skip
+        check(agree >= bar, f"T200 {route}: only {agree} of lanes agree with the kernel route (bar {bar})")
+    say("t200_row", B=B, T=T200, **{f"{k}_{r}": (f"{v:.4f}" if isinstance(v, float) else v)
+                                    for r, d in out.items() for k, v in d.items()})  # fmt: skip
+
+    inputs, mu, reg = finished_inputs(p32, res["kernel"])
+    # kernel #1 on this row's own inputs against its plain version: float64
+    # copies at 1e-10, and float32 no further from float64 than twice the
+    # plain float32 version
+    out["kernel_f32_from_f64"], out["plain_f32_from_f64"], out["kernel_err32"] = kernel_f32_vs_f64(
+        f"t200_f32_B{B}_T{T200}", inputs, mu, reg, 1)  # fmt: skip
+    wide = (precise.wide(inputs[0]), inputs[1].double(), inputs[2].double())
+    out["kernel_err64"] = kernel_vs_plain(f"t200_f64_B{B}_T{T200}", wide, mu.double(), reg.double(), 1,
+                                          1e-10, 1e-10)[0]  # fmt: skip
+    levels = torch.stack(_reg_levels(mu, reg, 1))
+    routes = {
+        "assoc": lambda: backward_pass_assoc(*inputs, mu, reg),
+        "sweep": lambda: _backward_multi_reg(*inputs, mu, reg, 1),
+        "kernel": lambda: rs.backward_ladder(*inputs, mu, levels),
+    }
+    out["backward"] = backward_times(card, f"n2m1e1_T{T200}_B{B}_f32", routes, dict(sweep=5))
+    plan = rs.plan_launch(*inputs, mu, levels)
+    out["backward"]["kernel"]["device_ms"] = device_ms(lambda: rs.launch_plan(plan))
+    out["bound_ms"], out["bound_by"] = riccati_bound_ms(T200, 2, 1, 1, B, levels=1, item=4)
+    # the headline's backward calls on the same routes, for the T = 32 row
+    p_h, x_h = pendulum_problem(T, torch.float32), headline_x0s(torch.float32)
+    inputs_h, mu_h, reg_h = finished_inputs(p_h, solve(p_h, x_h, "kernel"))
+    levels_h = torch.stack(_reg_levels(mu_h, reg_h, 1))
+    out["backward_headline"] = backward_times(
+        card, f"n2m1e1_T{T}_B{B}_f32",
+        {"assoc": lambda: backward_pass_assoc(*inputs_h, mu_h, reg_h),
+         "sweep": lambda: _backward_multi_reg(*inputs_h, mu_h, reg_h, 1),
+         "kernel": lambda: rs.backward_ladder(*inputs_h, mu_h, levels_h)},
+    )  # fmt: skip
+    return out
+
+
+def tf_headline(card):
+    """Phase 12c: the headline through backward="tf" with precise_cost=True,
+    and one tf backward call on its finished inputs held against kernel #1's
+    float64 instantiation at (2, 1, 1) on float64 copies of them at the same
+    ladder levels (one launch)."""
+    p32, x32 = pendulum_problem(T, torch.float32), headline_x0s(torch.float32)
+    reset_launch_counts()
+    res = solve_batched(p32, HEADLINE, x32, backward="tf", precise_cost=True, **HEADLINE_KW)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["riccati"] == 0, f"tf headline: Riccati launches {counts}")
+    feas = check_route(res, "tf headline", B, T)
+    bar = min(0.99, TF_JAX_CPU_SHARE - 0.01)
+    check(feas >= bar, f"tf headline share {feas} below {bar}")
+    check(all(b.dtype == torch.float32 for b in p32.buffers()), "tf headline: the problem changed dtype")
+    inputs, mu, reg = finished_inputs(p32, res)
+    n_levels = HEADLINE_KW["n_reg_levels"]
+    k, K, ok, reg_used = _backward_multi_reg(*inputs, mu, reg, n_levels, sweep=precise.backward_sweep)
+    levels = torch.stack(_reg_levels(mu, reg, n_levels))
+    wide = (precise.wide(inputs[0]), inputs[1].double(), inputs[2].double())
+    reset_launch_counts()
+    k64, K64, ok64, reg64 = rs.backward_ladder(*wide, mu.double(), levels.double())
+    torch.cuda.synchronize()
+    yard_launches = rs.LAUNCHES
+    check(yard_launches == 1, f"tf yardstick: {yard_launches} launches of kernel #1 f64")
+    check(torch.equal(ok, ok64), "tf yardstick: ok differs from kernel #1 f64")
+    check(torch.equal(reg_used.double(), reg64), "tf yardstick: reg_used differs from kernel #1 f64")
+    eps32 = float(torch.finfo(torch.float32).eps)
+    abs_errs = [float((a.double() - b).abs()[ok].max()) for a, b in ((k, k64), (K, K64))]
+    errs = [e / float(b.abs()[ok].max()) for e, b in zip(abs_errs, (k64, K64))]
+    check(max(errs) <= 2 * eps32, f"tf yardstick: gains {errs} of the largest entry (bar 2·eps32)")
+    times = dict(
+        tf_ms=event_ms(lambda: _backward_multi_reg(*inputs, mu, reg, n_levels, sweep=precise.backward_sweep)),
+        kernel_f32_ms=event_ms(lambda: rs.backward_ladder(*inputs, mu, levels)),
+        kernel_f64_ms=event_ms(lambda: rs.backward_ladder(*wide, mu.double(), levels.double())),
+        kernel_f64_plain_ms=event_ms(
+            lambda: rs.backward_ladder_reference(*wide, mu.double(), levels.double()), reps=5),
+    )  # fmt: skip
+    plan = rs.plan_launch(*wide, mu.double(), levels.double())
+    times["kernel_f64_device_ms"] = device_ms(lambda: rs.launch_plan(plan))
+    bound, bound_by = riccati_bound_ms(T, 2, 1, 1, B, levels=n_levels, item=8)
+    say("tf_headline", card=f"'{card}'", B=B, T=T, launches=counts, feasible=feas, feasible_bar=bar,
+        feasible_ddp_tpu_cpu=TF_JAX_CPU_SHARE, yardstick="riccati_small f64 (2,1,1)",
+        yardstick_riccati_launches=yard_launches, ok_equal=True, reg_used_equal=True,
+        k_rel_err=f"{errs[0]:.3e}", K_rel_err=f"{errs[1]:.3e}", bar=f"{2 * eps32:.3e}",
+        k_abs_err=f"{abs_errs[0]:.3e}", K_abs_err=f"{abs_errs[1]:.3e}",
+        **{k_: f"{v:.4f}" for k_, v in times.items()}, kernel_f64_bound_ms=f"{bound:.5f}",
+        kernel_f64_bound_by=bound_by)  # fmt: skip
+    return dict(times, feasible=feas, launches=yard_launches, max_abs_err=max(abs_errs), max_rel_err=max(errs),
+                bound_ms=bound, bound_by=bound_by)
+
+
+def precise_run(mode, thr, x0):
+    """One ddp_tpu_torch.solve(precise=``mode``) of phase 12d on
+    test_precise.py's T = 60 configuration (f32, mu 1e6, 40 iterations):
+    its wall time and what the bars read; a worker process's task too."""
+    p32 = pendulum_problem(PRECISE_H, torch.float32)
+    t0 = time.perf_counter()
+    r = ddp_solve(p32, SolverParams(40, thr, mu=1e6), torch.tensor(x0, device=DEV), precise=mode)
+    torch.cuda.synchronize()
+    return dict(wall_s=time.perf_counter() - t0, q_T=float(r.xs[-1, 0]), opt_lag=float(r.stats.opt_lag),
+                opt_constr=float(r.stats.opt_constr), mu=float(r.stats.mu),
+                iterations=int(r.stats.iterations), finite=bool(torch.isfinite(r.us).all()),
+                float32=all(x.dtype == torch.float32 for x in (r.xs, r.us, r.mults.val, r.stats.opt_lag)),
+                problem_float32=all(b.dtype == torch.float32 for b in p32.buffers()))  # fmt: skip
+
+
+def precise_solves(card):
+    """Phase 12d: ddp_tpu_torch.solve(precise=True) and precise="storage"
+    beside the plain float32 solve from the 22 starts of precise_starts():
+    x0 = 0 alone in this process (its wall times), the others in
+    ``PRECISE_WORKERS`` processes.  Bars: finite float32 results and the
+    caller's problem unchanged, q_T (1e-2 plain and envelope, 1e-3 storage)
+    and the storage mode's opt_constr < 1e-10 from every start, the
+    envelope's opt_constr within 1.5× the plain solve's from x0 = 0 (the
+    anchor's start); the envelope below the plain solve's opt_lag from at
+    least ``ENVELOPE_MIN_BELOW`` starts and the storage mode below 1e-8 from
+    at least ``STORAGE_MIN_MET``."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    modes = ((False, 1e-7), (True, 1e-7), ("storage", 1e-9))
+    starts = [x.tolist() for x in precise_starts()]
+    solo = [precise_run(m, th, starts[0]) for m, th in modes]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(PRECISE_WORKERS, mp_context=get_context("spawn")) as pool:
+        futures = [[pool.submit(precise_run, m, th, x0) for m, th in modes] for x0 in starts[1:]]
+        rows = [solo] + [[f.result() for f in fs] for fs in futures]
+    pool_s = time.perf_counter() - t0
+    for x0, row in zip(starts, rows):
+        for (mode, _), r in zip(modes, row):
+            what = f"precise={mode!r} from {x0}"
+            check(r["finite"] and r["float32"] and r["problem_float32"], f"{what}: results {r}")
+            check(abs(r["q_T"] - 3.14) <= (1e-3 if mode == "storage" else 1e-2), f"{what}: q_T {r['q_T']}")
+        check(row[2]["opt_constr"] < 1e-10, f"storage opt_constr {row[2]['opt_constr']} from {x0}")
+    plain, env, storage = solo
+    below = sum(r[1]["opt_lag"] < r[0]["opt_lag"] for r in rows)
+    met = sum(r[2]["opt_lag"] < 1e-8 and r[2]["opt_constr"] < 1e-10 for r in rows)
+    say("precise_solves", card=f"'{card}'", H=PRECISE_H, starts=len(starts),
+        **{f"{k}_{n}": f"{v:.4e}" for n, d in (("plain", plain), ("envelope", env), ("storage", storage))
+           for k, v in d.items() if isinstance(v, float)},
+        envelope_below_plain=f"{below}/{len(starts)}", envelope_bar=ENVELOPE_MIN_BELOW,
+        envelope_below_ddp_tpu_cpu=PRECISE_JAX_CPU_ENVELOPE_BELOW,
+        storage_met=f"{met}/{len(starts)}", storage_bar=STORAGE_MIN_MET,
+        storage_met_ddp_tpu_cpu=PRECISE_JAX_CPU_STORAGE_MET, workers=PRECISE_WORKERS,
+        workers_wall_s=f"{pool_s:.1f}")  # fmt: skip
+    for x0, row in zip(starts, rows):
+        say("precise_start", x0=x0, **{f"{n}": f"({r['opt_lag']:.3e},{r['mu']:.0e},{r['opt_constr']:.1e})"
+                                      for n, r in zip(("plain", "envelope", "storage"), row)})  # fmt: skip
+    check(env["opt_constr"] <= 1.5 * plain["opt_constr"],
+          f"envelope opt_constr {env['opt_constr']} vs plain {plain['opt_constr']}")  # fmt: skip
+    check(below >= ENVELOPE_MIN_BELOW, f"envelope below the plain solve from {below} of {len(starts)} starts")
+    check(met >= STORAGE_MIN_MET, f"storage: opt_lag < 1e-8 from {met} of {len(starts)} starts")
+    return dict(plain=plain, envelope=env, storage=storage, envelope_below=below, storage_met=met)
+
+
+def assoc_and_envelope(card):
+    """Phase 12: the associative-scan backward and the precision envelope."""
+    t0 = time.perf_counter()
+    out = dict(a=assoc_headline(card), b=t200_row(card), c=tf_headline(card), d=precise_solves(card))
+    say("phase12", wall_s=f"{time.perf_counter() - t0:.1f}")
+    return out
+
+
 def build_kernels():
     """Phase 2: one nvcc per source, each under its own thread's load()."""
     t0 = time.perf_counter()
@@ -1976,10 +2384,10 @@ def main():
         bound_f64_ms=f"{fd_bound_f64:.5f}")  # fmt: skip
     arm_walls = {}
     for deriv, backward in (("kernel", "kernel"), ("jvp", "sweep")):
-        arm_solve(a32, ax32, au32, deriv, backward)  # warm-up
+        # no warm-up: phase 5 ran both routes at this shape
         torch.cuda.reset_peak_memory_stats()
         walls = []
-        for _ in range(3):
+        for _ in range(2):
             t0 = time.perf_counter()
             arm_solve(a32, ax32, au32, deriv, backward)
             walls.append(time.perf_counter() - t0)
@@ -2054,6 +2462,9 @@ def main():
         chain_solves_per_s_jvp_sweep=f"{ARM_B / (arm_walls['jvp'] + chain['wall_jvp_sweep']):.1f}",
         peak_mem_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")  # fmt: skip
 
+    # 12. the associative-scan backward and the precision envelope
+    p12 = assoc_and_envelope(card)
+
     say("total", wall_s=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
         {
@@ -2086,6 +2497,28 @@ def main():
                 mpc_replan_kernel=ur5m["kernel"], mpc_replan_sweep=ur5m["sweep"],
                 replan_shape=dict(rt["ur5_replan"], shape=f"n12m6e6_T{UR5_H}_B1_L{UR5_REG_LEVELS}_f32",
                                   launches_per_replan=ur5m["kernel"]["launches_per_replan"]["riccati"]),
+            ),
+            # phase 12: no launch on the assoc route; the f64 instantiation
+            # as the yardstick of one backward="tf" call
+            "assoc_path": dict(launches=p12["a"]["riccati_launches"],
+                               t200_launches=p12["b"]["assoc"]["riccati_launches"]),
+            # bench.py's T200 row on the kernel route: its launches, the
+            # kernel against its plain version on that row's finished inputs
+            "t200_path": dict(
+                shape=f"n2m1e1_T{T200}_B{B}_L1_f32", launches=p12["b"]["kernel"]["riccati_launches"],
+                max_abs_err=p12["b"]["kernel_err32"], f64_max_abs_err=p12["b"]["kernel_err64"],
+                f32_from_f64=p12["b"]["kernel_f32_from_f64"], plain_f32_from_f64=p12["b"]["plain_f32_from_f64"],
+                ms=p12["b"]["backward"]["kernel"]["ms"], device_ms=p12["b"]["backward"]["kernel"]["device_ms"],
+                sweep_ms=p12["b"]["backward"]["sweep"]["ms"], assoc_ms=p12["b"]["backward"]["assoc"]["ms"],
+                bound_ms=p12["b"]["bound_ms"], bound_by=p12["b"]["bound_by"],
+            ),
+            "tf_yardstick": dict(
+                shape=f"n2m1e1_T{T}_B{B}_L{HEADLINE_KW['n_reg_levels']}_f64", launches=p12["c"]["launches"],
+                max_abs_err=p12["c"]["max_abs_err"], max_rel_err=p12["c"]["max_rel_err"],
+                ms=p12["c"]["kernel_f64_ms"],
+                device_ms=p12["c"]["kernel_f64_device_ms"], plain_ms=p12["c"]["kernel_f64_plain_ms"],
+                bound_ms=p12["c"]["bound_ms"], bound_by=p12["c"]["bound_by"], library_ms=None,
+                tf_route_ms=p12["c"]["tf_ms"],
             ),
         },
         {

@@ -10,3 +10,5 @@ from ddp_tpu_torch.models import pendulum
 from ddp_tpu_torch.solver.solve import Method, SolverParams, solve
 
 __all__ = ["Method", "SolverParams", "solve", "pendulum"]
+
+__version__ = "0.1.0"

@@ -10,9 +10,11 @@
 - AL schedule: masked elementwise updates, every lane carries its own
   (μ, reg, w, n) state.
 
-The batch is the leading dim of every tensor; the backward pass is either a
-batched PyTorch sweep (``backward="sweep"``) or the Riccati kernel over the
-whole batch (``backward="kernel"``, ``kernels/riccati_small.py``); the
+The batch is the leading dim of every tensor; the backward pass is a batched
+PyTorch sweep (``backward="sweep"``), the Riccati kernel over the whole batch
+(``backward="kernel"``, ``kernels/riccati_small.py``), the associative-scan
+sweep (``backward="assoc"``, ``solver/parallel_riccati.py``) or the sweep in
+float64 (``backward="tf"``, ``solver/precise.py``); the
 dynamics Jacobians come from ``Problem.derivatives`` (``deriv="jvp"``) or
 from the fd-derivatives kernels over all B·T samples (``deriv="kernel"``:
 ``kernels/fd_derivs.py``, and ``kernels/fd_derivs2.py`` with the dynamics
@@ -37,6 +39,8 @@ from ddp_tpu_torch.kernels.linesearch_flat import linesearch as linesearch_flat
 from ddp_tpu_torch.kernels.riccati_small import backward_ladder
 from ddp_tpu_torch.ocp.dynamics import EulerDynamics, _vector_space_config
 from ddp_tpu_torch.solver import al as al_mod
+from ddp_tpu_torch.solver import precise
+from ddp_tpu_torch.solver.parallel_riccati import backward_pass_assoc
 from ddp_tpu_torch.solver.riccati import backward_sweep
 from ddp_tpu_torch.solver.rollout import feedback_rollout
 from ddp_tpu_torch.solver.solve import Method, SolverParams
@@ -88,17 +92,19 @@ def _backward_sweep(derivs, mult_val, mult_jac, mu, reg):
     return backward_sweep(derivs, mult_val, mult_jac, mu, reg)[:3]
 
 
-def _backward_multi_reg(derivs, mult_val, mult_jac, mu, reg, n_levels):
+def _backward_multi_reg(derivs, mult_val, mult_jac, mu, reg, n_levels, sweep=None):
     """Run the sweep at every reg level of the ladder in one batch and keep,
     per lane, the smallest level that factorizes everywhere.  Returns
-    (k, K, ok, reg_used); a lane with no good level keeps level 0."""
+    (k, K, ok, reg_used); a lane with no good level keeps level 0.
+    ``sweep`` replaces the sweep at the problem's dtype (``backward="tf"``:
+    ``precise.backward_sweep``; the ladder stays at μ's dtype)."""
     levels = torch.stack(_reg_levels(mu, reg, n_levels))  # [L, B]
     L, B = levels.shape
 
     def rep(x):
         return x.repeat((L,) + (1,) * (x.dim() - 1))
 
-    ks, Ks, oks = _backward_sweep(
+    ks, Ks, oks = (sweep or _backward_sweep)(
         type(derivs)(*map(rep, derivs)), rep(mult_val), rep(mult_jac),
         rep(mu), levels.reshape(L * B),
     )  # fmt: skip
@@ -108,6 +114,14 @@ def _backward_multi_reg(derivs, mult_val, mult_jac, mu, reg, n_levels):
     ks = ks.reshape((L, B) + ks.shape[1:])[idx, lane]
     Ks = Ks.reshape((L, B) + Ks.shape[1:])[idx, lane]
     return ks, Ks, oks.any(dim=0), levels[idx, lane]
+
+
+def _backward_assoc(derivs, mult_val, mult_jac, mu, reg, n_levels):
+    """The associative-scan backward: no ladder (``n_levels`` unread), each
+    lane's reg folded into its control cost, so reg_used is reg."""
+    del n_levels
+    k, K, ok = backward_pass_assoc(derivs, mult_val, mult_jac, mu, reg)
+    return k, K, ok, reg
 
 
 def _backward_kernel_levels(
@@ -121,11 +135,18 @@ def _backward_kernel_levels(
     return backward_ladder(derivs, mult_val, mult_jac, mu, levels, second_order=second_order)
 
 
+def _al_cost_total(problem, xs, us, mults, mu):
+    """Σ_t AL cost per trajectory at the problem's dtype."""
+    return al_mod.al_costs(problem, xs, us, mults, mu).sum(dim=-1)
+
+
 @al_mod.full_fp32_matmuls()
-def _linesearch_sweep(problem, xs, us, k, K, mults, mu, n_candidates):
+def _linesearch_sweep(problem, xs, us, k, K, mults, mu, n_candidates, total=_al_cost_total):
     """Parallel line search: roll out every candidate step in one batch
     [S, B, …], take per lane the largest step whose AL cost did not rise,
-    keep the incumbent where none did.  Returns (xs, us, step [B])."""
+    keep the incumbent where none did.  ``total`` (problem, xs, us, mults,
+    μ) → Σ AL cost decides it (``precise_cost``: float64 sums, the test on
+    their float64 difference).  Returns (xs, us, step [B])."""
     S, B = n_candidates, xs.shape[0]
     steps = torch.tensor(
         [2.0**-i for i in range(S)], dtype=xs.dtype, device=xs.device
@@ -134,13 +155,11 @@ def _linesearch_sweep(problem, xs, us, k, K, mults, mu, n_candidates):
     def ex(x):
         return x.expand((S,) + x.shape)
 
-    cost_old = al_mod.al_costs(problem, xs, us, mults, mu).sum(dim=-1)
+    cost_old = total(problem, xs, us, mults, mu)
     xs_c, us_c = feedback_rollout(
         problem, ex(xs), ex(us), ex(k), ex(K), steps[:, None, None]
     )
-    cost_c = al_mod.al_costs(
-        problem, xs_c, us_c, al_mod.AffineMults(*map(ex, mults)), ex(mu)
-    ).sum(dim=-1)  # [S, B]
+    cost_c = total(problem, xs_c, us_c, al_mod.AffineMults(*map(ex, mults)), ex(mu))  # [S, B]
     accepted = cost_c - cost_old <= 0
     idx = torch.argmax(accepted.to(torch.int32), dim=0)  # first = largest step
     any_acc = accepted.any(dim=0)
@@ -157,22 +176,23 @@ def _bwhere(c, a, b):
 
 
 @al_mod.full_fp32_matmuls()
-def _linesearch_seq(problem, xs, us, k, K, mults, mu, n_candidates):
+def _linesearch_seq(problem, xs, us, k, K, mults, mu, n_candidates, total=_al_cost_total):
     """Sequential early-exit line search: walk the step ladder 1, ½, ¼, …
     largest first and stop once every lane has accepted a candidate (or the
     ladder is spent); lanes that are done are select-masked.  Picks the same
     candidate as ``_linesearch_sweep`` (first accepted = largest accepted)
     but pays max-first-accept-index rollouts per call instead of always
     ``n_candidates`` — worth it when one rollout is heavy (arm-class
-    dynamics).  Returns (xs, us, step [B])."""
-    cost_old = al_mod.al_costs(problem, xs, us, mults, mu).sum(dim=-1)
+    dynamics).  ``total`` as ``_linesearch_sweep``'s.  Returns (xs, us, step
+    [B])."""
+    cost_old = total(problem, xs, us, mults, mu)
     xs_b, us_b = xs, us
     step_b = torch.zeros_like(cost_old)
     done = torch.zeros(cost_old.shape, dtype=torch.bool, device=xs.device)
     for i in range(n_candidates):
         step = 2.0**-i
         xs_c, us_c = feedback_rollout(problem, xs, us, k, K, step)
-        delta = al_mod.al_costs(problem, xs_c, us_c, mults, mu).sum(dim=-1) - cost_old
+        delta = total(problem, xs_c, us_c, mults, mu) - cost_old
         acc = ~done & (delta <= 0)
         xs_b = _bwhere(acc, xs_c, xs_b)
         us_b = _bwhere(acc, us_c, us_b)
@@ -257,20 +277,12 @@ def _kernel_derivatives(problem):
 
 
 def _check_backends(backward, forward, deriv):
-    deferred = {
-        ("backward", "assoc"): "ROADMAP slice H",
-        ("backward", "tf"): "ROADMAP slice G",
-    }
     supported = {
-        "backward": ("sweep", "kernel"),
+        "backward": ("sweep", "kernel", "assoc", "tf"),
         "forward": ("sweep", "seq", "kernel"),
         "deriv": ("jvp", "kernel"),
     }
     for knob, value in (("backward", backward), ("forward", forward), ("deriv", deriv)):
-        if (knob, value) in deferred:
-            raise NotImplementedError(
-                f"{knob}={value!r} is still to be ported ({deferred[knob, value]})"
-            )
         if value not in supported[knob]:
             hint = '; ddp_tpu\'s "pallas" backend is "kernel" here' if value == "pallas" else ""
             raise ValueError(
@@ -291,6 +303,11 @@ def solve_batched(
     # "sweep": batched PyTorch Riccati sweep with the parallel reg ladder
     # "kernel": the Riccati kernel (kernels/riccati_small.py), one launch over
     #   the whole batch and every reg level
+    # "assoc": associative-scan Riccati (solver/parallel_riccati.py), log-depth
+    #   in T; Gauss-Newton only (second_order raises ValueError); reg folded
+    #   into the control cost, no ladder
+    # "tf": the sweep and its ladder in float64 on the problem's float32
+    #   values, gains rounded back (ddp_tpu's double-float sweep)
     forward: str = "sweep",
     # "sweep": every step candidate rolled out in one [S, B] batch
     # "seq": early-exit ladder, largest step first, until every lane has
@@ -308,6 +325,8 @@ def solve_batched(
     #   when problem.second_order, which needs nu == nv); Euler dynamics on a
     #   revolute/prismatic RobotModel
     n_reg_levels: int = 4,  # parallel regularization ladder depth (≥1)
+    precise_cost: bool = False,  # line-search acceptance sums in float64
+    # (on a float64 twin of the problem); forward="kernel" raises ValueError
     matmul_precision: str | None = None,
     # None → the process setting | "highest" → full-float32 matmuls |
     # "high"/"default" → TF32 matmuls allowed on the card for this call
@@ -330,17 +349,21 @@ def solve_batched(
     ``history=True`` records ``BatchSolveHistory`` after each outer
     iteration; the result is the same bits with it as without."""
     _check_backends(backward, forward, deriv)
+    if precise_cost and forward == "kernel":
+        # ddp_tpu's forward="pallas" leaves precise_cost unread
+        # (ddp_tpu/solver/batched.py:630-657); the port refuses it
+        raise ValueError("precise_cost=True needs forward='sweep' or 'seq'")
     with al_mod.matmul_precision(matmul_precision):
         return _solve_batched(
             problem, params, x0s, us_init, method, n_linesearch, backward,
-            forward, deriv, n_reg_levels,
+            forward, deriv, n_reg_levels, precise_cost,
             (mults_init, mu_init, reg_init, w_init, n_init), history,
         )  # fmt: skip
 
 
 def _solve_batched(
     problem, params, x0s, us_init, method, n_linesearch, backward, forward,
-    deriv, n_reg_levels, warm, history,
+    deriv, n_reg_levels, precise_cost, warm, history,
 ):  # fmt: skip
     T, nu = problem.horizon, problem.nu
     model = problem.model
@@ -359,6 +382,10 @@ def _solve_batched(
     )
     if n_reg_levels < 1:
         raise ValueError("n_reg_levels must be >= 1")
+    if backward == "assoc" and problem.second_order:
+        raise ValueError(
+            "backward='assoc' is Gauss-Newton only; build the Problem with second_order=False"
+        )
     B = x0s.shape[0]
     kw = dict(dtype=dtype, device=device)
     affine = method is Method.PRIMAL_DUAL_AFFINE
@@ -378,6 +405,10 @@ def _solve_batched(
         run_backward = functools.partial(
             _backward_kernel_levels, second_order=problem.second_order
         )
+    elif backward == "assoc":
+        run_backward = _backward_assoc
+    elif backward == "tf":
+        run_backward = functools.partial(_backward_multi_reg, sweep=precise.backward_sweep)
     else:
         run_backward = _backward_multi_reg
     if forward == "kernel":
@@ -385,6 +416,13 @@ def _solve_batched(
         linesearch = functools.partial(_linesearch_kernel, flat=pack_problem(problem))
     else:
         linesearch = {"sweep": _linesearch_sweep, "seq": _linesearch_seq}[forward]
+        if precise_cost:
+            twin64 = precise.twin(problem)  # once a solve
+
+            def total(problem_, xs_, us_, mults_, mu_):
+                return precise.al_cost_total(twin64, xs_, us_, mults_, mu_)
+
+            linesearch = functools.partial(linesearch, total=total)
     derivatives = _kernel_derivatives(problem) if deriv == "kernel" else problem.derivatives
 
     # --- pre-loop backward/forward ---

@@ -51,16 +51,24 @@ def forward_pass(
     mu,
     do_linesearch: bool = True,
     step_min: float = 1e-10,
+    total_cost=None,
 ) -> ForwardResult:
     """The serial line search of one trajectory (xs_old [T+1, nx], us_old
     and k [T, nu], K [T, nu, ndx], μ 0-d): step 1, then halved while the
     AL cost rose and the step is at least 2·``step_min``.  Returns the last
-    rollout tried, accepted or not, as the reference does."""
-    cost_old = torch.sum(al_costs(problem, xs_old, us_old, mults, mu))
+    rollout tried, accepted or not, as the reference does.  ``total_cost``
+    (xs, us) → Σ AL cost replaces the sum at the problem's dtype (the
+    float64 sums of ``solver/precise.py``)."""
+    if total_cost is None:
+
+        def total_cost(xs, us):
+            return torch.sum(al_costs(problem, xs, us, mults, mu))
+
+    cost_old = total_cost(xs_old, us_old)
 
     def try_step(step):
         xs, us = feedback_rollout(problem, xs_old, us_old, k, K, step)
-        return xs, us, torch.sum(al_costs(problem, xs, us, mults, mu)) - cost_old <= 0
+        return xs, us, total_cost(xs, us) - cost_old <= 0
 
     step = torch.ones((), dtype=xs_old.dtype, device=xs_old.device)
     xs, us, accepted = try_step(step)

@@ -149,22 +149,102 @@ def solve(
     success n = opt_obj(new multipliers)/μ^0.1 and w /= μ, stopping on
     opt_obj, and the pre-loop forward result discarded.
 
-    ``precise=True|"storage"`` (``ddp_tpu``'s double-float stages) is not
-    ported: it raises ``NotImplementedError``."""
+    ``precise=True`` runs the stages where float32 binds the solver in
+    float64 on the float32 problem's values (``solver/precise.py``, ddp_tpu's
+    double-float envelope): the Riccati sweep, the line-search acceptance
+    sums, the optimality adjoints and the multiplier accumulation; the
+    iterate stays float32.  ``precise="storage"`` also keeps the iterate
+    (xs, us) and the multipliers in float64 and evaluates the dynamics, the
+    constraint and the derivatives on a float64 copy of the problem; it
+    accepts the classes ddp_tpu's ``supports_tf_storage`` accepts and raises
+    ``ValueError`` for any other.  Either way the schedule's constants and
+    state (μ, reg, w, n, the gate measures) stay at the problem's dtype, and
+    the result comes back in it."""
     if precise:
-        raise NotImplementedError(
-            "solve(precise=...) is still to be ported (ROADMAP Queue 1, item 6: "
-            "the precision envelope as float64 arithmetic)"
-        )
+        from ddp_tpu_torch.solver import precise as precise_mod
+
+        stages = precise_mod.stages_for(problem, precise)
+    else:
+        stages = Stages(problem)
     with al_mod.matmul_precision(matmul_precision):
         return _solve(
-            problem, params, x_init, us_init, method, mults_init_jac, history, reference_schedule
-        )
+            problem, params, x_init, us_init, method, mults_init_jac, history,
+            reference_schedule, stages,
+        )  # fmt: skip
 
 
-def _solve(problem, params, x_init, us_init, method, mults_init_jac, history, reference_schedule):
+class Stages:
+    """The stages of one ``solve`` iteration at the problem's dtype.
+    ``solver/precise.py`` widens them to float64 for ``solve(precise=…)``;
+    the loop around them and the schedule are the same."""
+
+    def __init__(self, problem):
+        self.problem = problem
+        self.model = problem.model  # the one the iterate and the multipliers live on
+
+    def rollout(self, x_init, us_init):
+        return self.problem.rollout(x_init, us_init)
+
+    def carry(self, x):
+        """A problem-dtype iterate tensor as the solve carries it."""
+        return x
+
+    def derivatives(self, xs, us):
+        """Problem.derivatives of the one trajectory, batch dim dropped."""
+        d = self.problem.derivatives(xs[None], us[None])
+        return type(d)(*(f[0] for f in d))
+
+    def init_mults(self, xs, jac_init):
+        return al_mod.init_multipliers(self.problem, xs, jac_init=jac_init)
+
+    def update_origin(self, mults, xs):
+        return al_mod.update_origin(self.model, mults, xs)
+
+    def opt_obj(self, derivs, mults, mu):
+        return al_mod.optimality_obj(self.problem, derivs, mults.val, mults.jac, mu)
+
+    def opt_lag(self, derivs, mults):
+        return al_mod.optimality_lag(self.problem, derivs, mults.val, mults.jac)
+
+    def opt_constr(self, derivs):
+        return al_mod.optimality_constr(derivs)
+
+    def increments(self, derivs, fb, xs, feedback):
+        """The AL update's increments (eq + eq_u·k, eq_x + eq_u·K), with
+        the last gains re-anchored at ``xs``; without ``feedback`` (PRIMAL)
+        just (eq, eq_x)."""
+        if not feedback:
+            return derivs.eq, derivs.eqx
+        fbm = al_mod.update_origin(self.model, fb, xs)
+        fb_term = torch.einsum("tou,tu->to", derivs.equ, fbm.val)
+        fb_term_jac = torch.einsum("tou,tuj->toj", derivs.equ, fbm.jac)
+        return derivs.eq + fb_term, derivs.eqx + fb_term_jac
+
+    def mult_update(self, mults, gain, val_inc, jac_inc, mult_max):
+        """p += gain·(eq + eq_u·k), p_x += gain·(eq_x + eq_u·K), clipped to
+        ±``mult_max`` when it is set (see SolverParams)."""
+        new_val = mults.val + gain * val_inc
+        new_jac = mults.jac + gain * jac_inc
+        if mult_max is not None:
+            new_val = torch.clamp(new_val, -mult_max, mult_max)
+            new_jac = torch.clamp(new_jac, -mult_max, mult_max)
+        return mults._replace(val=new_val, jac=new_jac)
+
+    def backward(self, derivs, mults, mu, reg):
+        return backward_pass(derivs, mults.val, mults.jac, mu, reg)
+
+    def forward(self, xs, us, k, K, mults, mu):
+        return forward_pass(self.problem, xs, us, k, K, mults, mu)
+
+    def result(self, x):
+        """An iterate, gain or multiplier tensor as the result carries it."""
+        return x
+
+
+def _solve(
+    problem, params, x_init, us_init, method, mults_init_jac, history, reference_schedule, stages
+):  # fmt: skip
     T, nu = problem.horizon, problem.nu
-    model = problem.model
     dtype, device = x_init.dtype, x_init.device
     ref = next(problem.buffers())
     if ref.device != device or ref.dtype != dtype:
@@ -186,8 +266,8 @@ def _solve(problem, params, x_init, us_init, method, mults_init_jac, history, re
             val(tuple(us_init.shape), "us_init.shape") == (T, nu),
             msg="warm-start shape",
         )
-    xs = problem.rollout(x_init, us_init)
-    us = us_init
+    xs = stages.rollout(x_init, us_init)
+    us = stages.carry(us_init)
 
     def scalar(v):
         return torch.tensor(v, **kw)
@@ -205,22 +285,14 @@ def _solve(problem, params, x_init, us_init, method, mults_init_jac, history, re
         # constant-multiplier methods never grow a state-feedback term
         return jac if affine else torch.zeros_like(jac)
 
-    def derivatives(xs_, us_):
-        """Problem.derivatives of the one trajectory, batch dim dropped."""
-        d = problem.derivatives(xs_[None], us_[None])
-        return type(d)(*(f[0] for f in d))
-
-    def opt_obj_of(d, mults, mu_):
-        return al_mod.optimality_obj(problem, d, mults.val, mults.jac, mu_)
-
-    mults = al_mod.init_multipliers(problem, xs, jac_init=mults_init_jac)
+    mults = stages.init_mults(xs, mults_init_jac)
     mults = mults._replace(jac=constrain_jac(mults.jac))
 
     # --- pre-loop: derivatives → backward → forward (ddp.hpp:768-773) ---
-    derivs = derivatives(xs, us)
-    bres = backward_pass(derivs, mults.val, mults.jac, mu, reg)
+    derivs = stages.derivatives(xs, us)
+    bres = stages.backward(derivs, mults, mu, reg)
     mu = bres.mu
-    fwd = forward_pass(problem, xs, us, bres.k, bres.K, mults, mu)
+    fwd = stages.forward(xs, us, bres.k, bres.K, mults, mu)
     fb = al_mod.AffineMults(bres.k, bres.K, xs[:-1])
     if not reference_schedule:
         # the reference never swaps the pre-loop forward's trajectory in;
@@ -232,15 +304,14 @@ def _solve(problem, params, x_init, us_init, method, mults_init_jac, history, re
         """One outer iteration (update_derivatives, ddp.hpp:641-696, then
         the backward/forward pair, ddp.hpp:804-826): the new carry and the
         iteration's history row."""
-        derivs = derivatives(c.xs, c.us)
-        mults = al_mod.update_origin(model, c.mults, c.xs)
+        derivs = stages.derivatives(c.xs, c.us)
+        mults = stages.update_origin(c.mults, c.xs)
         mults = mults._replace(jac=constrain_jac(mults.jac))
-        fbm = al_mod.update_origin(model, c.fb, c.xs)
-        opt_obj = opt_obj_of(derivs, mults, c.mu)
-        opt_constr = al_mod.optimality_constr(derivs)
+        opt_obj = stages.opt_obj(derivs, mults, c.mu)
+        opt_constr = stages.opt_constr(derivs)
         # stopping uses the μ-free Lagrangian stationarity: opt_obj carries
         # μ·eqᵀeq_u terms whose float floor is μ·eps
-        opt_lag = al_mod.optimality_lag(problem, derivs, mults.val, mults.jac)
+        opt_lag = stages.opt_lag(derivs, mults)
 
         if reference_schedule:
             done = (opt_obj < threshold) & (opt_constr < threshold)
@@ -270,18 +341,9 @@ def _solve(problem, params, x_init, us_init, method, mults_init_jac, history, re
         #   p += μ (eq + eq_u·k);  p_x += μ (eq_x + eq_u·K)
         # PRIMAL uses no multiplier feedback: p += μ·eq only
         gain = c.mu if upd_success else torch.zeros_like(c.mu)
-        if method is Method.PRIMAL:
-            fb_term = torch.zeros_like(derivs.eq)
-            fb_term_jac = torch.zeros_like(derivs.eqx)
-        else:
-            fb_term = torch.einsum("tou,tu->to", derivs.equ, fbm.val)
-            fb_term_jac = torch.einsum("tou,tuj->toj", derivs.equ, fbm.jac)
-        new_val = mults.val + gain * (derivs.eq + fb_term)
-        new_jac = mults.jac + gain * (derivs.eqx + fb_term_jac)
-        if params.mult_max is not None:
-            new_val = torch.clamp(new_val, -params.mult_max, params.mult_max)
-            new_jac = torch.clamp(new_jac, -params.mult_max, params.mult_max)
-        mults = mults._replace(val=new_val, jac=constrain_jac(new_jac))
+        val_inc, jac_inc = stages.increments(derivs, c.fb, c.xs, method is not Method.PRIMAL)
+        mults = stages.mult_update(mults, gain, val_inc, jac_inc, params.mult_max)
+        mults = mults._replace(jac=constrain_jac(mults.jac))
 
         mu_new = c.mu * params.mu_factor if upd_failure else c.mu
         if params.mu_max is not None:
@@ -289,15 +351,15 @@ def _solve(problem, params, x_init, us_init, method, mults_init_jac, history, re
         if reference_schedule:
             # ddp.hpp:787-797: on success n = opt_obj with the updated
             # multipliers / μ^0.1 and w /= μ; on failure only μ grows
-            n_new = opt_obj_of(derivs, mults, c.mu) / c.mu**0.1 if upd_success else c.n
+            n_new = stages.opt_obj(derivs, mults, c.mu) / c.mu**0.1 if upd_success else c.n
         elif upd_success:
             n_new = torch.maximum(c.n * c.mu**-0.9, threshold)
         else:
             n_new = mu_new**-0.1 if upd_failure else c.n
         w_new = c.w / c.mu if upd_success else c.w
 
-        bres = backward_pass(derivs, mults.val, mults.jac, mu_new, c.reg)
-        fwd = forward_pass(problem, c.xs, c.us, bres.k, bres.K, mults, bres.mu)
+        bres = stages.backward(derivs, mults, mu_new, c.reg)
+        fwd = stages.forward(c.xs, c.us, bres.k, bres.K, mults, bres.mu)
         reg = torch.where(
             fwd.step >= 0.5,
             torch.where(bres.reg / 2 < 1e-5, torch.zeros_like(bres.reg), bres.reg / 2),
@@ -331,11 +393,11 @@ def _solve(problem, params, x_init, us_init, method, mults_init_jac, history, re
         flags = [torch.tensor(col, dtype=torch.bool, device=device) for col in cols[8:]]
         hist = SolveHistory(*(torch.stack(col) for col in cols[:8]), *flags)
     return SolveResult(
-        xs=c.xs,
-        us=c.us,
-        fb_k=c.fb.val,
-        fb_K=c.fb.jac,
-        mults=c.mults,
+        xs=stages.result(c.xs),
+        us=stages.result(c.us),
+        fb_k=stages.result(c.fb.val),
+        fb_K=stages.result(c.fb.jac),
+        mults=al_mod.AffineMults(*map(stages.result, c.mults)),
         stats=SolveStats(
             iterations=torch.tensor(c.it, device=device),
             opt_lag=c.opt_lag,

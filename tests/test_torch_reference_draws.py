@@ -21,7 +21,30 @@ tier-1:
   convergence within 200 (~20 min, most of it the port's stalled runs);
 - ``jit_vs_eager``: ddp_tpu's tests/test_history.py solve jitted and op by op
   (jax.disable_jit): the rows where their gate outcomes and accepted steps
-  part (~6 min).
+  part (~6 min);
+- ``assoc_share``: ddp_tpu's feasible share through ``backward="assoc"`` on
+  bench.py's headline (B = 4096, T = 32, 8 iterations, f32, jit,
+  n_reg_levels=1, n_linesearch=4) and on its T200 row (the same at H = 200,
+  forward="seq"), and how many lanes its assoc and sweep routes leave within
+  1e-3 of their largest |u| of its Pallas route: the bars chip_smoke.py
+  phase 12 holds the port's routes to (~2 min; last run: share 1.0 at
+  T = 32 in 10.2 s and at T = 200 in 30.2 s, p99 ‖eq‖ 1.380e-4 and
+  7.773e-4; lanes agreeing with Pallas 1.0 for both routes at T = 32,
+  0.971435546875 (assoc) and 0.968994140625 (sweep) at T = 200);
+- ``tf_share``: ddp_tpu's feasible share on the headline through
+  ``backward="tf", precise_cost=True``, the bar of chip_smoke.py phase 12's
+  tf route (last run: 1.0, p99 1.380e-4, 10.8 s);
+- ``precise_draws``: tests/test_precise.py's T = 60 solve, plain, envelope
+  and storage, from x0 = 0, five axis perturbations and 16 seeded ones in
+  both packages: (opt_lag, μ) of each and how often the anchors' opt_lag
+  bars hold, the bars of chip_smoke.py phase 12d (~5 min; last run:
+  ddp_tpu's envelope below its plain solve from 9 of 22 starts, its storage
+  mode below 1e-8 from 14; the port's from 6 and 16);
+- ``storage_gains``: the storage solve from the same starts in ddp_tpu and
+  in four variants of the port, which shows where rounding the gains to
+  float32 matters (~5 min; last run, opt_lag < 1e-8 from: ddp_tpu 14, the
+  port 16, K rounded only in the multiplier increment 0, only in the line
+  search 16, rounded and summed in float32 as ddp_tpu sums 9).
 """
 
 import sys
@@ -203,12 +226,166 @@ def jit_vs_eager():
           f"accepted step differs: {int(np.argmin(steps)) if not steps.all() else None}")  # fmt: skip
 
 
+def _headline_share(H, **kw):
+    """ddp_tpu's feasible share (opt_constr < 1e-2) and p99 ‖eq‖ for bench.py's
+    headline recipe at horizon ``H`` (B = 4096, f32, jit) with ``kw``; returns
+    the result."""
+    from ddp_tpu.solver.batched import solve_batched
+    from ddp_tpu.solver.solve import SolverParams
+
+    B = 4096
+    jp = jax_pendulum_problem(H, jnp.float32)
+    params = SolverParams(max_iterations=8, threshold=1e-5, mu=1e4, inner_iters_max=1)
+    rng = np.random.default_rng(0)
+    x0s = jnp.asarray(np.stack([rng.uniform(-np.pi, np.pi, B), np.zeros(B)], axis=1), jnp.float32)
+    t0 = time.perf_counter()
+    r = jax.jit(lambda x: solve_batched(jp, params, x, n_reg_levels=1, n_linesearch=4, **kw))(x0s)
+    oc = np.asarray(r.opt_constr)
+    print(f"ddp_tpu H={H} {kw}: feasible share {float(np.mean(oc < 1e-2))}, p99 "
+          f"{float(np.percentile(oc, 99)):.3e}, finite us {bool(np.isfinite(np.asarray(r.us)).all())}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)  # fmt: skip
+    return r
+
+
+def _lane_agreement(a, b):
+    """chip_smoke.py's bar: the share of lanes whose us agree within 1e-3 of
+    the lane's largest |u| (at least 1), the worst scaled difference and the
+    share of lanes with the same μ."""
+    ua, ub = np.asarray(a.us), np.asarray(b.us)
+    diff = np.abs(ua - ub).max(axis=(1, 2))
+    scale = np.maximum(np.abs(ub).max(axis=(1, 2)), 1.0)
+    return (float(np.mean(diff <= 1e-3 * scale)), float((diff / scale).max()),
+            float(np.mean(np.asarray(a.mu) == np.asarray(b.mu))))  # fmt: skip
+
+
+def assoc_share():
+    """Also the lane agreement of ddp_tpu's own routes at each horizon: assoc
+    and sweep against the Pallas backward (interpret mode)."""
+    for H, kw in ((32, {}), (200, dict(forward="seq"))):
+        r = {b: _headline_share(H, backward=b, **kw) for b in ("assoc", "sweep")}
+        r["pallas"] = _headline_share(H, backward="pallas", interpret=True, **kw)
+        for b in ("assoc", "sweep"):
+            print(f"ddp_tpu H={H}: {b} against pallas: lanes agreeing, worst scaled difference, "
+                  f"same μ {_lane_agreement(r[b], r['pallas'])}", flush=True)  # fmt: skip
+
+
+def tf_share():
+    _headline_share(32, backward="tf", precise_cost=True)
+
+
+def precise_starts():
+    """x0 = 0, five axis perturbations and 16 seeded ones (the starts of
+    chip_smoke.py phase 12d), float32."""
+    rng = np.random.default_rng(1)
+    axis = ([0.0, 0.0], [1e-6, 0.0], [0.0, 1e-6], [-1e-6, 0.0], [1e-5, 0.0], [0.0, -1e-5])
+    seeded = [s * rng.standard_normal(2) for s in (1e-6, 1e-5) for _ in range(8)]
+    return [np.asarray(x, np.float32) for x in (*axis, *seeded)]
+
+
+def precise_draws():
+    """tests/test_precise.py's T = 60 configuration (f32, mu 1e6, 40
+    iterations; threshold 1e-7, storage 1e-9) from ``precise_starts()`` in
+    both packages: the plain solve, the envelope and the storage mode,
+    (opt_lag, final μ) of each, and how often the anchors' opt_lag bars
+    hold."""
+    from ddp_tpu.solver.solve import SolverParams as JParams
+    from ddp_tpu.solver.solve import solve as jsolve
+    from ddp_tpu_torch import SolverParams, solve
+
+    jp = jax_pendulum_problem(60, jnp.float32)
+    tp = torch_problem(jp, np.float32)
+    modes = ((False, 1e-7), (True, 1e-7), ("storage", 1e-9))
+    jfns = [jax.jit(lambda x, m=m, th=th: jsolve(jp, JParams(40, th, mu=1e6), x, precise=m)) for m, th in modes]
+    runs = dict(
+        ddp_tpu=lambda i, x0: jfns[i](jnp.asarray(x0)).stats,
+        ddp_tpu_torch=lambda i, x0: solve(tp, SolverParams(40, modes[i][1], mu=1e6), torch.from_numpy(x0),
+                                          precise=modes[i][0]).stats,
+    )  # fmt: skip
+    met = {name: [0, 0] for name in runs}
+    for x0 in precise_starts():
+        for name, run in runs.items():
+            plain, env, sto = (run(i, x0) for i in range(3))
+            met[name][0] += float(env.opt_lag) < float(plain.opt_lag)
+            met[name][1] += float(sto.opt_lag) < 1e-8 and float(sto.opt_constr) < 1e-10
+            print(f"x0 {x0.tolist()} {name}: (opt_lag, mu) plain ({float(plain.opt_lag):.3e}, {float(plain.mu):.0e}) "
+                  f"envelope ({float(env.opt_lag):.3e}, {float(env.mu):.0e}) storage ({float(sto.opt_lag):.3e}, "
+                  f"{float(sto.mu):.0e}, opt_constr {float(sto.opt_constr):.1e})", flush=True)  # fmt: skip
+    for name, (env_below, sto_met) in met.items():
+        print(f"{name}: envelope below plain from {env_below}, storage below 1e-8 from {sto_met} "
+              f"of {len(precise_starts())} starts")  # fmt: skip
+
+
+def storage_gains():
+    """Where rounding the feedback gains to float32 (as ddp_tpu's storage
+    mode does) matters: tests/test_precise.py's T = 60 storage solve from
+    ``precise_starts()`` in ddp_tpu and in four variants of the port, how
+    often opt_lag < 1e-8: as shipped (gains float64); K rounded only in the
+    multiplier increment eq_x + eq_u·K summed in float64; K rounded only in
+    the line search; k and K rounded and the increments summed in float32 on
+    the float32 iterate, as ddp_tpu sums them."""
+    from ddp_tpu.solver.solve import SolverParams as JParams
+    from ddp_tpu.solver.solve import solve as jsolve
+    from ddp_tpu_torch import SolverParams, solve
+    from ddp_tpu_torch.solver import al as al_mod
+    from ddp_tpu_torch.solver import precise
+
+    F32, F64 = torch.float32, torch.float64
+    jp = jax_pendulum_problem(60, jnp.float32)
+    tp = torch_problem(jp, np.float32)
+    jf = jax.jit(lambda x: jsolve(jp, JParams(40, 1e-9, mu=1e6), x, precise="storage"))
+    base = precise.Storage
+
+    def round_gains(r):
+        return r._replace(k=r.k.to(F32).to(F64), K=r.K.to(F32).to(F64))
+
+    class IncrementK(base):
+        def increments(self, derivs, fb, xs, feedback):
+            return super().increments(derivs, fb._replace(jac=fb.jac.to(F32).to(F64)), xs, feedback)
+
+    class LineSearchK(base):
+        def forward(self, xs, us, k, K, mults, mu):
+            return super().forward(xs, us, k, K.to(F32).to(F64), mults, mu)
+
+    class AsDdpTpu(base):
+        def backward(self, derivs, mults, mu, reg):
+            return round_gains(super().backward(derivs, mults, mu, reg))
+
+        def increments(self, derivs, fb, xs, feedback):
+            fbm = al_mod.update_origin(self.problem.model, al_mod.AffineMults(*(f.to(F32) for f in fb)),
+                                       xs.to(F32))  # fmt: skip
+            equ = derivs.equ.to(F32)
+            fb_term = torch.einsum("tou,tu->to", equ, fbm.val)
+            fb_term_jac = torch.einsum("tou,tuj->toj", equ, fbm.jac)
+            return derivs.eq + fb_term.to(F64), (derivs.eqx.to(F32) + fb_term_jac).to(F64)
+
+    def port(stages):
+        def run(x0):
+            precise.Storage = stages
+            try:
+                return solve(tp, SolverParams(40, 1e-9, mu=1e6), torch.from_numpy(x0), precise="storage").stats
+            finally:
+                precise.Storage = base
+
+        return run
+
+    runs = dict(ddp_tpu=lambda x0: jf(jnp.asarray(x0)).stats, port=port(base), increment_K=port(IncrementK),
+                line_search_K=port(LineSearchK), as_ddp_tpu=port(AsDdpTpu))  # fmt: skip
+    met = dict.fromkeys(runs, 0)
+    for x0 in precise_starts():
+        lags = {name: float(run(x0).opt_lag) for name, run in runs.items()}
+        for name, lag in lags.items():
+            met[name] += lag < 1e-8
+        print(f"x0 {x0.tolist()}: opt_lag {', '.join(f'{n} {v:.3e}' for n, v in lags.items())}", flush=True)
+    print(f"opt_lag < 1e-8 from, of {len(precise_starts())} starts: {met}")
+
+
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     what = sys.argv[1] if len(sys.argv) > 1 else ""
     jobs = dict(quadrotor_share=quadrotor_share, ur5_share=ur5_share, arm_lanes=arm_lanes, golden_draws=golden_draws,
-                jit_vs_eager=jit_vs_eager)  # fmt: skip
+                jit_vs_eager=jit_vs_eager, assoc_share=assoc_share, tf_share=tf_share,
+                precise_draws=precise_draws, storage_gains=storage_gains)  # fmt: skip
     if what not in jobs:
         sys.exit(f"usage: {sys.argv[0]} {{{','.join(jobs)}}} [seed]")
     jobs[what](*map(int, sys.argv[2:]))

@@ -417,25 +417,29 @@ def test_non_affine_methods_match_jax(method):
 
 
 @pytest.mark.parametrize(
-    "kw,slice_",
+    "kw",
     [
-        (dict(backward="assoc"), "slice H"),
-        (dict(backward="tf"), "slice G"),
-        # ported since: the JAX names of the kernel backends are unknown
-        # values here ("kernel" replaced "pallas"), and the fd-derivatives
-        # kernel refuses the closed-form pendulum
-        pytest.param(dict(forward="pallas"), ValueError, id="kw2-Queue 2"),
-        (dict(deriv="pallas"), ValueError),
-        (dict(deriv="kernel"), ValueError),
+        # what the ported backends refuse, naming the first knob:
+        # backward="assoc" a second_order problem (as ddp_tpu does),
+        # precise_cost the line-search kernel (which ddp_tpu's
+        # forward="pallas" leaves unread); the JAX names of the kernel
+        # backends are unknown values here ("kernel" replaced "pallas"), and
+        # the fd-derivatives kernel refuses the closed-form pendulum.  The
+        # ids are the ones these cases had when the first two were still
+        # unported (their "slice" named the work that ported them)
+        pytest.param(dict(backward="assoc", second_order=True), id="kw0-slice H"),
+        pytest.param(dict(precise_cost=True, backward="tf", forward="kernel"), id="kw1-slice G"),
+        pytest.param(dict(forward="pallas"), id="kw2-Queue 2"),
+        pytest.param(dict(deriv="pallas"), id="kw3-ValueError"),
+        pytest.param(dict(deriv="kernel"), id="kw4-ValueError"),
     ],
 )
-def test_deferred_backends_raise(traj, kw, slice_):
-    _, tp, x0s, _, _ = traj
-    if slice_ is ValueError:
-        with pytest.raises(ValueError, match=next(iter(kw))):
-            tbatched.solve_batched(tp, SolverParams(**HEADLINE), t(x0s), **kw)
-        return
-    with pytest.raises(NotImplementedError, match=slice_):
+def test_deferred_backends_raise(traj, kw):
+    jp, tp, x0s, _, _ = traj
+    kw = dict(kw)
+    if kw.pop("second_order", False):
+        tp = problem_from_numpy(dict(spec_of(jp), second_order=True), device="cpu", dtype=torch.float64)
+    with pytest.raises(ValueError, match=next(iter(kw))):
         tbatched.solve_batched(tp, SolverParams(**HEADLINE), t(x0s), **kw)
 
 
@@ -481,7 +485,7 @@ def test_port_imports_no_jax_and_builds_nothing():
         "for m in ('ops.lie', 'models.rigid_body', 'models.robots', 'kernels.fd_derivs',\n"
         "          'kernels.fd_derivs2', 'models.urdf', 'models.reduced', 'utils.native',\n"
         "          'utils.checkpoint', 'solver.mpc', 'diagnostics.checks',\n"
-        "          'diagnostics.profiling'):\n"
+        "          'diagnostics.profiling', 'solver.parallel_riccati', 'solver.precise'):\n"
         "    assert 'ddp_tpu_torch.' + m in sys.modules, m\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

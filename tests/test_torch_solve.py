@@ -49,11 +49,23 @@ def gate_seq(history, k):
 
 def test_package_exports_match_ddp_tpu():
     """``from ddp_tpu_torch import solve, pendulum`` as from ddp_tpu, where
-    ``pendulum`` is the model's module."""
+    ``pendulum`` is the model's module; the subpackages ``ocp`` and
+    ``solver`` export ddp_tpu's modules by the same names, each resolving
+    as an attribute, and ``__version__`` is ddp_tpu's."""
     import ddp_tpu
     import ddp_tpu_torch
 
     assert sorted(ddp_tpu_torch.__all__) == sorted(ddp_tpu.__all__)
+    assert ddp_tpu_torch.__version__ == ddp_tpu.__version__ == "0.1.0"
+    import ddp_tpu.ocp as jocp
+    import ddp_tpu.solver as jsolver
+    import ddp_tpu_torch.ocp as tocp
+    import ddp_tpu_torch.solver as tsolver
+
+    for jsub, tsub in ((jocp, tocp), (jsolver, tsolver)):
+        assert tsub.__all__ == jsub.__all__
+        for name in tsub.__all__:
+            assert getattr(tsub, name).__name__ == f"ddp_tpu_torch.{tsub.__name__.split('.')[1]}.{name}"
     assert ddp_tpu.pendulum.__name__.split(".")[-1] == pendulum.__name__.split(".")[-1] == "pendulum"
     m = pendulum.pendulum(**F64)
     assert (m.nq, m.nv, m.nu) == (1, 1, 1) and m.mass.dtype == torch.float64
@@ -295,13 +307,19 @@ def test_mu_factor_cap_and_mult_safeguard():
 
 
 def test_precise_modes_raise_and_bad_inputs_raise_alike():
-    """precise=True|"storage" names the precision envelope still to port; a
-    bad x_init raises the same AssertionError in both packages."""
+    """precise="storage" on a problem ddp_tpu does not store in double-float
+    (the unconstrained twin: NoConstraint has no double-float hooks) raises
+    ValueError naming the mode in both packages, before any work; an unknown
+    mode raises too; a bad x_init raises the same AssertionError in both
+    packages."""
     jp, tp = pendulum_pair(8)
     params = SolverParams(max_iterations=2, threshold=1e-9, mu=1e4)
-    for precise in (True, "storage"):
-        with pytest.raises(NotImplementedError, match="precision envelope"):
-            solve(tp, params, torch.zeros(2, **F64), precise=precise)
+    jfree = jax_pendulum_problem(8, jnp.float64, target=None)
+    for fn, p, x in ((jsolve, jfree, jnp.zeros(2)), (solve, torch_problem(jfree), torch.zeros(2, **F64))):
+        with pytest.raises(ValueError, match="storage"):
+            fn(p, JParams(*params) if fn is jsolve else params, x, precise="storage")
+    with pytest.raises(ValueError, match="precise"):
+        solve(tp, params, torch.zeros(2, **F64), precise="double")
     raised = []
     for fn, p, x in ((jsolve, jp, jnp.zeros(3)), (solve, tp, torch.zeros(3, **F64))):
         with pytest.raises(AssertionError) as exc:
