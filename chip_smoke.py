@@ -108,7 +108,7 @@
 10. the UR5 MPC replan (bench.py's: the chain's Gauss-Newton problem at
    B=1, 3 AL iterations) through make_mpc_step on the default route
    (backward="sweep") and through the Riccati kernel (backward="kernel", 4
-   launches a replan): a warm-up, then 20 replans from x0 at rest with the
+   launches a replan): a warm-up, then 10 replans from x0 at rest with the
    carry carried, each timed to a torch.cuda.synchronize (p50, p99);
    finite u0 and carry; both routes in f64 for 6 replans (u0 within 1e-7 of
    |u0|, identical μ); run_mpc and the closed loop of both routes for 10
@@ -127,8 +127,9 @@
    at one lane as the MPC replans launch it ((12, 6, 6) f32, (2, 1, 2)
    second order f64), on a launch plan and through its wrapper; the fd kernels on panda7 and on
    UR5 — and solves/s of the main paths, paths A and B included (median of
-   3 after a warm-up; the arm's routes without one, phase 5 ran them), of
-   the UR5 chain on both routes (median of 2).
+   3 after a warm-up; the arm's routes one solve each without one, phase 5
+   ran them; the arm's full-DDP stage median of 2), of the UR5 chain on both
+   routes (median of 2).
 12. the associative-scan backward and the precision envelope: (a) the
    headline through backward="assoc" (no Riccati launch; the share against
    ddp_tpu's on the CPU less 0.01; ≥ 99% of lanes within 1e-3 of their
@@ -155,6 +156,23 @@
    beat the plain solve and the storage mode reach 1e-8 from at least as
    many starts as ddp_tpu does on the CPU, less two binomial standard
    deviations (5 and 10 of 22).
+13. the sharded paths (parallel/mesh.py, solve_vmap, make_batch_mpc_step,
+   entry.py): (a) world size 1 over NCCL in this process: the headline
+   through batch_sharded_solve_batched(backward="kernel") (9 launches of
+   #1; us, μ and opt_constr bit for bit the unsharded solve_batched's,
+   mean_constr the local mean; solves/s beside the unsharded),
+   dryrun_multichip(1)'s contract run (share > 0.99), batch_sharded_solve on
+   entry()'s problem at B=4096 (share not below the unsharded solve_vmap's;
+   8 lanes in f64 within 1e-8 of the per-trajectory solve, identical
+   iterations and μ), and BASELINE configs[4]'s fleet replan,
+   make_batch_mpc_step at B=32,768 through #1 (a warm-up and 10 timed
+   replans, 4 launches each, p50/p99 beside the 10 ms budget, which is a
+   record, not a bar; #1 at that shape, 4 reg levels, against its plain
+   version in f32 and f64 and timed); (b) world size 2 on the one card over gloo (spawned
+   ranks, both on cuda:0): the same three functions, each rank's launches,
+   f32 ≥ 99% of lanes within 1e-3 of their largest |u| of (a)'s, f64 at 64
+   lanes within 1e-9 with identical μ, mean_constr within 1e-6/1e-12
+   relative; (c) a line saying NCCL across cards stays unverified.
 
 Every phase prints one line (phase 3 one a case); any failure raises and
 the exit code is not 0.
@@ -167,13 +185,18 @@ from __future__ import annotations
 import json
 import statistics
 import subprocess
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing
+from torch.distributed.tensor import DTensor, Shard
 
+from ddp_tpu_torch import entry as entry_mod
 from ddp_tpu_torch import solve as ddp_solve
 from ddp_tpu_torch.convert import problem_from_numpy
 from ddp_tpu_torch.kernels import _build
@@ -188,6 +211,7 @@ from ddp_tpu_torch.models.base import state_integrate, state_pack
 from ddp_tpu_torch.ocp import constraints, costs, dynamics
 from ddp_tpu_torch.ocp.problem import Problem
 from ddp_tpu_torch.ocp.problem import Derivs
+from ddp_tpu_torch.parallel import mesh as pmesh
 from ddp_tpu_torch.solver import al
 from ddp_tpu_torch.solver.batched import (
     _backward_multi_reg,
@@ -200,7 +224,7 @@ from ddp_tpu_torch.solver.batched import (
 from ddp_tpu_torch.solver import mpc
 from ddp_tpu_torch.solver import precise
 from ddp_tpu_torch.solver.parallel_riccati import backward_pass_assoc
-from ddp_tpu_torch.solver.solve import SolverParams
+from ddp_tpu_torch.solver.solve import SolverParams, solve_vmap
 
 B, T = 4096, 32
 HEADLINE = SolverParams(max_iterations=8, threshold=1e-5, mu=1e4, inner_iters_max=1)
@@ -263,7 +287,7 @@ UR5_JAX_CPU_SHARE = 1.0
 MPC = SolverParams(max_iterations=3, threshold=1e-5, mu=1e4, inner_iters_max=1)
 # (timed replans and closed-loop steps, few enough to keep the whole run well
 # inside its time limit)
-MPC_REPLANS, MPC_LOOP_STEPS = 20, 10
+MPC_REPLANS, MPC_LOOP_STEPS = 10, 10
 # test_aux_subsystems.py::test_mpc_receding_horizon's pendulum loop
 PEND_MPC = SolverParams(max_iterations=4, threshold=1e-6, mu=1e6)
 PEND_MPC_H, PEND_MPC_REPLANS = 30, 120
@@ -299,6 +323,16 @@ ENVELOPE_MIN_BELOW, STORAGE_MIN_MET = 5, 10
 # processes that solve the starts after x0 = 0 (one card; the host's cores)
 PRECISE_WORKERS = 8
 PRECISE_H = 60
+# phase 13: BASELINE configs[4]'s fleet MPC ("32k scenarios across N >= 2
+# hosts, 10 ms replan budget"): the headline problem at B = 32,768 through
+# make_batch_mpc_step and #1, 3 AL iterations a replan (bench.py's replan
+# recipe); the budget is a record, not a bar (the eager replan is host-bound)
+FLEET_B, FLEET_REPLANS, FLEET_BUDGET_MS = 32768, 10, 10.0
+FLEET = SolverParams(max_iterations=3, threshold=1e-5, mu=1e4, inner_iters_max=1)
+FLEET_LAUNCHES = 1 + FLEET.max_iterations  # the pre-loop backward and one an iteration
+# lanes of the f64 checks: the per-trajectory solve against solve_vmap; the
+# two-rank split against world size 1 (and its fleet replans)
+ENTRY_B64, SPLIT_B64, SPLIT_FLEET_REPLANS = 8, 64, 3
 
 
 def precise_starts():
@@ -2040,6 +2074,257 @@ def assoc_and_envelope(card):
     return out
 
 
+# ------------------------------------------------------ the sharded paths
+
+
+def fleet_x0s(dtype, n):
+    """Distinct fleet starts: q ~ U(-π, π), v ~ U(-1, 1) from default_rng(3)."""
+    rng = np.random.default_rng(3)
+    x0 = np.stack([rng.uniform(-np.pi, np.pi, n), rng.uniform(-1.0, 1.0, n)], axis=1)
+    return torch.tensor(x0, dtype=dtype, device=DEV)
+
+
+def fleet_replans(problem, mesh, x, n):
+    """``n`` fleet replans (make_batch_mpc_step through #1) from the global
+    starts ``x``, the carry carried and each rank's plant stepped on its own
+    block between replans (outside the timed window).  Returns each replan's
+    u0 (this rank's block, on the host), #1 launches, synchronized wall
+    seconds and mean_constr, and the last carry's μ (this rank's block)."""
+    step = mpc.make_batch_mpc_step(problem, FLEET, mesh, backward="kernel")
+    carry = mpc.init_batch_carry(problem, x.shape[0], x0s=x)
+    x_local = pmesh.local_block(x, mesh)
+    u0s, launches, walls, means = [], [], [], []
+    for _ in range(n):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        u0, carry, mean_c = step(x, carry)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches.append(rs.LAUNCHES)
+        u0 = u0.to_local()
+        u0s.append(u0.cpu())
+        means.append(float(mean_c))
+        x_local = problem.dynamics(0, x_local, u0)
+        x = DTensor.from_local(x_local, mesh, [Shard(0)])
+    local = [a.to_local() for a in carry_leaves(carry)]
+    check(all(bool(torch.isfinite(a).all()) for a in local + u0s), "fleet replan: non-finite u0 or carry")
+    return dict(u0=u0s, launches=launches, walls=walls, mean_constr=means, mu=carry.mu.to_local().cpu())
+
+
+def sharded_runs(mesh, n_fleet):
+    """The three sharded functions at their global widths on this rank's
+    block of ``mesh``: the headline through ``batch_sharded_solve_batched``
+    with #1 (9 launches on every rank), ``batch_sharded_solve`` on entry()'s
+    problem (B = 4096, full DDP, no kernel), ``n_fleet`` fleet replans at
+    B = 32,768 (4 launches of #1 a replan on every rank); the same three
+    in f64 at 64 lanes.  Returns this rank's blocks on the host."""
+    out = {}
+    for dtype, n_lanes, n_replans in ((torch.float32, None, n_fleet), (torch.float64, SPLIT_B64, SPLIT_FLEET_REPLANS)):
+        tag = str(dtype)[6:]
+        p = problem_from_numpy(SPEC, device=DEV, dtype=dtype)
+        x = headline_x0s(dtype)[:n_lanes]
+        reset_launch_counts()
+        res, stats = pmesh.batch_sharded_solve_batched(p, HEADLINE, mesh, backward="kernel", **HEADLINE_KW)(x)
+        torch.cuda.synchronize()
+        check(rs.LAUNCHES == EXPECTED_LAUNCHES, f"sharded headline {tag}: #1 launches {rs.LAUNCHES}")
+        out["headline_" + tag] = dict(
+            us=res.us.to_local().cpu(), mu=res.mu.to_local().cpu(), opt_constr=res.opt_constr.to_local().cpu(),
+            mean_constr=float(stats["mean_constr"]), launches=rs.LAUNCHES,
+        )  # fmt: skip
+        pe, params = entry_mod._make_problem(T, dtype, device=DEV)
+        reset_launch_counts()
+        us, stats = pmesh.batch_sharded_solve(pe, params, mesh)(headline_x0s(dtype)[:n_lanes])
+        torch.cuda.synchronize()
+        check(rs.LAUNCHES == 0, f"sharded solve_vmap {tag}: #1 launches {rs.LAUNCHES}")
+        out["entry_" + tag] = dict(us=us.to_local().cpu(), mean_constr=float(stats["mean_constr"]),
+                                   n_converged=int(stats["n_converged"]))  # fmt: skip
+        fleet = fleet_replans(p, mesh, fleet_x0s(dtype, n_lanes or FLEET_B), n_replans)
+        check(all(n == FLEET_LAUNCHES for n in fleet["launches"]), f"fleet {tag}: #1 launches {fleet['launches']}")
+        out["fleet_" + tag] = fleet
+    return out
+
+
+def mesh_rank(rank, world, store, out_dir):
+    """Phase 13b's rank: gloo, every rank on cuda:0 (``make_batch_mesh``
+    takes local rank % device count)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        out = sharded_runs(pmesh.make_batch_mesh(device_type="cuda"), SPLIT_FLEET_REPLANS)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+
+
+def feasible_share(problem, x0s, us):
+    """Share of lanes whose controls, rolled out from ``x0s``, meet the
+    constraint: max_t ‖eq_t‖ < 1e-2 (``batch_sharded_solve`` returns the
+    controls, not the stats)."""
+    eq = problem.eq_all(problem.rollout(x0s, us), us)
+    return float((torch.linalg.vector_norm(eq, dim=-1).amax(dim=-1) < 1e-2).float().mean())
+
+
+def lanes_within(a, b, bar):
+    """Share of lanes with max |a − b| within ``bar`` of the lane's largest |b|
+    (at least 1)."""
+    d = (a - b).abs().flatten(1).amax(dim=1)
+    return float((d <= bar * b.abs().flatten(1).amax(dim=1).clamp(min=1.0)).float().mean())
+
+
+def split_checks(whole, ranks):
+    """Phase 13b against 13a on the host: f32 ≥ 99% of lanes within 1e-3 of
+    their largest |u|, f64 (64 lanes) within 1e-9 of each array's largest
+    entry with identical μ, mean_constr within 1e-6 (f32) / 1e-12 (f64)
+    relative."""
+    out = {}
+    for name in ("headline", "entry", "fleet"):
+        for tag, bar, rel in (("float32", 1e-3, 1e-6), ("float64", 1e-9, 1e-12)):
+            key = f"{name}_{tag}"
+            a = whole[key]
+            if name == "fleet":
+                n = len(ranks[0][key]["u0"])
+                got = [torch.cat([r[key]["u0"][i] for r in ranks]) for i in range(n)]
+                want = a["u0"][:n]
+                means = [(r[key]["mean_constr"][:n], a["mean_constr"][:n]) for r in ranks]
+            else:
+                got, want = [torch.cat([r[key]["us"] for r in ranks])], [a["us"]]
+                means = [([r[key]["mean_constr"]], [a["mean_constr"]]) for r in ranks]
+            if tag == "float32":
+                agree = min(lanes_within(g, w, bar) for g, w in zip(got, want))
+                check(agree >= 0.99, f"2-rank {key}: {agree} of lanes within 1e-3 of their |u|")
+                out[key] = agree
+            else:
+                err = max(float((g - w).abs().max() / w.abs().max().clamp(min=1e-300)) for g, w in zip(got, want))
+                check(err <= bar, f"2-rank {key}: {err:.3e} of the largest entry")
+                out[key] = err
+                if "mu" in a:
+                    mu = torch.cat([r[key]["mu"] for r in ranks])
+                    check(torch.equal(mu, a["mu"]), f"2-rank {key}: μ differs")
+            for got_m, want_m in means:
+                for gm, wm in zip(got_m, want_m):
+                    check(abs(gm - wm) <= rel * abs(wm), f"2-rank {key}: mean_constr {gm} vs {wm}")
+    for key in ("headline_float32", "headline_float64"):
+        check([r[key]["launches"] for r in ranks] == [EXPECTED_LAUNCHES] * 2, f"2-rank {key} launches")
+    return out
+
+
+def sharded_paths(card):
+    """Phase 13: the mesh (parallel/mesh.py), solve_vmap, make_batch_mpc_step
+    and entry.py on the card.  (a) World size 1 over NCCL in this process:
+    the headline through batch_sharded_solve_batched(backward="kernel"), 9
+    launches of #1, us/μ/opt_constr bit for bit the unsharded solve_batched's
+    and mean_constr the local mean, timed beside it; dryrun_multichip(1)'s
+    contract run (feasible share > 0.99); batch_sharded_solve on entry()'s
+    problem at B = 4096 beside the unsharded solve_vmap (share not below
+    it), and 8 of its lanes in f64 against the per-trajectory solve (us
+    within 1e-8 of each lane's |u|, identical iterations and μ); the fleet
+    replan of BASELINE configs[4] at B = 32,768 through #1 (a warm-up and
+    ``FLEET_REPLANS`` timed replans, 4 launches each, p50/p99 beside the
+    10 ms budget, a record; #1 at that shape against its plain version and
+    timed).  (b) World size 2 on the one card over gloo:
+    the same three functions, each rank's launches checked, the results
+    against (a)'s.  (c) The multi-GPU NCCL target stays unverified."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store", rank=0, world_size=1)
+        try:
+            mesh = pmesh.make_batch_mesh(1)
+            whole = sharded_runs(mesh, 1 + FLEET_REPLANS)
+            # the unsharded headline: the same code on the same block
+            p32, x32 = problem_from_numpy(SPEC, device=DEV, dtype=torch.float32), headline_x0s(torch.float32)
+            ref = solve(p32, x32, "kernel")
+            h = whole["headline_float32"]
+            for name in ("us", "mu", "opt_constr"):
+                check(torch.equal(h[name], getattr(ref, name).cpu()), f"sharded headline {name} differs at world size 1")
+            local_mean = float(ref.opt_constr.mean())
+            check(abs(h["mean_constr"] - local_mean) <= 1e-6 * abs(local_mean),
+                  f"sharded headline mean_constr {h['mean_constr']} vs {local_mean}")  # fmt: skip
+            sharded = pmesh.batch_sharded_solve_batched(p32, HEADLINE, mesh, backward="kernel", **HEADLINE_KW)
+            walls = {"sharded": [], "unsharded": []}
+            for route in ("sharded", "unsharded", "unsharded", "sharded"):
+                t1 = time.perf_counter()
+                sharded(x32) if route == "sharded" else solve(p32, x32, "kernel")
+                torch.cuda.synchronize()
+                walls[route].append(time.perf_counter() - t1)
+            sps = {k: B / statistics.median(v) for k, v in walls.items()}
+            say("mesh_headline", card=f"'{card}'", world=1, backend="nccl", B=B, T=T,
+                launches=h["launches"], bitwise_unsharded=True, mean_constr=f"{h['mean_constr']:.6e}",
+                local_mean=f"{local_mean:.6e}", solves_per_s_sharded=f"{sps['sharded']:.1f}",
+                solves_per_s_unsharded=f"{sps['unsharded']:.1f}")  # fmt: skip
+            out["headline"] = dict(launches=h["launches"], solves_per_s=sps)
+
+            row = entry_mod.dryrun_multichip(1)
+            check(row["frac_feasible_1e-2"] > 0.99, f"dryrun contract share {row}")
+            out["dryrun"] = row
+
+            pe, params = entry_mod._make_problem(T, torch.float32, device=DEV)
+            e = whole["entry_float32"]
+            ref_e = solve_vmap(pe, params, x32)
+            torch.cuda.synchronize()
+            check(torch.equal(e["us"], ref_e.us.cpu()), "sharded solve_vmap differs at world size 1")
+            check(abs(e["mean_constr"] - float(ref_e.stats.opt_constr.mean())) <=
+                  1e-6 * float(ref_e.stats.opt_constr.mean()), "sharded solve_vmap mean_constr")  # fmt: skip
+            feas = feasible_share(pe, x32, e["us"].to(DEV))
+            feas_ref = feasible_share(pe, x32, ref_e.us)
+            check(feas >= feas_ref, f"sharded solve_vmap feasible share {feas} below the unsharded {feas_ref}")
+            pe64, params64 = entry_mod._make_problem(T, torch.float64, device=DEV)
+            x64 = headline_x0s(torch.float64)[:ENTRY_B64]
+            r64 = solve_vmap(pe64, params64, x64)
+            worst = 0.0
+            for i in range(ENTRY_B64):
+                one = ddp_solve(pe64, params64, x64[i])
+                err = float((r64.us[i] - one.us).abs().max() / one.us.abs().max().clamp(min=1.0))
+                check(err <= 1e-8, f"solve_vmap lane {i} f64: us {err:.3e} of |u| from solve")
+                check(int(r64.stats.iterations[i]) == int(one.stats.iterations)
+                      and float(r64.stats.mu[i]) == float(one.stats.mu), f"solve_vmap lane {i}: iterations or μ")  # fmt: skip
+                worst = max(worst, err)
+            say("mesh_solve_vmap", card=f"'{card}'", world=1, B=B, T=T, iters=params.max_iterations,
+                feasible_sharded=feas, feasible_unsharded=feas_ref,
+                feasible_unsharded_stats=float((ref_e.stats.opt_constr < 1e-2).float().mean()),
+                n_converged=e["n_converged"],
+                mean_constr=f"{e['mean_constr']:.4e}", f64_lanes=ENTRY_B64, f64_us_scaled_err=f"{worst:.3e}",
+                f64_iterations=r64.stats.iterations.tolist())  # fmt: skip
+            out["entry"] = dict(feasible=feas, n_converged=e["n_converged"], f64_err=worst)
+
+            f = whole["fleet_float32"]
+            ms = 1e3 * np.asarray(f["walls"][1:])  # the first replan is the warm-up
+            # #1 at the fleet's shape (B = 32,768, solve_batched's 4 reg
+            # levels) against its plain version, and its time
+            fleet_in = pendulum_inputs(FLEET_B, torch.float32)
+            err32 = kernel_vs_plain(f"fleet_f32_B{FLEET_B}_T{T}_L4", *fleet_in, 4, 2e-4, 2e-5)[0]
+            kernel_vs_plain(f"fleet_f64_B{FLEET_B}_T{T}_L4", *pendulum_inputs(FLEET_B, torch.float64), 4,
+                            1e-10, 1e-10)  # fmt: skip
+            out["fleet"] = dict(time_ladder(card, "n2m1e1", fleet_in, 4, (T, 2, 1, 1, FLEET_B)),
+                                max_abs_err=err32, p50_ms=float(np.percentile(ms, 50)),
+                                p99_ms=float(np.percentile(ms, 99)), launches_per_replan=f["launches"][0],
+                                budget_ms=FLEET_BUDGET_MS)  # fmt: skip
+            say("mesh_fleet_replan", card=f"'{card}'", world=1, B=FLEET_B, T=T, iters=FLEET.max_iterations,
+                replans=FLEET_REPLANS, p50_ms=f"{out['fleet']['p50_ms']:.2f}",
+                p99_ms=f"{out['fleet']['p99_ms']:.2f}", min_ms=f"{ms.min():.2f}", budget_ms=FLEET_BUDGET_MS,
+                within_budget=bool(out["fleet"]["p99_ms"] <= FLEET_BUDGET_MS), launches_per_replan=f["launches"],
+                mean_constr_first=f"{f['mean_constr'][0]:.3e}", mean_constr_last=f"{f['mean_constr'][-1]:.3e}")  # fmt: skip
+        finally:
+            dist.destroy_process_group()
+        t_a = time.perf_counter() - t0
+
+        # (b) two gloo ranks on the one card
+        (Path(d) / "split").mkdir()
+        torch.multiprocessing.spawn(mesh_rank, args=(2, f"{d}/split/store", f"{d}/split"), nprocs=2)
+        ranks = [torch.load(Path(d) / "split" / f"rank{r}.pt") for r in range(2)]
+    out["split"] = split_checks(whole, ranks)
+    say("mesh_split", card=f"'{card}'", world=2, backend="gloo", device="cuda:0 for both ranks",
+        launches_headline=[r["headline_float32"]["launches"] for r in ranks],
+        fleet_launches=[r["fleet_float32"]["launches"] for r in ranks],
+        **{k: (f"{v:.4f}" if "float32" in k else f"{v:.3e}") for k, v in out["split"].items()})  # fmt: skip
+    # (c)
+    say("mesh", target="'BASELINE configs[4]: 32k scenarios across N>=2 hosts over NCCL'", verified=False,
+        reason="'one card: world size 1 over NCCL, 2 gloo ranks sharing cuda:0; NCCL across cards unverified'")  # fmt: skip
+    say("phase13", wall_s=f"{time.perf_counter() - t0:.1f}", a_s=f"{t_a:.1f}")
+    return out
+
+
 def build_kernels():
     """Phase 2: one nvcc per source, each under its own thread's load()."""
     t0 = time.perf_counter()
@@ -2384,10 +2669,11 @@ def main():
         bound_f64_ms=f"{fd_bound_f64:.5f}")  # fmt: skip
     arm_walls = {}
     for deriv, backward in (("kernel", "kernel"), ("jvp", "sweep")):
-        # no warm-up: phase 5 ran both routes at this shape
+        # no warm-up: phase 5 ran both routes at this shape; one timed solve
+        # a route, to keep the whole run inside its time limit
         torch.cuda.reset_peak_memory_stats()
         walls = []
-        for _ in range(2):
+        for _ in range(1):
             t0 = time.perf_counter()
             arm_solve(a32, ax32, au32, deriv, backward)
             walls.append(time.perf_counter() - t0)
@@ -2449,7 +2735,7 @@ def main():
         bound_f64_ms=f"{fd2_bound_f64:.5f}")  # fmt: skip
     torch.cuda.reset_peak_memory_stats()
     walls = []
-    for _ in range(3):
+    for _ in range(2):
         t0 = time.perf_counter()
         ddp_stage(a2_32, ax32, gn_k, "kernel", "kernel")
         walls.append(time.perf_counter() - t0)
@@ -2464,6 +2750,9 @@ def main():
 
     # 12. the associative-scan backward and the precision envelope
     p12 = assoc_and_envelope(card)
+
+    # 13. the sharded paths: the mesh, solve_vmap, fleet MPC, entry.py
+    p13 = sharded_paths(card)
 
     say("total", wall_s=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
@@ -2511,6 +2800,14 @@ def main():
                 ms=p12["b"]["backward"]["kernel"]["ms"], device_ms=p12["b"]["backward"]["kernel"]["device_ms"],
                 sweep_ms=p12["b"]["backward"]["sweep"]["ms"], assoc_ms=p12["b"]["backward"]["assoc"]["ms"],
                 bound_ms=p12["b"]["bound_ms"], bound_by=p12["b"]["bound_by"],
+            ),
+            # phase 13: the headline sharded over the mesh (world size 1,
+            # NCCL) and BASELINE configs[4]'s fleet replan through #1
+            "mesh_path": dict(
+                shape=f"n2m1e1_T{T}_B{B}_L{HEADLINE_KW['n_reg_levels']}_f32", launches=p13["headline"]["launches"],
+                solves_per_s=p13["headline"]["solves_per_s"],
+                fleet=dict(p13["fleet"], shape=f"n2m1e1_T{T}_B{FLEET_B}_L4_f32"),
+                two_rank_split=p13["split"], dryrun_feasible=p13["dryrun"]["frac_feasible_1e-2"],
             ),
             "tf_yardstick": dict(
                 shape=f"n2m1e1_T{T}_B{B}_L{HEADLINE_KW['n_reg_levels']}_f64", launches=p12["c"]["launches"],

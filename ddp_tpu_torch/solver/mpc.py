@@ -188,25 +188,95 @@ def make_mpc_step(
     return step
 
 
-def make_batch_mpc_step(*args, **kwargs):
-    """Fleet MPC over a device mesh: still to be ported with the mesh layer
-    (ROADMAP Queue 1, item 7)."""
-    raise NotImplementedError(
-        "make_batch_mpc_step needs the device mesh, still to be ported "
-        "(ROADMAP Queue 1, item 7: parallel/mesh.py → torch.distributed)"
-    )
+def _map_carry(fn, carry: MPCCarry) -> MPCCarry:
+    """``fn`` applied to every tensor of a carry (a None leaf stays None)."""
+    return MPCCarry(*(
+        None if a is None else al_mod.AffineMults(*map(fn, a)) if isinstance(a, al_mod.AffineMults) else fn(a)
+        for a in carry
+    ))  # fmt: skip
+
+
+def make_batch_mpc_step(
+    problem,
+    params: SolverParams,
+    mesh,
+    method=Method.PRIMAL_DUAL_AFFINE,
+    backward: str = "sweep",
+    forward: str = "sweep",
+    n_linesearch: int | None = None,
+    matmul_precision: str | None = None,
+    warm_mults: bool = True,
+    shift_mults: bool = False,
+    mu_carry_max: float | None = None,
+    mu_decay: float = 10.0,
+):
+    """Fleet MPC: replan a batch of scenarios split over the ranks of a
+    device mesh (``parallel/mesh.py``).
+
+    BASELINE configs[4]: "multi-host receding-horizon MPC: 32k scenarios
+    across N hosts, 10 ms replan budget".  Returns
+    step(x_measured [B, nx], carry) → (u0 [B, nu], carry', mean_constr): each
+    rank replans its B/n scenarios through ``solve_batched`` warm-started on
+    their carry (controls shifted one step, multipliers, μ, reg, w, n, as
+    ``make_mpc_step``'s), and the convergence aggregate is all-reduced over
+    the mesh.  ``x_measured`` and the carry's leaves are global batches (the
+    same on every rank) or DTensors sharded ``Shard(0)`` on ``mesh``; u0 and
+    the carry come back as such DTensors, ``mean_constr`` a plain tensor.
+    Build the first carry with ``init_batch_carry``; a carry whose ``w`` or
+    ``n`` is None (a checkpoint from before they were carried) resumes with
+    the params' defaults.  The knobs are ``make_mpc_step``'s."""
+    from ddp_tpu_torch.parallel.mesh import global_mean, local_block, sharded
+
+    if mu_carry_max is None:
+        mu_carry_max = 100.0 * params.mu
+    w_def = params.w if params.w is not None else 1.0 / params.mu
+    n_def = params.n if params.n is not None else params.mu**-0.1
+
+    def step(x, carry):
+        x, carry = local_block(x, mesh), _map_carry(lambda a: local_block(a, mesh), carry)
+        # legacy checkpoints (pre-(w, n) MPCCarry) restore with w=None/n=None:
+        # zeros, which the where(… > 0, …) below turns into the defaults
+        if carry.w is None or carry.n is None:
+            z = torch.zeros_like(carry.mu)
+            carry = carry._replace(w=z if carry.w is None else carry.w,
+                                   n=z if carry.n is None else carry.n)  # fmt: skip
+        us_warm, mults, mu, reg, w_c, n_c = carry
+        w_warm = torch.where(w_c > 0, w_c, torch.full_like(w_c, w_def))
+        n_warm = torch.where(n_c > 0, n_c, torch.full_like(n_c, n_def))
+        res = solve_batched(
+            problem, params, x, us_init=us_warm, method=method, backward=backward,
+            forward=forward, n_linesearch=n_linesearch, matmul_precision=matmul_precision,
+            mults_init=mults if warm_mults else None,
+            mu_init=torch.clamp(mu, min=params.mu) if warm_mults else None,
+            reg_init=torch.clamp(reg, min=params.reg) if warm_mults else None,
+            w_init=w_warm if warm_mults else None,
+            n_init=n_warm if warm_mults else None,
+        )  # fmt: skip
+        mults_next = res.mults
+        if shift_mults:
+            mults_next = torch.vmap(_shift_mults)(mults_next)
+        if not warm_mults:
+            mults_next = mults_next._replace(val=torch.zeros_like(mults_next.val),
+                                             jac=torch.zeros_like(mults_next.jac))  # fmt: skip
+        carry_next = MPCCarry(
+            us_warm=torch.cat([res.us[:, 1:], res.us[:, -1:]], dim=1),
+            mults=mults_next,
+            mu=torch.clamp(res.mu / mu_decay, min=params.mu, max=mu_carry_max),
+            reg=res.reg,
+            w=torch.clamp(res.w, min=torch.finfo(res.w.dtype).tiny),
+            n=res.n,
+        )
+        carry_next = _map_carry(lambda a: sharded(a, mesh), carry_next)
+        return sharded(res.us[:, 0], mesh), carry_next, global_mean(res.opt_constr, mesh)
+
+    return step
 
 
 def init_batch_carry(problem, B: int, dtype=None, x0s: torch.Tensor | None = None) -> MPCCarry:
-    """Batched cold-start carry ([B, …] leaves), each lane's multiplier
-    origin at its own ``x0s`` row when given."""
+    """Batched cold-start carry for ``make_batch_mpc_step`` ([B, …] leaves),
+    each lane's multiplier origin at its own ``x0s`` row when given."""
     one = init_carry(problem, dtype, None if x0s is None else x0s[0])
-    carry = MPCCarry(*(
-        None if a is None
-        else al_mod.AffineMults(*(x.expand((B,) + x.shape).clone() for x in a))
-        if isinstance(a, al_mod.AffineMults) else a.expand((B,) + a.shape).clone()
-        for a in one
-    ))  # fmt: skip
+    carry = _map_carry(lambda a: a.expand((B,) + a.shape).clone(), one)
     if x0s is not None:
         origin = x0s.to(carry.mu.dtype)[:, None, :].expand(B, problem.horizon, problem.nx).clone()
         carry = carry._replace(mults=carry.mults._replace(origin=origin))

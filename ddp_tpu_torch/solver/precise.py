@@ -41,7 +41,7 @@ from ddp_tpu_torch.ocp.dynamics import EulerDynamics
 from ddp_tpu_torch.solver import al as al_mod
 from ddp_tpu_torch.solver import riccati
 from ddp_tpu_torch.solver.rollout import forward_pass
-from ddp_tpu_torch.solver.solve import Stages
+from ddp_tpu_torch.solver.solve import Stages, _lanes
 
 F64 = torch.float64
 
@@ -75,13 +75,13 @@ def backward_sweep(derivs, mult_val, mult_jac, mu, reg):
     return k.to(mu.dtype), K.to(mu.dtype), ok
 
 
-def backward_pass(derivs, mult_val, mult_jac, mu, reg, max_retries: int = 24):
+def backward_pass(derivs, mult_val, mult_jac, mu, reg, max_retries: int = 24, live=None):
     """``riccati.backward_pass`` (the sweep, restarted at reg = 2·max(reg, μ)
     and 2μ while a factorization fails) on float64 copies (≙
     backward_pass_tf); gains, μ, reg and dV come back at μ's dtype (the
     escalations are exact doublings, the same values in either type)."""
     r = riccati.backward_pass(
-        wide(derivs), wide(mult_val), wide(mult_jac), mu.to(F64), reg.to(F64), max_retries
+        wide(derivs), wide(mult_val), wide(mult_jac), mu.to(F64), reg.to(F64), max_retries, live
     )
     return r._replace(
         k=r.k.to(mu.dtype), K=r.K.to(mu.dtype), mu=r.mu.to(mu.dtype),
@@ -157,19 +157,20 @@ class Envelope(Stages):
         as ddp_tpu's precise solve leaves ``mult_max`` unread."""
         del mult_max
         g = gain.to(F64)
-        return mults._replace(val=mults.val + g * val_inc.to(F64), jac=mults.jac + g * jac_inc.to(F64))
+        return mults._replace(val=mults.val + _lanes(g, val_inc) * val_inc.to(F64),
+                              jac=mults.jac + _lanes(g, jac_inc) * jac_inc.to(F64))  # fmt: skip
 
-    def backward(self, derivs, mults, mu, reg):
+    def backward(self, derivs, mults, mu, reg, live=None):
         v = self.view(mults)
-        return backward_pass(derivs, v.val, v.jac, mu, reg)
+        return backward_pass(derivs, v.val, v.jac, mu, reg, live=live)
 
-    def forward(self, xs, us, k, K, mults, mu):
+    def forward(self, xs, us, k, K, mults, mu, live=None):
         v = self.view(mults)
 
         def total_cost(xs_, us_):
             return al_cost_total(self.twin, xs_, us_, v, mu)
 
-        return forward_pass(self.problem, xs, us, k, K, v, mu, total_cost=total_cost)
+        return forward_pass(self.problem, xs, us, k, K, v, mu, total_cost=total_cost, live=live)
 
     def result(self, x):
         return x.to(self.dtype)
@@ -208,8 +209,7 @@ class Storage(Envelope):
         return x.to(F64)
 
     def derivatives(self, xs, us):
-        d = self.twin.derivatives(xs[None], us[None])
-        return type(d)(*(f[0] for f in d))
+        return self.derivatives_of(self.twin, xs, us)
 
     def view(self, mults):
         return mults
@@ -220,12 +220,12 @@ class Storage(Envelope):
     def update_origin(self, mults, xs):
         return al_mod.update_origin(self.model, mults, xs)
 
-    def backward(self, derivs, mults, mu, reg):
-        r = riccati.backward_pass(derivs, mults.val, mults.jac, mu.to(F64), reg.to(F64))
+    def backward(self, derivs, mults, mu, reg, live=None):
+        r = riccati.backward_pass(derivs, mults.val, mults.jac, mu.to(F64), reg.to(F64), live=live)
         return r._replace(mu=r.mu.to(self.dtype), reg=r.reg.to(self.dtype), dV=r.dV.to(self.dtype))
 
-    def forward(self, xs, us, k, K, mults, mu):
-        f = forward_pass(self.twin, xs, us, k, K, mults, mu.to(F64))
+    def forward(self, xs, us, k, K, mults, mu, live=None):
+        f = forward_pass(self.twin, xs, us, k, K, mults, mu.to(F64), live=live)
         return f._replace(step=f.step.to(self.dtype))
 
 

@@ -2,9 +2,10 @@
 (≙ ddp_tpu/solver/riccati.py).
 
 ``backward_sweep`` is one sweep over a batch of trajectories (leading dim);
-``backward_pass`` is the single-trajectory pass of ``solve``: the sweep, and
-while a factorization fails the reference's restart with reg = 2·max(reg, μ)
-and μ doubled, at most ``max_retries`` times.
+``backward_pass`` is the pass of ``solve`` and ``solve_vmap``: the sweep, and
+while a trajectory's factorization fails the reference's restart with
+reg = 2·max(reg, μ) and μ doubled for that trajectory, at most
+``max_retries`` times.
 """
 
 from __future__ import annotations
@@ -99,18 +100,27 @@ def backward_sweep(derivs, mult_val, mult_jac, mu, reg, with_dV: bool = False):
 
 
 @al_mod.full_fp32_matmuls()
-def backward_pass(derivs, mult_val, mult_jac, mu, reg, max_retries: int = 24) -> BackwardResult:
-    """The sweep on one trajectory (``derivs`` [T, …], ``mult_val``
-    [T, ne], ``mult_jac`` [T, ne, ndx], μ and reg 0-d tensors) and, while a
-    factorization fails, the sweep again at reg = 2·max(reg, μ) and 2μ, at
-    most ``max_retries`` times.  Returns the last sweep's gains and the μ
-    and reg it ran at."""
+def backward_pass(derivs, mult_val, mult_jac, mu, reg, max_retries: int = 24,
+                  live=None) -> BackwardResult:  # fmt: skip
+    """The sweep on trajectories with any leading batch dims, none for one
+    (``derivs`` [..., T, …], ``mult_val`` [..., T, ne], ``mult_jac``
+    [..., T, ne, ndx], μ and reg [...]) and, while a trajectory's
+    factorization fails, the sweep again at its reg = 2·max(reg, μ) and 2μ,
+    at most ``max_retries`` times (≙ ``jax.vmap`` of ddp_tpu's retry loop: a
+    trajectory that factorized keeps its sweep).  Returns the last sweep's
+    gains and the μ and reg it ran at.  A trajectory outside the bool mask
+    ``live`` [...] does not retry: its result is the caller's to discard."""
 
     k, K, ok, dV = backward_sweep(derivs, mult_val, mult_jac, mu, reg, with_dV=True)
+    retry = ~ok if live is None else ~ok & live
     it = 0
-    while not bool(ok) and it < max_retries:
-        reg = torch.maximum(reg, mu) * 2.0
-        mu = mu * 2.0
-        k, K, ok, dV = backward_sweep(derivs, mult_val, mult_jac, mu, reg, with_dV=True)
+    while bool(retry.any()) and it < max_retries:
+        reg = torch.where(retry, torch.maximum(reg, mu) * 2.0, reg)
+        mu = torch.where(retry, mu * 2.0, mu)
+        k2, K2, ok2, dV2 = backward_sweep(derivs, mult_val, mult_jac, mu, reg, with_dV=True)
+        k = torch.where(retry[..., None, None], k2, k)
+        K = torch.where(retry[..., None, None, None], K2, K)
+        ok, dV = torch.where(retry, ok2, ok), torch.where(retry, dV2, dV)
+        retry = retry & ~ok
         it += 1
     return BackwardResult(k=k, K=K, mu=mu, reg=reg, ok=ok, dV=dV)

@@ -102,8 +102,11 @@ class SolveResult(NamedTuple):
 
 
 class _Carry(NamedTuple):
-    it: int
-    done: bool
+    """The outer loop's state; every field has the leading batch shape [...]
+    (none for one trajectory) before its own dims."""
+
+    it: torch.Tensor  # int
+    done: torch.Tensor  # bool
     xs: torch.Tensor
     us: torch.Tensor
     mults: object
@@ -116,8 +119,8 @@ class _Carry(NamedTuple):
     opt_constr: torch.Tensor
     step: torch.Tensor
     opt_obj_prev: torch.Tensor
-    just_changed: bool  # (p, μ) changed last iteration
-    inner: int  # inner iterations since the last (p, μ) change
+    just_changed: torch.Tensor  # bool: (p, μ) changed last iteration
+    inner: torch.Tensor  # int: inner iterations since the last (p, μ) change
 
 
 def solve(
@@ -160,6 +163,46 @@ def solve(
     ``ValueError`` for any other.  Either way the schedule's constants and
     state (μ, reg, w, n, the gate measures) stay at the problem's dtype, and
     the result comes back in it."""
+    return _solve_with(
+        problem, params, x_init, us_init, method, precise, mults_init_jac, history,
+        matmul_precision, reference_schedule, batched=False,
+    )  # fmt: skip
+
+
+def solve_vmap(
+    problem,
+    params: SolverParams,
+    x0s: torch.Tensor,
+    us_init: torch.Tensor | None = None,
+    method: Method = Method.PRIMAL_DUAL_AFFINE,
+    precise: bool | str = False,
+    mults_init_jac: torch.Tensor | None = None,
+    history: bool = False,
+    matmul_precision: str | None = None,
+    reference_schedule: bool = False,
+) -> SolveResult:
+    """``solve`` of each row of ``x0s`` [B, nx] (≙ ``jax.vmap(lambda x:
+    solve(problem, params, x, …))(x0s)``): every field of the result, the
+    stats and the history included, gains a leading [B].
+
+    The trajectories run batch-major, one batched iteration at a time, while
+    any of them is live (not converged and under ``max_iterations``).  Each
+    decision of ``solve``'s loop is taken per lane: the stopping test, the
+    multiplier-update gate, the backward pass's retries (a lane climbs reg
+    and μ only while its own factorization fails) and the halving line
+    search (a lane keeps its step once it accepts).  A lane that is done is
+    frozen: its state stays bit for bit what it was, as under ``vmap`` of
+    ``lax.while_loop``.  ``us_init`` [B, T, nu] and ``mults_init_jac``
+    [B, T, ne, ndx] are per lane; the other arguments are ``solve``'s.  The
+    backward is the sweep, as ``solve``'s."""
+    return _solve_with(
+        problem, params, x0s, us_init, method, precise, mults_init_jac, history,
+        matmul_precision, reference_schedule, batched=True,
+    )  # fmt: skip
+
+
+def _solve_with(problem, params, x_init, us_init, method, precise, mults_init_jac, history,
+                matmul_precision, reference_schedule, batched):  # fmt: skip
     if precise:
         from ddp_tpu_torch.solver import precise as precise_mod
 
@@ -169,14 +212,16 @@ def solve(
     with al_mod.matmul_precision(matmul_precision):
         return _solve(
             problem, params, x_init, us_init, method, mults_init_jac, history,
-            reference_schedule, stages,
+            reference_schedule, stages, batched,
         )  # fmt: skip
 
 
 class Stages:
-    """The stages of one ``solve`` iteration at the problem's dtype.
-    ``solver/precise.py`` widens them to float64 for ``solve(precise=…)``;
-    the loop around them and the schedule are the same."""
+    """The stages of one ``solve`` iteration at the problem's dtype, over
+    trajectories with any leading batch dims (none in ``solve``, [B] in
+    ``solve_vmap``).  ``solver/precise.py`` widens them to float64 for
+    ``solve(precise=…)``; the loop around them and the schedule are the
+    same."""
 
     def __init__(self, problem):
         self.problem = problem
@@ -189,10 +234,17 @@ class Stages:
         """A problem-dtype iterate tensor as the solve carries it."""
         return x
 
-    def derivatives(self, xs, us):
-        """Problem.derivatives of the one trajectory, batch dim dropped."""
-        d = self.problem.derivatives(xs[None], us[None])
+    @staticmethod
+    def derivatives_of(problem, xs, us):
+        """``problem.derivatives`` of a batch of trajectories, or of one
+        (a batch dim added and dropped)."""
+        if xs.dim() > 2:
+            return problem.derivatives(xs, us)
+        d = problem.derivatives(xs[None], us[None])
         return type(d)(*(f[0] for f in d))
+
+    def derivatives(self, xs, us):
+        return self.derivatives_of(self.problem, xs, us)
 
     def init_mults(self, xs, jac_init):
         return al_mod.init_multipliers(self.problem, xs, jac_init=jac_init)
@@ -216,33 +268,48 @@ class Stages:
         if not feedback:
             return derivs.eq, derivs.eqx
         fbm = al_mod.update_origin(self.model, fb, xs)
-        fb_term = torch.einsum("tou,tu->to", derivs.equ, fbm.val)
-        fb_term_jac = torch.einsum("tou,tuj->toj", derivs.equ, fbm.jac)
+        fb_term = torch.einsum("...tou,...tu->...to", derivs.equ, fbm.val)
+        fb_term_jac = torch.einsum("...tou,...tuj->...toj", derivs.equ, fbm.jac)
         return derivs.eq + fb_term, derivs.eqx + fb_term_jac
 
     def mult_update(self, mults, gain, val_inc, jac_inc, mult_max):
         """p += gain·(eq + eq_u·k), p_x += gain·(eq_x + eq_u·K), clipped to
-        ±``mult_max`` when it is set (see SolverParams)."""
-        new_val = mults.val + gain * val_inc
-        new_jac = mults.jac + gain * jac_inc
+        ±``mult_max`` when it is set (see SolverParams); ``gain`` has the
+        batch shape."""
+        new_val = mults.val + _lanes(gain, val_inc) * val_inc
+        new_jac = mults.jac + _lanes(gain, jac_inc) * jac_inc
         if mult_max is not None:
             new_val = torch.clamp(new_val, -mult_max, mult_max)
             new_jac = torch.clamp(new_jac, -mult_max, mult_max)
         return mults._replace(val=new_val, jac=new_jac)
 
-    def backward(self, derivs, mults, mu, reg):
-        return backward_pass(derivs, mults.val, mults.jac, mu, reg)
+    def backward(self, derivs, mults, mu, reg, live=None):
+        return backward_pass(derivs, mults.val, mults.jac, mu, reg, live=live)
 
-    def forward(self, xs, us, k, K, mults, mu):
-        return forward_pass(self.problem, xs, us, k, K, mults, mu)
+    def forward(self, xs, us, k, K, mults, mu, live=None):
+        return forward_pass(self.problem, xs, us, k, K, mults, mu, live=live)
 
     def result(self, x):
         """An iterate, gain or multiplier tensor as the result carries it."""
         return x
 
 
+def _lanes(mask_or_value, x):
+    """A per-lane tensor [...] viewed to broadcast against ``x`` [..., *dims]."""
+    return mask_or_value.reshape(mask_or_value.shape + (1,) * (x.dim() - mask_or_value.dim()))
+
+
+def _pick(cond, new, old):
+    """``new`` where the per-lane bool ``cond`` holds, else ``old``, over
+    tensors and NamedTuples of tensors."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(_lanes(cond, new), new, old)
+    return type(new)(*(_pick(cond, a, b) for a, b in zip(new, old)))
+
+
 def _solve(
-    problem, params, x_init, us_init, method, mults_init_jac, history, reference_schedule, stages
+    problem, params, x_init, us_init, method, mults_init_jac, history, reference_schedule, stages,
+    batched,
 ):  # fmt: skip
     T, nu = problem.horizon, problem.nu
     dtype, device = x_init.dtype, x_init.device
@@ -252,18 +319,24 @@ def _solve(
             f"x_init is {dtype} on {device} but the problem is {ref.dtype} on "
             f"{ref.device}; move one with .to(device, dtype)"
         )
+    if batched:
+        shape = (val(x_init.dim(), "x0s.ndim") == 2,
+                 val(tuple(x_init.shape[1:]), "x0s.shape[1:]") == (problem.nx,))  # fmt: skip
+    else:
+        shape = (val(tuple(x_init.shape), "x_init.shape") == (problem.nx,),)
     ddp_assert(
-        val(tuple(x_init.shape), "x_init.shape") == (problem.nx,),
+        *shape,
         val(params.max_iterations, "max_iterations") >= 1,
         val(params.mu, "mu") > 0.0,
-        msg="solve() preconditions",
+        msg="solve_vmap() preconditions" if batched else "solve() preconditions",
     )
+    lanes = tuple(x_init.shape[:-1])
     kw = dict(dtype=dtype, device=device)
     if us_init is None:
-        us_init = torch.zeros((T, nu), **kw)
+        us_init = torch.zeros(lanes + (T, nu), **kw)
     else:
         ddp_assert(
-            val(tuple(us_init.shape), "us_init.shape") == (T, nu),
+            val(tuple(us_init.shape), "us_init.shape") == lanes + (T, nu),
             msg="warm-start shape",
         )
     xs = stages.rollout(x_init, us_init)
@@ -272,10 +345,13 @@ def _solve(
     def scalar(v):
         return torch.tensor(v, **kw)
 
-    mu = scalar(params.mu)
-    reg = scalar(params.reg)
-    w = scalar(params.w if params.w is not None else 1.0 / params.mu)
-    n = scalar(params.n if params.n is not None else 1.0 / params.mu**0.1)
+    def per_lane(v, dtype=dtype):
+        return torch.full(lanes, v, dtype=dtype, device=device)
+
+    mu = per_lane(params.mu)
+    reg = per_lane(params.reg)
+    w = per_lane(params.w if params.w is not None else 1.0 / params.mu)
+    n = per_lane(params.n if params.n is not None else 1.0 / params.mu**0.1)
     threshold = scalar(params.threshold)
     eps = scalar(torch.finfo(dtype).eps)
     w_min = scalar(params.w_min) if params.w_min is not None else 10.0 * eps**0.5
@@ -293,17 +369,18 @@ def _solve(
     bres = stages.backward(derivs, mults, mu, reg)
     mu = bres.mu
     fwd = stages.forward(xs, us, bres.k, bres.K, mults, mu)
-    fb = al_mod.AffineMults(bres.k, bres.K, xs[:-1])
+    fb = al_mod.AffineMults(bres.k, bres.K, xs[..., :-1, :])
     if not reference_schedule:
         # the reference never swaps the pre-loop forward's trajectory in;
         # keeping it is ddp_tpu's documented improvement
         xs, us = fwd.xs, fwd.us
-    inf = scalar(float("inf"))
 
-    def body(c: _Carry):
+    def body(c: _Carry, active):
         """One outer iteration (update_derivatives, ddp.hpp:641-696, then
-        the backward/forward pair, ddp.hpp:804-826): the new carry and the
-        iteration's history row."""
+        the backward/forward pair, ddp.hpp:804-826) on every lane: the new
+        carry and the iteration's history row.  A lane that finds itself
+        converged keeps its iterate and schedule; a lane outside ``active``
+        keeps its whole state (the caller's select)."""
         derivs = stages.derivatives(c.xs, c.us)
         mults = stages.update_origin(c.mults, c.xs)
         mults = mults._replace(jac=constrain_jac(mults.jac))
@@ -320,78 +397,85 @@ def _solve(
             done = (opt_lag < threshold) & (opt_constr < threshold)
             # the reference's opt_obj < w with a dtype floor, and a plateau
             # test (see SolverParams)
-            plateau = (opt_obj >= 0.1 * c.opt_obj_prev) & (not c.just_changed)
+            plateau = (opt_obj >= 0.1 * c.opt_obj_prev) & ~c.just_changed
             gate = (opt_obj < torch.maximum(c.w, w_min)) | plateau
             if params.inner_iters_max is not None:
                 gate = gate | (c.inner >= params.inner_iters_max)
-        done, gate = bool(done), bool(gate)
-        upd_success = not done and gate and bool(opt_constr < c.n)
-        upd_failure = not done and gate and bool(opt_constr >= c.n)
-        if done:
-            # the carry freezes: nothing below would be kept
-            row = (c.mu, c.reg, c.w, c.n, c.step, opt_obj, opt_lag, opt_constr, False, False, True)
-            new_c = c._replace(
-                it=c.it if c.done else c.it + 1, done=True, opt_lag=opt_lag,
-                opt_constr=opt_constr, opt_obj_prev=opt_obj, just_changed=False,
-                inner=c.inner + 1,
-            )  # fmt: skip
-            return new_c, row
-
-        # first-order AL multiplier update (ddp.hpp:680-688):
-        #   p += μ (eq + eq_u·k);  p_x += μ (eq_x + eq_u·K)
-        # PRIMAL uses no multiplier feedback: p += μ·eq only
-        gain = c.mu if upd_success else torch.zeros_like(c.mu)
-        val_inc, jac_inc = stages.increments(derivs, c.fb, c.xs, method is not Method.PRIMAL)
-        mults = stages.mult_update(mults, gain, val_inc, jac_inc, params.mult_max)
-        mults = mults._replace(jac=constrain_jac(mults.jac))
-
-        mu_new = c.mu * params.mu_factor if upd_failure else c.mu
-        if params.mu_max is not None:
-            mu_new = torch.minimum(mu_new, scalar(params.mu_max))
-        if reference_schedule:
-            # ddp.hpp:787-797: on success n = opt_obj with the updated
-            # multipliers / μ^0.1 and w /= μ; on failure only μ grows
-            n_new = stages.opt_obj(derivs, mults, c.mu) / c.mu**0.1 if upd_success else c.n
-        elif upd_success:
-            n_new = torch.maximum(c.n * c.mu**-0.9, threshold)
-        else:
-            n_new = mu_new**-0.1 if upd_failure else c.n
-        w_new = c.w / c.mu if upd_success else c.w
-
-        bres = stages.backward(derivs, mults, mu_new, c.reg)
-        fwd = stages.forward(c.xs, c.us, bres.k, bres.K, mults, bres.mu)
-        reg = torch.where(
-            fwd.step >= 0.5,
-            torch.where(bres.reg / 2 < 1e-5, torch.zeros_like(bres.reg), bres.reg / 2),
-            bres.reg,
-        )
-        changed = upd_success or upd_failure
-        row = (bres.mu, reg, w_new, n_new, fwd.step, opt_obj, opt_lag, opt_constr,
-               upd_success, upd_failure, False)  # fmt: skip
-        new_c = _Carry(
-            it=c.it + 1, done=False, xs=fwd.xs, us=fwd.us, mults=mults,
-            fb=al_mod.AffineMults(bres.k, bres.K, c.xs[:-1]), mu=bres.mu, reg=reg,
-            w=w_new, n=n_new, opt_lag=opt_lag, opt_constr=opt_constr, step=fwd.step,
-            opt_obj_prev=opt_obj, just_changed=changed, inner=1 if changed else c.inner + 1,
+        upd_success = ~done & gate & (opt_constr < c.n)
+        upd_failure = ~done & gate & (opt_constr >= c.n)
+        changed = upd_success | upd_failure
+        measures = dict(
+            it=c.it + 1, done=done, opt_lag=opt_lag, opt_constr=opt_constr, opt_obj_prev=opt_obj,
+            just_changed=changed, inner=torch.where(changed, torch.ones_like(c.inner), c.inner + 1),
         )  # fmt: skip
+        live = active & ~done
+        if not bool(live.any()):
+            # every lane converged or stopped: nothing below would be kept
+            new_c = c._replace(**measures)
+        else:
+            # first-order AL multiplier update (ddp.hpp:680-688):
+            #   p += μ (eq + eq_u·k);  p_x += μ (eq_x + eq_u·K)
+            # PRIMAL uses no multiplier feedback: p += μ·eq only
+            gain = torch.where(upd_success, c.mu, torch.zeros_like(c.mu))
+            val_inc, jac_inc = stages.increments(derivs, c.fb, c.xs, method is not Method.PRIMAL)
+            mults = stages.mult_update(mults, gain, val_inc, jac_inc, params.mult_max)
+            mults = mults._replace(jac=constrain_jac(mults.jac))
+
+            mu_new = torch.where(upd_failure, c.mu * params.mu_factor, c.mu)
+            if params.mu_max is not None:
+                mu_new = torch.minimum(mu_new, scalar(params.mu_max))
+            if reference_schedule:
+                # ddp.hpp:787-797: on success n = opt_obj with the updated
+                # multipliers / μ^0.1 and w /= μ; on failure only μ grows
+                n_new = c.n
+                if bool(upd_success.any()):
+                    n_new = torch.where(upd_success, stages.opt_obj(derivs, mults, c.mu) / c.mu**0.1, c.n)
+            else:
+                n_new = torch.where(
+                    upd_success,
+                    torch.maximum(c.n * c.mu**-0.9, threshold),
+                    torch.where(upd_failure, mu_new**-0.1, c.n),
+                )
+            w_new = torch.where(upd_success, c.w / c.mu, c.w)
+
+            bres = stages.backward(derivs, mults, mu_new, c.reg, live)
+            fwd = stages.forward(c.xs, c.us, bres.k, bres.K, mults, bres.mu, live)
+            reg = torch.where(
+                fwd.step >= 0.5,
+                torch.where(bres.reg / 2 < 1e-5, torch.zeros_like(bres.reg), bres.reg / 2),
+                bres.reg,
+            )
+            stepped = c._replace(
+                xs=fwd.xs, us=fwd.us, mults=mults,
+                fb=al_mod.AffineMults(bres.k, bres.K, c.xs[..., :-1, :]), mu=bres.mu, reg=reg,
+                w=w_new, n=n_new, step=fwd.step,
+            )  # fmt: skip
+            # a lane that converged keeps its iterate and schedule
+            new_c = _pick(done, c, stepped)._replace(**measures)
+        row = (new_c.mu, new_c.reg, new_c.w, new_c.n, new_c.step, opt_obj, opt_lag, opt_constr,
+               upd_success, upd_failure, done)  # fmt: skip
         return new_c, row
 
+    inf = per_lane(float("inf"))
     c = _Carry(
-        it=0, done=False, xs=xs, us=us, mults=mults, fb=fb, mu=mu, reg=reg, w=w, n=n,
-        opt_lag=inf, opt_constr=inf, step=fwd.step, opt_obj_prev=inf, just_changed=True,
-        inner=1,  # the pre-loop backward/forward already ran
+        it=per_lane(0, torch.int64), done=per_lane(False, torch.bool), xs=xs, us=us, mults=mults,
+        fb=fb, mu=mu, reg=reg, w=w, n=n, opt_lag=inf, opt_constr=inf, step=fwd.step,
+        opt_obj_prev=inf, just_changed=per_lane(True, torch.bool),
+        inner=per_lane(1, torch.int64),  # the pre-loop backward/forward already ran
     )  # fmt: skip
     rows = []
-    while c.it < params.max_iterations and not c.done:
-        c, row = body(c)
-        rows.append(row)
+    active = (c.it < params.max_iterations) & ~c.done
+    while bool(active.any()):
+        new_c, row = body(c, active)
+        # a lane that stopped keeps its state and repeats its last row
+        c = _pick(active, new_c, c)
+        rows.append(row if not rows else tuple(_pick(active, a, b) for a, b in zip(row, rows[-1])))
+        active = (c.it < params.max_iterations) & ~c.done
     hist = None
     if history:
         # the converged state repeats its row to the fixed length
         rows += [rows[-1]] * (params.max_iterations - len(rows))
-        cols = list(zip(*rows))
-        flags = [torch.tensor(col, dtype=torch.bool, device=device) for col in cols[8:]]
-        hist = SolveHistory(*(torch.stack(col) for col in cols[:8]), *flags)
+        hist = SolveHistory(*(torch.stack(col, dim=-1) for col in zip(*rows)))
     return SolveResult(
         xs=stages.result(c.xs),
         us=stages.result(c.us),
@@ -399,14 +483,14 @@ def _solve(
         fb_K=stages.result(c.fb.jac),
         mults=al_mod.AffineMults(*map(stages.result, c.mults)),
         stats=SolveStats(
-            iterations=torch.tensor(c.it, device=device),
+            iterations=c.it,
             opt_lag=c.opt_lag,
             opt_obj=c.opt_obj_prev,
             opt_constr=c.opt_constr,
             mu=c.mu,
             reg=c.reg,
             step=c.step,
-            converged=torch.tensor(c.done, device=device),
+            converged=c.done,
         ),
         history=hist,
     )

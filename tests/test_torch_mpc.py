@@ -232,9 +232,22 @@ def test_mpc_carry_resumes_gate_tolerances():
         assert_step_matches(step(t(jx), port_carry(jc)), jout)
 
 
+def local_carry(carry):
+    """A fleet step's carry of DTensors as this rank's plain tensors."""
+    return mpc.MPCCarry(*(
+        tal.AffineMults(*(m.to_local() for m in a)) if isinstance(a, tuple) else a.to_local()
+        for a in carry
+    ))  # fmt: skip
+
+
 def test_init_batch_carry_and_deferred_fleet_step():
-    """init_batch_carry's [B, …] leaves as ddp_tpu's; the mesh-sharded fleet
-    step waits for the mesh layer."""
+    """init_batch_carry's [B, …] leaves as ddp_tpu's; the fleet step at the
+    same size (B = 3, H = 6) on a mesh of one gloo rank in this process:
+    two replans from the same state and carry as ddp_tpu's
+    ``make_batch_mpc_step`` on a one-device mesh (u0, mean_constr and every
+    carry leaf within 1e-9 of each array's scale, μ and reg identical); a
+    legacy carry (w and n None) replans as the zero carry does, bit for
+    bit."""
     jp = make_problem(horizon=6)
     tp = torch_problem(jp)
     x0s = np.stack([[0.03 * i, 0.0] for i in range(3)])
@@ -242,8 +255,32 @@ def test_init_batch_carry_and_deferred_fleet_step():
     ref = jmpc.init_batch_carry(jp, 3, jnp.float64, x0s=jnp.asarray(x0s))
     for a, b in zip(carry_leaves(got), carry_leaves(ref)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        mpc.make_batch_mpc_step(tp, SolverParams(3, 1e-6, mu=1e5), None)
+    from ddp_tpu.parallel.mesh import make_batch_mesh
+    from torch_mesh_ranks import world_of_one
+
+    kw = dict(max_iterations=3, threshold=1e-6, mu=1e5)
+    jstep = jmpc.make_batch_mpc_step(jp, JParams(**kw), make_batch_mesh(1))
+    jx, jc = jnp.asarray(x0s), ref
+    with world_of_one() as mesh:
+        step = mpc.make_batch_mpc_step(tp, SolverParams(**kw), mesh)
+        x, carry = t(x0s), got
+        for _ in range(2):
+            u0, carry, mean_c = step(x, carry)
+            ju0, jc, jmean = jstep(jx, jc)
+            assert_close(u0.to_local().numpy(), ju0, what="u0")
+            assert_close(mean_c.numpy(), jmean, what="mean_constr")
+            local = local_carry(carry)
+            assert np.array_equal(local.mu.numpy(), np.asarray(jc.mu))
+            assert np.array_equal(local.reg.numpy(), np.asarray(jc.reg))
+            for i, (a, b) in enumerate(zip(carry_leaves(local), carry_leaves(jc))):
+                assert_close(a.numpy(), b, what=f"carry leaf {i}")
+            x, jx = tp.dynamics(0, x, u0.to_local()), jp.dynamics(0, jx, ju0)
+        legacy = local._replace(w=None, n=None)
+        zero = local._replace(w=torch.zeros_like(local.mu), n=torch.zeros_like(local.mu))
+        (u_a, c_a, m_a), (u_b, c_b, m_b) = step(x, legacy), step(x, zero)
+        assert torch.equal(u_a.to_local(), u_b.to_local()) and torch.equal(m_a, m_b)
+        for a, b in zip(carry_leaves(local_carry(c_a)), carry_leaves(local_carry(c_b))):
+            assert torch.equal(a, b)
 
 
 # ------------------------------------------------------------ checkpoints

@@ -485,8 +485,11 @@ def test_port_imports_no_jax_and_builds_nothing():
         "for m in ('ops.lie', 'models.rigid_body', 'models.robots', 'kernels.fd_derivs',\n"
         "          'kernels.fd_derivs2', 'models.urdf', 'models.reduced', 'utils.native',\n"
         "          'utils.checkpoint', 'solver.mpc', 'diagnostics.checks',\n"
-        "          'diagnostics.profiling', 'solver.parallel_riccati', 'solver.precise'):\n"
+        "          'diagnostics.profiling', 'solver.parallel_riccati', 'solver.precise',\n"
+        "          'parallel.mesh', 'entry'):\n"
         "    assert 'ddp_tpu_torch.' + m in sys.modules, m\n"
+        "import torch\n"
+        "assert not torch.distributed.is_initialized() and not torch.cuda.is_initialized()\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
     pat = re.compile(r"^\s*(import|from)\s+(jax|ddp_tpu|triton)(\.|\s|$)", re.M)
