@@ -173,6 +173,22 @@
    f32 ≥ 99% of lanes within 1e-3 of their largest |u| of (a)'s, f64 at 64
    lanes within 1e-9 with identical μ, mean_constr within 1e-6/1e-12
    relative; (c) a line saying NCCL across cards stays unverified.
+14. give_up_after and the examples: (a) phase 5's arm fleet with lanes 3,
+   77, 140 and 201 started at μ = ∞ (terminal racers), solved with
+   give_up_after None and 3 in turns (none, give-up, give-up, none): every
+   solve's launches phase 5's (26 fd, 25 Riccati sweeping 4 levels), the
+   lanes that never gave up bit for bit the same (bar: the spread of the two
+   solves without it), the racers at μ = ∞ with every step 0, finite
+   controls and their reg constant from row 2; the rollouts, walls and
+   feasible shares are records; (b) ddp_tpu's own give-up case (4
+   pendulums, T = 100, lane 0 at μ = ∞, f64) through the kernel and the
+   sweep (healthy lanes within 1e-8 of their |u|, 13 launches) and both
+   ValueErrors; (c) examples/torch_pendulum_swingup.py in f32 (|eq| < 1e-2)
+   and f64 (ddp_tpu's converged flag, final q within 1e-6, |eq| ≤ 10×
+   ddp_tpu's on the CPU), examples/torch_ur5_reach.py in f64 (the reached
+   point within 1e-6 m of ddp_tpu's, |eq| ≤ 10×) and
+   examples/torch_mpc_fleet.py at B = 512 (finite u0, 7 launches of #1 a
+   replan, mean |eq| ≤ 10× ddp_tpu's), each through its main() at full size.
 
 Every phase prints one line (phase 3 one a case); any failure raises and
 the exit code is not 0.
@@ -182,6 +198,9 @@ The last lines are a JSON object describing the kernels and the JSON result
 
 from __future__ import annotations
 
+import contextlib
+import importlib.util
+import io
 import json
 import statistics
 import subprocess
@@ -333,6 +352,27 @@ FLEET_LAUNCHES = 1 + FLEET.max_iterations  # the pre-loop backward and one an it
 # lanes of the f64 checks: the per-trajectory solve against solve_vmap; the
 # two-rank split against world size 1 (and its fleet replans)
 ENTRY_B64, SPLIT_B64, SPLIT_FLEET_REPLANS = 8, 64, 3
+# phase 14a: the arm fleet of phase 5 with four lanes started at μ = ∞ (the
+# limit of the μ·10 race: every candidate rejected, no step ever accepted),
+# solved without and with give_up_after
+RACERS, GIVE_UP = (3, 77, 140, 201), 3
+# phase 14b: ddp_tpu's test_give_up_after_freezes_racing_lane_only
+# (tests/test_batched_solver.py): 4 pendulums at T = 100, lane 0 at μ = ∞
+GU_PEND = SolverParams(max_iterations=12, threshold=1e-9, mu=1e8)
+GU_PEND_H, GU_PEND_Q0 = 100, (-0.4, 0.0, 0.3, 0.5)
+# phase 14c: what ddp_tpu's examples give on the CPU
+# (tests/test_torch_reference_draws.py examples): examples/pendulum_swingup.py
+# in f32 and f64, examples/ur5_reach.py, and examples/mpc_fleet.py's recipe on
+# one device at B = 512 (through backward="sweep": its "pallas" needs
+# interpret mode on the CPU) after its 41 replans
+PEND_JAX_CPU = {
+    torch.float32: dict(converged=False, iterations=60, q=3.140000104904175, eq=0.0),
+    torch.float64: dict(converged=True, iterations=33, q=3.1400000000000072, eq=7.105427357601002e-15),
+}
+UR5_JAX_CPU = dict(reached=(0.7497957295496186, 0.3469154235766152, 0.07762458192760813),
+                   eq=1.1495205438356883e-07, iterations=55)  # fmt: skip
+FLEET_JAX_CPU_MEAN_EQ = 1.0395469143986702e-04
+EXAMPLES = Path(__file__).resolve().parent / "examples"
 
 
 def precise_starts():
@@ -2325,6 +2365,219 @@ def sharded_paths(card):
     return out
 
 
+# ----------------------------------------- give_up_after and the examples
+
+
+def lanes_that_may_give_up(history):
+    """Lanes whose streak may have reached GIVE_UP: a run of GIVE_UP zero
+    steps, or of GIVE_UP − 1 from row 0 (the pre-loop's step is not
+    recorded).  Every other lane never gave up."""
+    zero = (history.step == 0).cpu().numpy()
+    out = set()
+    for lane in range(zero.shape[1]):
+        run = 0
+        for row in range(zero.shape[0]):
+            run = run + 1 if zero[row, lane] else 0
+            if run >= GIVE_UP or run == row + 1 == GIVE_UP - 1:
+                out.add(lane)
+    return out
+
+
+def racing_solve(problem, x0s, us0, mu0, give_up_after):
+    """One solve of phase 14a through #2 and #1, its launches checked
+    against phase 5's; returns (result, wall s, the line search's
+    rollouts)."""
+    from ddp_tpu_torch.solver import batched
+
+    rollout, steps = batched.feedback_rollout, []
+
+    def counted(*args):
+        steps.append(args[-1])
+        return rollout(*args)
+
+    batched.feedback_rollout = counted
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = solve_batched(problem, ARM, x0s, us_init=us0, deriv="kernel", backward="kernel", mu_init=mu0,
+                            give_up_after=give_up_after, history=True, **ARM_KW)  # fmt: skip
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        batched.feedback_rollout = rollout
+    fd_expected, rs_expected = 1 + ARM.max_iterations + 1, 1 + ARM.max_iterations
+    check(fd.LAUNCHES == fd_expected and rs.LAUNCHES == rs_expected
+          and rs.LEVELS_SWEPT == rs_expected * ARM_REG_LEVELS,
+          f"racing fleet give_up_after={give_up_after}: launches fd {fd.LAUNCHES}, riccati {rs.LAUNCHES} "
+          f"sweeping {rs.LEVELS_SWEPT}")  # fmt: skip
+    return res, wall, len(steps)
+
+
+def racing_fleet(card, problem, x0s, us0):
+    """Phase 14a: phase 5's arm fleet (f32, #2 and #1) with the lanes RACERS
+    at μ = ∞, solved with give_up_after None and GIVE_UP in turns (none,
+    give-up, give-up, none; history on): the lanes that never gave up bit for
+    bit the same, or no further apart than the two solves without give-up;
+    the racers at μ = ∞ with every step 0, finite controls and their reg
+    constant from the row they froze; the launches of every solve phase 5's.
+    Returns the launches, rollouts, wall times and feasible shares."""
+    mu0 = torch.full((ARM_B,), ARM.mu, dtype=torch.float32, device=DEV)
+    mu0[list(RACERS)] = torch.inf
+    runs = {None: [], GIVE_UP: []}
+    for g in (None, GIVE_UP, GIVE_UP, None):
+        runs[g].append(racing_solve(problem, x0s, us0, mu0, g))
+    (base, _, rollouts_none), (rep, _, _) = runs[None]
+    gu, _, rollouts_gu = runs[GIVE_UP][0]
+    others = [lane for lane in range(ARM_B) if lane not in RACERS]
+    kept = sorted(set(others) - lanes_that_may_give_up(gu.history))
+
+    def spread(a, b):
+        return max(float((getattr(a, f)[kept] - getattr(b, f)[kept]).abs().max())
+                   for f in ("xs", "us", "mu", "reg", "opt_constr"))  # fmt: skip
+
+    diff, bar = spread(gu, base), spread(rep, base)  # the card's run-to-run spread is the bar
+    check(diff <= bar, f"racing fleet: the lanes that never gave up differ by {diff:.3e} (repeat's {bar:.3e})")
+    r = list(RACERS)
+    check(bool(torch.isinf(gu.mu[r]).all()) and bool(torch.isinf(base.mu[r]).all()), "racers: μ not ∞")
+    check(bool((gu.history.step[:, r] == 0).all()) and bool((base.history.step[:, r] == 0).all()),
+          "racers: a step was accepted")  # fmt: skip
+    check(bool(torch.isfinite(gu.us[r]).all()), "racers: non-finite controls")
+    # the pre-loop and rows 0 … GIVE_UP − 2 at step 0: dead from row GIVE_UP − 1
+    freeze = GIVE_UP - 1
+    reg = gu.history.reg[:, r]
+    check(bool((reg[freeze:] == reg[freeze - 1]).all()), "racers: reg moved after they froze")
+    walls = {g: [w for _, w, _ in runs[g]] for g in runs}
+    share = {g: float((runs[g][0][0].opt_constr[others] < 1e-2).float().mean()) for g in runs}
+    same = int((gu.us[others] == base.us[others]).flatten(1).all(dim=1).sum())
+    out = dict(launches=dict(fd=fd.LAUNCHES, riccati=rs.LAUNCHES, levels_swept=rs.LEVELS_SWEPT),
+               rollouts=dict(none=rollouts_none, give_up=rollouts_gu),
+               wall_s=dict(none=walls[None], give_up=walls[GIVE_UP]),
+               give_up_over_none=sum(walls[GIVE_UP]) / sum(walls[None]), lanes_compared=len(kept),
+               lanes_bitwise_of_others=same, max_diff=diff, repeat_spread=bar,
+               frac_main=dict(none=share[None], give_up=share[GIVE_UP]))  # fmt: skip
+    say("give_up_arm_fleet", card=f"'{card}'", B=ARM_B, H=ARM_H, iters=ARM.max_iterations, racers=r,
+        give_up_after=GIVE_UP, launches_each=out["launches"], rollouts=out["rollouts"],
+        wall_s_none=[f"{w:.3f}" for w in walls[None]], wall_s_give_up=[f"{w:.3f}" for w in walls[GIVE_UP]],
+        give_up_over_none=f"{out['give_up_over_none']:.4f}", lanes_never_gave_up=len(kept),
+        max_diff=f"{diff:.3e}", repeat_spread=f"{bar:.3e}", others_bitwise=f"{same}/{len(others)}",
+        frac_main_others_none=share[None], frac_main_others_give_up=share[GIVE_UP])  # fmt: skip
+    return out
+
+
+def give_up_pendulum():
+    """Phase 14b: ddp_tpu's own give-up case (4 pendulums, T = 100, lane 0 at
+    μ = ∞, f64) through the Riccati kernel and the sweep: the healthy lanes
+    within 1e-8 of each lane's largest |u|, lane 0 at μ = ∞ with finite
+    controls, 1 + 12 launches of #1 on the kernel route; and the two
+    ValueErrors.  Returns #1's launches."""
+    problem = pendulum_problem(GU_PEND_H, torch.float64)
+    x0s = torch.tensor([[q, 0.0] for q in GU_PEND_Q0], dtype=torch.float64, device=DEV)
+    mu0 = torch.tensor([torch.inf] + [GU_PEND.mu] * 3, dtype=torch.float64, device=DEV)
+    res = {}
+    for backward in ("kernel", "sweep"):
+        reset_launch_counts()
+        res[backward] = solve_batched(problem, GU_PEND, x0s, forward="seq", backward=backward, mu_init=mu0,
+                                      give_up_after=GIVE_UP)  # fmt: skip
+        torch.cuda.synchronize()
+        if backward == "kernel":
+            launches = rs.LAUNCHES
+            check(launches == 1 + GU_PEND.max_iterations, f"give-up pendulum: #1 launches {launches}")
+    k, sw = res["kernel"], res["sweep"]
+    err = float(((k.us[1:] - sw.us[1:]).abs().amax(dim=(1, 2))
+                 / sw.us[1:].abs().amax(dim=(1, 2)).clamp(min=1.0)).max())  # fmt: skip
+    check(err <= 1e-8, f"give-up pendulum: kernel vs sweep {err:.3e} of the lanes' |u|")
+    for r in (k, sw):
+        check(bool(torch.isinf(r.mu[0])) and bool(torch.isfinite(r.us[0]).all()), "give-up pendulum: lane 0")
+    raised = []
+    for kw in (dict(forward="sweep", give_up_after=GIVE_UP), dict(forward="seq", give_up_after=0)):
+        try:
+            solve_batched(problem, GU_PEND, x0s, **kw)
+        except ValueError as e:
+            raised.append("give_up_after" in str(e))
+    check(raised == [True, True], f"give_up_after's ValueErrors: {raised}")
+    say("give_up_pendulum", T=GU_PEND_H, iters=GU_PEND.max_iterations, riccati_launches=launches,
+        kernel_vs_sweep_scaled=f"{err:.3e}", bar=1e-8, value_errors=2)  # fmt: skip
+    return launches
+
+
+def run_example(name, **kw):
+    """``main(device=DEV, **kw)`` of examples/<name>.py, its printed lines
+    echoed; returns (its result, the wall seconds)."""
+    spec = importlib.util.spec_from_file_location(name, EXAMPLES / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = module.main(device=DEV, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        print(f"  {name}| {line}", flush=True)
+    return out, wall
+
+
+def examples_path(card):
+    """Phase 14c: the three examples at full size on the card, held to what
+    ddp_tpu's examples give on the CPU: the pendulum swing-up in f32 (|eq| <
+    1e-2) and f64 (the same converged flag, final q within 1e-6, |eq| ≤ 10×);
+    UR5's reach in f64 (the reached position within 1e-6 m, |eq| ≤ 10×);
+    the fleet at B = 512 (finite u0, 1 + 6 launches of #1 a replan, mean
+    |eq| ≤ 10×).  Returns the walls, #1's launches and the fleet's times."""
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        res, wall = run_example("torch_pendulum_swingup", dtype=dtype)
+        ref, tag = PEND_JAX_CPU[dtype], str(dtype)[6:]
+        q, eq = float(res.xs[-1, 0]), float(res.stats.opt_constr)
+        if dtype == torch.float64:
+            check(bool(res.stats.converged) == ref["converged"], f"pendulum f64: converged {bool(res.stats.converged)}")
+            check(abs(q - ref["q"]) <= 1e-6, f"pendulum f64: final q {q!r}")
+            check(eq <= 10 * ref["eq"], f"pendulum f64: |eq| {eq:.3e} against ddp_tpu's {ref['eq']:.3e}")
+        else:
+            check(eq < 1e-2, f"pendulum f32: |eq| {eq:.3e}")
+        out["pendulum_" + tag] = dict(wall_s=wall, iterations=int(res.stats.iterations), eq=eq)
+        say("example_pendulum_swingup", card=f"'{card}'", dtype=tag, converged=bool(res.stats.converged),
+            iters=int(res.stats.iterations), final_q=f"{q:.10f}", eq=f"{eq:.3e}",
+            ddp_tpu_cpu=f"'{ref['converged']} {ref['iterations']} {ref['q']!r} {ref['eq']:.3e}'",
+            wall_s=f"{wall:.3f}", s_per_iteration=f"{wall / int(res.stats.iterations):.4f}")  # fmt: skip
+    (res, _, reached), wall = run_example("torch_ur5_reach")
+    d = float((reached - torch.tensor(UR5_JAX_CPU["reached"], dtype=torch.float64)).abs().max())
+    eq = float(res.stats.opt_constr)
+    check(d <= 1e-6, f"UR5 reach: reached position {d:.3e} m from ddp_tpu's")
+    check(eq <= 10 * UR5_JAX_CPU["eq"], f"UR5 reach: |eq| {eq:.3e} against ddp_tpu's {UR5_JAX_CPU['eq']:.3e}")
+    out["ur5"] = dict(wall_s=wall, iterations=int(res.stats.iterations), eq=eq, reached_diff_m=d)
+    say("example_ur5_reach", card=f"'{card}'", dtype="float64", iters=int(res.stats.iterations),
+        ddp_tpu_iters=UR5_JAX_CPU["iterations"], reached_diff_m=f"{d:.3e}", eq=f"{eq:.3e}",
+        ddp_tpu_eq=f"{UR5_JAX_CPU['eq']:.3e}", wall_s=f"{wall:.3f}")  # fmt: skip
+    reset_launch_counts()
+    fleet, wall = run_example("torch_mpc_fleet")
+    launches = rs.LAUNCHES
+    per_replan = 1 + 6  # the pre-loop backward and one an iteration
+    check(launches == fleet["replans"] * per_replan, f"fleet example: #1 launches {launches} for {fleet['replans']}")
+    check(bool(torch.isfinite(fleet["u0"]).all()), "fleet example: non-finite u0")
+    check(fleet["mean_constr"] <= 10 * FLEET_JAX_CPU_MEAN_EQ,
+          f"fleet example: mean |eq| {fleet['mean_constr']:.3e} against ddp_tpu's {FLEET_JAX_CPU_MEAN_EQ:.3e}")  # fmt: skip
+    out["fleet"] = dict(wall_s=wall, launches=launches, replans=fleet["replans"], B=fleet["B"],
+                        ms_blocking=1e3 * fleet["s_blocking"], ms_back_to_back=1e3 * fleet["s_sustained"],
+                        mean_constr=fleet["mean_constr"])  # fmt: skip
+    say("example_mpc_fleet", card=f"'{card}'", B=fleet["B"], world=fleet["n_devices"], replans=fleet["replans"],
+        riccati_launches=launches, per_replan=per_replan, ms_per_replan_blocking=f"{out['fleet']['ms_blocking']:.3f}",
+        ms_per_replan_back_to_back=f"{out['fleet']['ms_back_to_back']:.3f}",
+        mean_eq=f"{fleet['mean_constr']:.3e}", ddp_tpu_mean_eq=f"{FLEET_JAX_CPU_MEAN_EQ:.3e}", wall_s=f"{wall:.3f}")  # fmt: skip
+    return out
+
+
+def give_up_and_examples(card, arm):
+    """Phase 14: give_up_after on the racing arm fleet (a) and on ddp_tpu's
+    own case (b), and the three examples (c)."""
+    t0 = time.perf_counter()
+    out = dict(a=racing_fleet(card, *arm), b=give_up_pendulum())
+    t_ab = time.perf_counter() - t0
+    out["c"] = examples_path(card)
+    say("phase14", wall_s=f"{time.perf_counter() - t0:.1f}", ab_s=f"{t_ab:.1f}")
+    return out
+
+
 def build_kernels():
     """Phase 2: one nvcc per source, each under its own thread's load()."""
     t0 = time.perf_counter()
@@ -2754,6 +3007,9 @@ def main():
     # 13. the sharded paths: the mesh, solve_vmap, fleet MPC, entry.py
     p13 = sharded_paths(card)
 
+    # 14. give_up_after's dead lanes, and the examples as entry points
+    p14 = give_up_and_examples(card, (a32, ax32, au32))
+
     say("total", wall_s=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
         {
@@ -2809,6 +3065,13 @@ def main():
                 fleet=dict(p13["fleet"], shape=f"n2m1e1_T{T}_B{FLEET_B}_L4_f32"),
                 two_rank_split=p13["split"], dryrun_feasible=p13["dryrun"]["frac_feasible_1e-2"],
             ),
+            # phase 14: the racing arm fleet without and with give_up_after
+            # (each 1 + 24 launches sweeping 4 levels), ddp_tpu's give-up
+            # case (f64), the fleet example (1 + 6 a replan)
+            "give_up_path": dict(
+                shape=f"n14m7e3_T{ARM_H}_B{ARM_B}_L{ARM_REG_LEVELS}_f32", arm=p14["a"],
+                pendulum_f64_launches=p14["b"], fleet_example=p14["c"]["fleet"],
+            ),
             "tf_yardstick": dict(
                 shape=f"n2m1e1_T{T}_B{B}_L{HEADLINE_KW['n_reg_levels']}_f64", launches=p12["c"]["launches"],
                 max_abs_err=p12["c"]["max_abs_err"], max_rel_err=p12["c"]["max_rel_err"],
@@ -2827,6 +3090,8 @@ def main():
             "library_ms": None, "f64_ms": fd_f64_ms,
             "ur5_path": dict(ufd, shape=f"ur5_N{NU}_f32", launches=ur5c["launches_gn"]["fd"],
                              max_abs_err=k3["ur5_fd_err32"]),
+            # phase 14a: the racing arm fleet, 1 + 24 + 1 launches a solve
+            "give_up_path": dict(shape=f"panda7_N{N}_f32", launches_each=p14["a"]["launches"]["fd"]),
         },
         {
             "name": "fd_derivs2", "route": "cuda",

@@ -176,19 +176,27 @@ def _bwhere(c, a, b):
 
 
 @al_mod.full_fp32_matmuls()
-def _linesearch_seq(problem, xs, us, k, K, mults, mu, n_candidates, total=_al_cost_total):
+def _linesearch_seq(problem, xs, us, k, K, mults, mu, n_candidates, total=_al_cost_total, dead=None):
     """Sequential early-exit line search: walk the step ladder 1, ½, ¼, …
     largest first and stop once every lane has accepted a candidate (or the
     ladder is spent); lanes that are done are select-masked.  Picks the same
     candidate as ``_linesearch_sweep`` (first accepted = largest accepted)
     but pays max-first-accept-index rollouts per call instead of always
     ``n_candidates`` — worth it when one rollout is heavy (arm-class
-    dynamics).  ``total`` as ``_linesearch_sweep``'s.  Returns (xs, us, step
+    dynamics).  ``total`` as ``_linesearch_sweep``'s.
+
+    ``dead`` ([B] bool, ``solve_batched``'s ``give_up_after``) marks lanes
+    that have given up: they enter the ladder done, keep their incumbent at
+    step 0 and no longer keep the loop going, so one μ-racing lane that
+    rejects every candidate stops holding the whole batch to the full ladder.
+    With every lane dead no rollout runs at all.  Returns (xs, us, step
     [B])."""
+    if dead is not None and bool(dead.all()):
+        return xs, us, torch.zeros(xs.shape[0], dtype=xs.dtype, device=xs.device)
     cost_old = total(problem, xs, us, mults, mu)
     xs_b, us_b = xs, us
     step_b = torch.zeros_like(cost_old)
-    done = torch.zeros(cost_old.shape, dtype=torch.bool, device=xs.device)
+    done = torch.zeros(cost_old.shape, dtype=torch.bool, device=xs.device) if dead is None else dead
     for i in range(n_candidates):
         step = 2.0**-i
         xs_c, us_c = feedback_rollout(problem, xs, us, k, K, step)
@@ -325,6 +333,12 @@ def solve_batched(
     #   when problem.second_order, which needs nu == nv); Euler dynamics on a
     #   revolute/prismatic RobotModel
     n_reg_levels: int = 4,  # parallel regularization ladder depth (≥1)
+    give_up_after: int | None = None,  # forward="seq" only: a lane that has
+    # rejected the whole candidate ladder (step 0) for this many consecutive
+    # outer iterations is dead — it stops line-searching (no longer holding
+    # the batch's early-exit ladder to its full depth) and its multipliers,
+    # μ, w, n and reg freeze; its gains are whatever the batch's backward
+    # gives.  None = never give up; ≤ 0 raises ValueError
     precise_cost: bool = False,  # line-search acceptance sums in float64
     # (on a float64 twin of the problem); forward="kernel" raises ValueError
     matmul_precision: str | None = None,
@@ -349,6 +363,14 @@ def solve_batched(
     ``history=True`` records ``BatchSolveHistory`` after each outer
     iteration; the result is the same bits with it as without."""
     _check_backends(backward, forward, deriv)
+    if give_up_after is not None and forward != "seq":
+        raise ValueError(
+            "give_up_after only applies to forward='seq' (the early-exit ladder "
+            "is what dead lanes would otherwise hold hostage)"
+        )
+    if give_up_after is not None and give_up_after <= 0:
+        # ddp_tpu accepts it and freezes every lane from the first iteration
+        raise ValueError(f"give_up_after must be >= 1 (or None), got {give_up_after}")
     if precise_cost and forward == "kernel":
         # ddp_tpu's forward="pallas" leaves precise_cost unread
         # (ddp_tpu/solver/batched.py:630-657); the port refuses it
@@ -356,14 +378,14 @@ def solve_batched(
     with al_mod.matmul_precision(matmul_precision):
         return _solve_batched(
             problem, params, x0s, us_init, method, n_linesearch, backward,
-            forward, deriv, n_reg_levels, precise_cost,
+            forward, deriv, n_reg_levels, give_up_after, precise_cost,
             (mults_init, mu_init, reg_init, w_init, n_init), history,
         )  # fmt: skip
 
 
 def _solve_batched(
     problem, params, x0s, us_init, method, n_linesearch, backward, forward,
-    deriv, n_reg_levels, precise_cost, warm, history,
+    deriv, n_reg_levels, give_up_after, precise_cost, warm, history,
 ):  # fmt: skip
     T, nu = problem.horizon, problem.nu
     model = problem.model
@@ -466,9 +488,14 @@ def _solve_batched(
     oo_prev = torch.full((B,), torch.inf, **kw)
     just_changed = torch.ones(B, dtype=torch.bool, device=device)
     inner = torch.ones(B, dtype=torch.int32, device=device)  # pre-loop ran once
+    # consecutive outer iterations at step 0 (give_up_after's count)
+    streak = torch.where(ok & (step > 0), 0, 1).to(torch.int32)
     rows = []
 
     for _ in range(params.max_iterations):
+        # give_up_after=None: no lane is ever dead, and the loop below is the
+        # one without the mask
+        dead = None if give_up_after is None else streak >= give_up_after
         derivs = derivatives(xs, us)
         mults = al_mod.update_origin(model, mults, xs)
         mults = mults._replace(jac=constrain_jac(mults.jac))
@@ -478,6 +505,10 @@ def _solve_batched(
         oc = al_mod.optimality_constr(derivs)
         olag = al_mod.optimality_lag(problem, derivs, mults.val, mults.jac)
         done = (olag < threshold) & (oc < threshold)
+        if dead is not None:
+            # a dead lane's schedule freezes: no multiplier update, no μ
+            # escalation, no gate-tolerance motion
+            done = done | dead
 
         plateau = (oo >= 0.1 * oo_prev) & ~just_changed
         gate = (oo < torch.maximum(w, w_min)) | plateau
@@ -515,17 +546,21 @@ def _solve_batched(
         w_new = torch.where(upd_s, w / mu, w)
 
         k, K, ok, reg_u = run_backward(derivs, mults.val, mults.jac, mu_new, reg, n_reg_levels)
-        xs1, us1, step = linesearch(problem, xs, us, k, K, mults, mu_new, n_linesearch)
+        ls_dead = {} if dead is None else dict(dead=dead)
+        xs1, us1, step = linesearch(problem, xs, us, k, K, mults, mu_new, n_linesearch, **ls_dead)
         ok = ok & torch.isfinite(us1.sum(dim=(1, 2)))
         # carry the reg level that factorized; relax it on a full accepted
         # step; escalate only if all levels failed (μ is never escalated
         # here: compounding it across iterations leaves the useful range)
         reg_relaxed = torch.where(reg_u / 2 < 1e-5, torch.zeros_like(reg_u), reg_u / 2)
-        reg = torch.where(
+        reg_new = torch.where(
             ok,
             torch.where(step >= 0.5, reg_relaxed, reg_u),
             torch.maximum(reg, mu_new) * 2.0,
         )
+        # a dead lane's reg stays (×2 an iteration would overflow f32)
+        reg = reg_new if dead is None else torch.where(dead, reg, reg_new)
+        streak = torch.where(ok & (step > 0), 0, streak + 1).to(torch.int32)
         fb = al_mod.AffineMults(
             _bwhere(ok, k, fb.val),
             _bwhere(ok, K, fb.jac),

@@ -45,6 +45,13 @@ tier-1:
   float32 matters (~5 min; last run, opt_lag < 1e-8 from: ddp_tpu 14, the
   port 16, K rounded only in the multiplier increment 0, only in the line
   search 16, rounded and summed in float32 as ddp_tpu sums 9).
+- ``examples``: the recipes of examples/pendulum_swingup.py (f32 and f64),
+  examples/ur5_reach.py (f64) and examples/mpc_fleet.py (one device,
+  B = 512) in ddp_tpu, at full precision: the constants chip_smoke.py
+  phase 14c holds the port's examples to (~1.5 min).  The fleet's recipe
+  runs ``backward="sweep"``, the Pallas sweep's XLA counterpart: the
+  example's ``backward="pallas"`` runs on the CPU only in interpret mode,
+  which its ``make_batch_mpc_step`` does not take.
 """
 
 import sys
@@ -379,13 +386,72 @@ def storage_gains():
     print(f"opt_lag < 1e-8 from, of {len(precise_starts())} starts: {met}")
 
 
+def examples():
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from ddp_tpu import Method
+    from ddp_tpu.models import base
+    from ddp_tpu.models.robots import ee_frame_id, ur5
+    from ddp_tpu.ocp import constraints, costs, dynamics
+    from ddp_tpu.ocp.problem import Problem
+    from ddp_tpu.parallel.mesh import make_batch_mesh
+    from ddp_tpu.solver.mpc import init_batch_carry, make_batch_mpc_step
+    from ddp_tpu.solver.solve import SolverParams as JParams
+    from ddp_tpu.solver.solve import solve as jsolve
+
+    for dtype in (jnp.float32, jnp.float64):  # examples/pendulum_swingup.py
+        problem = jax_pendulum_problem(200, dtype, second_order=True)
+        params = JParams(max_iterations=60, threshold=1e-8, mu=1e8 if dtype == jnp.float64 else 1e4)
+        r = jax.jit(lambda x: jsolve(problem, params, x, method=Method.PRIMAL_DUAL_AFFINE))(jnp.zeros(2, dtype))
+        print(f"pendulum_swingup {jnp.dtype(dtype).name}: converged {bool(r.stats.converged)}, "
+              f"iterations {int(r.stats.iterations)}, final q {float(r.xs[-1, 0])!r}, "
+              f"|eq| {float(r.stats.opt_constr)!r}", flush=True)  # fmt: skip
+
+    arm = ur5(dtype=jnp.float64)  # examples/ur5_reach.py
+    H = 12
+    dyn = dynamics.euler(arm, 0.01)
+    fid = ee_frame_id(arm)
+    q0 = arm.neutral_configuration()
+    p_target = arm.frame_position(fid, arm.integrate(q0, jnp.asarray([0.2, -0.15, 0.1, 0.05, -0.1, 0.08])))
+    con = constraints.advance_time(
+        constraints.FrameTarget(model=arm, target=p_target, frame_id=fid, active_ts=(H,)), dyn, times=2
+    )
+    problem = Problem(dynamics=dyn, cost=costs.quad_control(1.0, dtype=jnp.float64), constraint=con,
+                      horizon=H, second_order=False)  # fmt: skip
+    params = JParams(max_iterations=55, threshold=1e-8, mu=1e8)
+    r = jax.jit(lambda x: jsolve(problem, params, x))(base.state_pack(q0, jnp.zeros(arm.nv)))
+    print(f"ur5_reach: target {np.asarray(p_target).tolist()}, reached "
+          f"{np.asarray(arm.frame_position(fid, r.xs[-1, : arm.nq])).tolist()}, |eq| "
+          f"{float(r.stats.opt_constr)!r}, iterations {int(r.stats.iterations)}", flush=True)  # fmt: skip
+
+    H, B = 24, 512  # examples/mpc_fleet.py on one device
+    problem = jax_pendulum_problem(H, jnp.float32)
+    params = JParams(max_iterations=6, threshold=1e-4, mu=1e4)
+    mesh = make_batch_mesh(1)
+    step = make_batch_mpc_step(problem, params, mesh, backward="sweep")
+    sh = NamedSharding(mesh, P("batch"))
+    rng = np.random.default_rng(0)
+    x = jax.device_put(jnp.asarray(np.stack([rng.uniform(-0.5, 0.5, B), np.zeros(B)], 1), jnp.float32), sh)
+    carry = init_batch_carry(problem, B, jnp.float32, x0s=jnp.asarray(np.asarray(x)))
+    carry = jax.device_put(carry, jax.tree.map(lambda _: sh, carry))
+    u0, carry, mc = step(x, carry)
+    for _ in range(20):
+        u0, carry, mc = step(x, carry)
+        x = x.at[:, 0].add(0.01 * x[:, 1])
+    for _ in range(20):
+        u0, carry, mc = step(x, carry)
+    print(f"mpc_fleet B={B}: mean |eq| after 41 replans {float(mc)!r}, finite u0 "
+          f"{bool(np.isfinite(np.asarray(u0)).all())}")  # fmt: skip
+
+
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     what = sys.argv[1] if len(sys.argv) > 1 else ""
     jobs = dict(quadrotor_share=quadrotor_share, ur5_share=ur5_share, arm_lanes=arm_lanes, golden_draws=golden_draws,
                 jit_vs_eager=jit_vs_eager, assoc_share=assoc_share, tf_share=tf_share,
-                precise_draws=precise_draws, storage_gains=storage_gains)  # fmt: skip
+                precise_draws=precise_draws, storage_gains=storage_gains, examples=examples)  # fmt: skip
     if what not in jobs:
         sys.exit(f"usage: {sys.argv[0]} {{{','.join(jobs)}}} [seed]")
     jobs[what](*map(int, sys.argv[2:]))

@@ -6,6 +6,9 @@ the recorded decision sequence (tests/test_history.py's configuration), the
 multiplier and penalty safeguards, and the quadrotor's constrained solve
 (tests/test_model_zoo.py)."""
 
+import enum
+import importlib
+import inspect
 from pathlib import Path
 
 import jax
@@ -69,6 +72,32 @@ def test_package_exports_match_ddp_tpu():
     assert ddp_tpu.pendulum.__name__.split(".")[-1] == pendulum.__name__.split(".")[-1] == "pendulum"
     m = pendulum.pendulum(**F64)
     assert (m.nq, m.nv, m.nu) == (1, 1, 1) and m.mass.dtype == torch.float64
+
+
+# ddp_tpu's keyword parameters that have no meaning off the TPU: the scan
+# unroll factor, the Pallas lane block and Pallas interpret mode
+TPU_ONLY_KNOBS = {"unroll", "block_b", "interpret"}
+
+
+@pytest.mark.parametrize("module, name", [
+    ("solver.solve", "solve"), ("solver.batched", "solve_batched"), ("solver.mpc", "make_mpc_step"),
+    ("solver.mpc", "make_batch_mpc_step"), ("parallel.mesh", "batch_sharded_solve"),
+    ("parallel.mesh", "batch_sharded_solve_batched"),
+])  # fmt: skip
+def test_signature_matches_ddp_tpu(module, name):
+    """The entry points take ddp_tpu's parameters, less the TPU-only knobs,
+    each of the same kind and with the same default (an enum's by name): a
+    knob the port lacks fails here, not with a TypeError in a caller's hands."""
+    def parameters(package):
+        fn = getattr(importlib.import_module(f"{package}.{module}"), name)
+        return inspect.signature(fn).parameters
+
+    jp, tp = parameters("ddp_tpu"), parameters("ddp_tpu_torch")
+    assert set(tp) == set(jp) - TPU_ONLY_KNOBS
+    for key, p in tp.items():
+        d, jd = p.default, jp[key].default
+        assert p.kind == jp[key].kind, key
+        assert (d.name, type(d).__name__) == (jd.name, type(jd).__name__) if isinstance(jd, enum.Enum) else d == jd, key
 
 
 # ------------------------------------------------------------- the golden run
