@@ -5,10 +5,13 @@
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA versions;
    TF32 off for matmuls and cuDNN.
-2. build: compiles csrc/riccati_small.cu, csrc/fd_derivs.cu,
-   csrc/fd_derivs2.cu, csrc/linesearch_flat.cu and csrc/flat_solve.cu with
-   nvcc (sm_90a), each loaded from a thread of its own so all five compile at
-   once.
+2. build: every library the run loads, one nvcc (sm_90a) each, as many at
+   once as the host has cores: csrc/riccati_small.cu at each (n, m, e) and
+   order of RICCATI_SHAPES, csrc/fd_derivs.cu and csrc/fd_derivs2.cu at each
+   joint count of FD_JOINTS (a library serves one shape, in float and
+   double), csrc/linesearch_flat.cu and csrc/flat_solve.cu; prints nvcc's
+   seconds for each.  No later phase compiles: main checks at the end that no
+   library was added.
 3. kernels vs their plain versions on the card, numpy-seeded inputs.
    Riccati, the whole reg ladder in one launch (ok and reg_used equal, gains
    within the bars): (n, m, e) = (2, 1, 1) at B=4096, T=32 in f32 and f64
@@ -87,7 +90,7 @@
    other kernel); checks finiteness, every terminal quaternion's norm within
    1e-5 of 1, the feasible share against ddp_tpu's for the same recipe on the
    CPU (0.9921875) less 0.01, then the same solve with backward="sweep"
-   (shares within 0.01), and both in f64 at 16 lanes for 12 iterations (us
+   (shares within 0.01), and both in f64 at 16 lanes for 6 iterations (us
    within 1e-7 of each lane's largest |u|, identical μ).
 8. ddp_tpu_torch.solve on the card: the golden file's configuration
    (pendulum, T=200, full DDP, f64, SolverParams(200, 1e-9, mu=1e8), x0 = 0)
@@ -111,15 +114,16 @@
    launches a replan): a warm-up, then 10 replans from x0 at rest with the
    carry carried, each timed to a torch.cuda.synchronize (p50, p99);
    finite u0 and carry; both routes in f64 for 6 replans (u0 within 1e-7 of
-   |u0|, identical μ); run_mpc and the closed loop of both routes for 10
+   |u0|, identical μ); run_mpc and the closed loop of both routes for 5
    steps in f64 (each step's states within 1e-7 of their scale, or within
    what 1e-15 on x0 does to the sweep route's, whichever is larger); and
    test_aux_subsystems.py's pendulum receding-horizon loop (a StateTarget at
    H=30, full DDP, 120 replans, f64) through the kernel at (2, 1, 2) second
    order, ending within 0.02 of q = 3.14 with |v| < 0.1.
 11. times: each kernel vs its plain version at its main-path shape (CUDA
-   events around one call, median of 20; the second-order fd and the line
-   search's plain versions median of 5; the whole solve's plain version is
+   events around one call, median of 20; the line search's plain version
+   median of 5 and the second-order fd's of 2 (f64 and on UR5 one call: a
+   call takes seconds); the whole solve's plain version is
    the one run of phase 3; the line-search kernel also by its device time
    alone, 50 launches queued behind a sleep kernel), each beside its bound —
    the Riccati ladder at (2, 1, 1), at (14, 7, 3) in both orders and types
@@ -128,7 +132,7 @@
    second order f64), on a launch plan and through its wrapper; the fd kernels on panda7 and on
    UR5 — and solves/s of the main paths, paths A and B included (median of
    3 after a warm-up; the arm's routes one solve each without one, phase 5
-   ran them; the arm's full-DDP stage median of 2), of the UR5 chain on both
+   ran them; the arm's full-DDP stage one solve), of the UR5 chain on both
    routes (median of 2).
 12. the associative-scan backward and the precision envelope: (a) the
    headline through backward="assoc" (no Riccati launch; the share against
@@ -163,7 +167,7 @@
    mean_constr the local mean; solves/s beside the unsharded),
    dryrun_multichip(1)'s contract run (share > 0.99), batch_sharded_solve on
    entry()'s problem at B=4096 (share not below the unsharded solve_vmap's;
-   8 lanes in f64 within 1e-8 of the per-trajectory solve, identical
+   4 lanes in f64 within 1e-8 of the per-trajectory solve, identical
    iterations and μ), and BASELINE configs[4]'s fleet replan,
    make_batch_mpc_step at B=32,768 through #1 (a warm-up and 10 timed
    replans, 4 launches each, p50/p99 beside the 10 ms budget, which is a
@@ -189,6 +193,33 @@
    point within 1e-6 m of ddp_tpu's, |eq| ≤ 10×) and
    examples/torch_mpc_fleet.py at B = 512 (finite u0, 7 launches of #1 a
    replan, mean |eq| ≤ 10× ddp_tpu's), each through its main() at full size.
+15. BASELINE configs[2], benchmarks/double_pendulum_reach.py's recipe
+   (2048 double pendulums to q = (0.8, -0.5) two steps past H = 32, f32, 12
+   AL iterations, 8 candidates of forward="seq" under "high", 4 reg levels)
+   through deriv="kernel", backward="kernel": (c) #2 at nv = 2 and #1 at
+   (4, 2, 2) Gauss-Newton, shapes no library had before, launched exactly
+   14 and 13 times (52 levels), the feasible share against ddp_tpu's on the
+   CPU (0.99951171875) less 0.01, the same recipe through jvp/sweep, both
+   routes in f64 at 64 lanes and 6 iterations (us within 1e-7 of each
+   lane's largest |u|, identical μ), solves/s of both (a record); (a) #1 at
+   (4, 2, 2) against its plain version on the inputs of the path's first
+   backward call at
+   phase 3's bars (f32 2e-3/2e-4, f64 1e-9; ok and reg_used equal) and on
+   its last call's (the finished solve's), where float32 resolves neither
+   the gains nor every lane's level (μ up to 1e11: each f32 order's gains
+   lie 1e2-1e4 from float64's): there f64 copies are held to the plain f64
+   version within 1e-6 of each array's largest entry (another summation
+   order, _backward_multi_reg's, lands 1.1e-8 from it on the CPU), ok and
+   reg_used equal, and f32 to ok equal,
+   finite gains and at most twice the other order's count of lanes on
+   another level (its gains' distances from f64 reported); timed there
+   (events, wrapper call, device time alone, plain, bound), the kernel
+   route's solve timed once more after its checked one; and at (6, 3, 3)
+   both orders and (12, 6, 12) second
+   order on seeded SPD inputs in both types; (b) #2 and #3 on a
+   three-revolute arm (nv = 3) and #2 on the double pendulum at
+   N = B·H = 65,536 in both types against their plain versions at phase 3's
+   fd bars, #2 there timed.
 
 Every phase prints one line (phase 3 one a case); any failure raises and
 the exit code is not 0.
@@ -202,6 +233,7 @@ import contextlib
 import importlib.util
 import io
 import json
+import os
 import statistics
 import subprocess
 import tempfile
@@ -227,6 +259,7 @@ from ddp_tpu_torch.kernels import riccati_small as rs
 from ddp_tpu_torch.kernels.flat_problem import pack_problem
 from ddp_tpu_torch.models import robots
 from ddp_tpu_torch.models.base import state_integrate, state_pack
+from ddp_tpu_torch.models.rigid_body import build_model, double_pendulum
 from ddp_tpu_torch.ocp import constraints, costs, dynamics
 from ddp_tpu_torch.ocp.problem import Problem
 from ddp_tpu_torch.ocp.problem import Derivs
@@ -281,9 +314,9 @@ DDP_KW = dict(n_linesearch=4, forward="seq", matmul_precision="highest")
 # 36 AL iterations, f32, the Riccati kernel at (12, 6, 12)
 QUAD_B, QUAD_H, QUAD_B64 = 256, 32, 16
 QUAD = SolverParams(max_iterations=36, threshold=1e-5, mu=1e4, inner_iters_max=3)
-# the f64 routes' parity at a third of the row's depth, to keep the whole run
+# the f64 routes' parity at a sixth of the row's depth, to keep the whole run
 # well inside its time limit
-QUAD64 = QUAD._replace(max_iterations=12)
+QUAD64 = QUAD._replace(max_iterations=6)
 QUAD_KW = dict(n_linesearch=8, forward="seq", matmul_precision="highest")
 QUAD_REG_LEVELS = 4  # solve_batched's default ladder depth
 # ddp_tpu's feasible share (opt_constr < 1e-2) for the same recipe on the
@@ -306,7 +339,7 @@ UR5_JAX_CPU_SHARE = 1.0
 MPC = SolverParams(max_iterations=3, threshold=1e-5, mu=1e4, inner_iters_max=1)
 # (timed replans and closed-loop steps, few enough to keep the whole run well
 # inside its time limit)
-MPC_REPLANS, MPC_LOOP_STEPS = 10, 10
+MPC_REPLANS, MPC_LOOP_STEPS = 10, 5
 # test_aux_subsystems.py::test_mpc_receding_horizon's pendulum loop
 PEND_MPC = SolverParams(max_iterations=4, threshold=1e-6, mu=1e6)
 PEND_MPC_H, PEND_MPC_REPLANS = 30, 120
@@ -351,7 +384,7 @@ FLEET = SolverParams(max_iterations=3, threshold=1e-5, mu=1e4, inner_iters_max=1
 FLEET_LAUNCHES = 1 + FLEET.max_iterations  # the pre-loop backward and one an iteration
 # lanes of the f64 checks: the per-trajectory solve against solve_vmap; the
 # two-rank split against world size 1 (and its fleet replans)
-ENTRY_B64, SPLIT_B64, SPLIT_FLEET_REPLANS = 8, 64, 3
+ENTRY_B64, SPLIT_B64, SPLIT_FLEET_REPLANS = 4, 64, 3
 # phase 14a: the arm fleet of phase 5 with four lanes started at μ = ∞ (the
 # limit of the μ·10 race: every candidate rejected, no step ever accepted),
 # solved without and with give_up_after
@@ -373,6 +406,31 @@ UR5_JAX_CPU = dict(reached=(0.7497957295496186, 0.3469154235766152, 0.0776245819
                    eq=1.1495205438356883e-07, iterations=55)  # fmt: skip
 FLEET_JAX_CPU_MEAN_EQ = 1.0395469143986702e-04
 EXAMPLES = Path(__file__).resolve().parent / "examples"
+# phase 15: BASELINE configs[2], benchmarks/double_pendulum_reach.py's
+# recipe: 2048 double pendulums to q = (0.8, -0.5) two steps past H = 32, f32,
+# 12 AL iterations, 8 candidates of forward="seq" under "high", the default
+# 4 reg levels: #2 at nv = 2 over B·H = 65,536 samples and #1 at (4, 2, 2)
+# Gauss-Newton; its f64 route check at 64 lanes
+DP_B, DP_H, DP_B64 = 2048, 32, 64
+DP = SolverParams(max_iterations=12, threshold=1e-5, mu=1e4, inner_iters_max=1)
+# the f64 route check at half the recipe's depth, as phase 5's arm, to keep
+# the whole run inside its time limit
+DP64 = DP._replace(max_iterations=6)
+DP_KW = dict(n_linesearch=8, forward="seq", matmul_precision="high")
+DP_REG_LEVELS = 4  # solve_batched's default ladder depth
+DP_TARGET = (0.8, -0.5)
+# ddp_tpu's feasible share for the recipe on the CPU (jvp/sweep, jit, f32):
+# tests/test_torch_reference_draws.py double_pendulum_share
+DP_JAX_CPU_SHARE = 0.99951171875
+# every library the run loads, each built by its own nvcc in phase 2 so that
+# no later phase includes a compile (main checks that none was added):
+# #1 at (n, m, e) and order, #2 and #3 at a joint count
+RICCATI_SHAPES = (
+    (2, 1, 1, False), (4, 2, 2, False), (6, 3, 3, False), (12, 6, 6, False),
+    (12, 6, 12, False), (14, 7, 3, False), (2, 1, 1, True), (2, 1, 2, True),
+    (4, 2, 2, True), (6, 3, 3, True), (12, 6, 6, True), (12, 6, 12, True), (14, 7, 3, True),
+)  # fmt: skip
+FD_JOINTS = (2, 3, 6, 7)
 
 
 def precise_starts():
@@ -1702,14 +1760,14 @@ def device_ms(fn, n=50, sleep_cycles=50_000_000):
 def time_ladder(card, label, triplet, n_levels, shape, second_order=False):
     """The ladder kernel on a launch plan (the kernel alone), the wrapper's
     whole call (its checks, layout copies and allocations included) and the
-    plain version on phase 3's inputs (CUDA events, median of 20, 20 and 5),
+    plain version on phase 3's inputs (CUDA events, median of 20, 20 and 2),
     beside the bound of the call."""
     inputs, mu, reg = triplet
     levels = torch.stack(_reg_levels(mu, reg, n_levels))
     plan = rs.plan_launch(*inputs, mu, levels, second_order)
     ms = event_ms(lambda: rs.launch_plan(plan))
     call_ms = event_ms(lambda: rs.backward_ladder(*inputs, mu, levels, second_order))
-    plain_ms = event_ms(lambda: rs.backward_ladder_reference(*inputs, mu, levels, second_order), reps=5)
+    plain_ms = event_ms(lambda: rs.backward_ladder_reference(*inputs, mu, levels, second_order), reps=2)
     item = mu.element_size()
     bound, bound_by = riccati_bound_ms(*shape, second_order, n_levels, item)
     Tk, *_, Bk = shape
@@ -1973,7 +2031,7 @@ def t200_row(card):
         "sweep": lambda: _backward_multi_reg(*inputs, mu, reg, 1),
         "kernel": lambda: rs.backward_ladder(*inputs, mu, levels),
     }
-    out["backward"] = backward_times(card, f"n2m1e1_T{T200}_B{B}_f32", routes, dict(sweep=5))
+    out["backward"] = backward_times(card, f"n2m1e1_T{T200}_B{B}_f32", routes, dict(sweep=5, assoc=5))
     plan = rs.plan_launch(*inputs, mu, levels)
     out["backward"]["kernel"]["device_ms"] = device_ms(lambda: rs.launch_plan(plan))
     out["bound_ms"], out["bound_by"] = riccati_bound_ms(T200, 2, 1, 1, B, levels=1, item=4)
@@ -2578,16 +2636,268 @@ def give_up_and_examples(card, arm):
     return out
 
 
-def build_kernels():
-    """Phase 2: one nvcc per source, each under its own thread's load()."""
+# ------------------------------------------- phase 15: BASELINE configs[2]
+
+
+def double_pendulum_problem(dtype):
+    """benchmarks/double_pendulum_reach.py's problem from the port's
+    constructors: Euler double pendulum (dt = 0.01), ½‖u‖², q = (0.8, −0.5)
+    at H = 32, advanced twice, Gauss-Newton."""
+    kw = dict(dtype=dtype, device=DEV)
+    model = double_pendulum(**kw)
+    dyn = dynamics.euler(model, 0.01)
+    con = constraints.advance_time(
+        constraints.ConfigTarget(model, torch.tensor(DP_TARGET, **kw), (DP_H,)), dyn, times=2
+    )
+    return Problem(dyn, costs.quad_control(1.0, **kw), con, DP_H, second_order=False)
+
+
+def double_pendulum_x0s(dtype, Bk):
+    """The recipe's draw from default_rng(0) for its 2048 lanes (q ~ U(−0.3,
+    0.3), v ~ 0.2·N(0, 1)), the first ``Bk`` of them."""
+    rng = np.random.default_rng(0)
+    x0 = np.concatenate([rng.uniform(-0.3, 0.3, (DP_B, 2)), 0.2 * rng.standard_normal((DP_B, 2))], axis=1)
+    return torch.tensor(x0[:Bk], dtype=dtype, device=DEV)
+
+
+def double_pendulum_solve(dtype, Bk, deriv, backward, params=DP):
+    """One solve of the recipe, its launches and its wall seconds."""
+    problem, x0s = double_pendulum_problem(dtype), double_pendulum_x0s(dtype, Bk)
+    reset_launch_counts()
     t0 = time.perf_counter()
-    modules = (rs, fd, fd2, lsf, fs)
-    sources = tuple(m.SOURCE for m in modules)
-    with ThreadPoolExecutor(len(modules)) as pool:
-        for built in [pool.submit(m._kernel_fn) for m in modules]:
+    res = solve_batched(problem, params, x0s, deriv=deriv, backward=backward, **DP_KW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return problem, res, dict(launch_counts(), levels_swept=rs.LEVELS_SWEPT), wall
+
+
+def double_pendulum_first_inputs(dtype):
+    """What the path's first backward call gives #1: the derivatives along
+    the rollout of zero controls from the recipe's x0s, the initial
+    multipliers, μ0 and reg 0."""
+    problem, x0s = double_pendulum_problem(dtype), double_pendulum_x0s(dtype, DP_B)
+    us = torch.zeros(DP_B, DP_H, problem.nu, dtype=dtype, device=DEV)
+    xs = problem.rollout(x0s, us)
+    mults = al.init_multipliers(problem, xs)
+    kw = dict(dtype=dtype, device=DEV)
+    mu, reg = torch.full((DP_B,), DP.mu, **kw), torch.zeros(DP_B, **kw)
+    return (problem.derivatives(xs, us), mults.val, mults.jac), mu, reg
+
+
+def kernel_vs_other_order(name, inputs, mu, reg, n_levels):
+    """Kernel #1 in f64 on inputs its gains are ill-conditioned on (a
+    finished solve's at μ up to 1e11, where another summation order, the
+    batched sweep ladder ``_backward_multi_reg``, lands 1.1e-8 of the
+    largest k from the plain f64 version on the CPU): ok and reg_used equal
+    to the plain f64 version's, and k, K within 1e-6 of each array's largest
+    entry, 100× what that order shows and far below what a wrong index
+    gives; the other order's distance is reported beside the kernel's.
+    Returns both distances."""
+    levels = torch.stack(_reg_levels(mu, reg, n_levels))
+    before = rs.LAUNCHES
+    got = rs.backward_ladder(*inputs, mu, levels)
+    torch.cuda.synchronize()
+    check(rs.LAUNCHES == before + 1, f"{name}: the wrapper did not launch its kernel once")
+    ref = rs.backward_ladder_reference(*inputs, mu, levels)
+    other = _backward_multi_reg(*inputs, mu, reg, n_levels)
+    check(torch.equal(got[2], ref[2]), f"{name}: ok vectors differ")
+    check(torch.equal(got[3], ref[3]), f"{name}: reg_used differs")
+    keep = ref[2] & other[2]
+    dist = {}
+    for i, label in enumerate(("k", "K")):
+        scale = float(ref[i][keep].abs().max())
+        k_err = float((got[i][keep] - ref[i][keep]).abs().max()) / scale
+        o_err = float((other[i][keep] - ref[i][keep]).abs().max()) / scale
+        check(k_err <= 1e-6, f"{name}: {label} {k_err:.3e} of its largest entry from plain, another order {o_err:.3e}")
+        dist[label] = (k_err, o_err)
+    say("kernel", case=name, levels=n_levels, **{f"{lb}_rel_from_plain_kernel": f"{k:.3e}" for lb, (k, _) in dist.items()},
+        **{f"{lb}_rel_from_plain_other_order": f"{o:.3e}" for lb, (_, o) in dist.items()}, bar=1e-6,
+        ok_lanes=f"{int(got[2].sum())}/{got[2].numel()}")  # fmt: skip
+    return dict(kernel_rel_from_plain=max(k for k, _ in dist.values()),
+                other_order_rel_from_plain=max(o for _, o in dist.values()))
+
+
+def kernel_f32_unresolved(name, inputs, mu, reg, n_levels):
+    """Kernel #1 in f32 on inputs where float32 resolves neither the gains
+    nor every lane's level (a finished solve's at μ up to 1e11: the AL terms
+    of Quu and Qu cancel to roundoff of μ-sized sums).  Two f32 orders, the
+    plain version and the batched sweep ladder (``_backward_multi_reg``),
+    put some lanes on other levels, and each f32 order's gains lie 1e2-1e4
+    from float64's on gains of at most ~1e3, as far as roundoff happens to
+    carry that order: no bar on the gains tells a fault from a draw there,
+    so they are reported (each order's largest distance from the plain f64
+    version on f64 copies, over the lanes all take at the same level) and
+    phase 15a holds the gains in f64 on the same inputs and in f32 on the
+    first call's.  Held: ok equal to the plain f32 version's, finite gains
+    on the lanes some level saved, and at most twice as many lanes on
+    another level than the plain version's as the other order has (at least
+    one).  Returns the counts and distances."""
+    levels = torch.stack(_reg_levels(mu, reg, n_levels))
+    before = rs.LAUNCHES
+    got = rs.backward_ladder(*inputs, mu, levels)
+    torch.cuda.synchronize()
+    check(rs.LAUNCHES == before + 1, f"{name}: the wrapper did not launch its kernel once")
+    ref = rs.backward_ladder_reference(*inputs, mu, levels)
+    other = _backward_multi_reg(*inputs, mu, reg, n_levels)
+    wide = (precise.wide(inputs[0]), inputs[1].double(), inputs[2].double())
+    truth = rs.backward_ladder_reference(*wide, mu.double(), levels.double())
+    check(torch.equal(got[2], ref[2]), f"{name}: ok vectors differ")
+    check(all(bool(torch.isfinite(x[got[2]]).all()) for x in got[:2]), f"{name}: non-finite gains")
+    moved, moved_other = int((got[3] != ref[3]).sum()), int((other[3] != ref[3]).sum())
+    check(moved <= max(2 * moved_other, 1),
+          f"{name}: {moved} lanes on another level than the plain version's, another order {moved_other}")  # fmt: skip
+    keep = (got[3] == ref[3]) & (other[3] == ref[3]) & (ref[3].double() == truth[3]) & ref[2] & truth[2]
+    dist = {label: {who: float((x[i][keep].double() - truth[i][keep]).abs().max())
+                    for who, x in (("kernel", got), ("plain", ref), ("other_order", other))}
+            for i, label in enumerate(("k", "K"))}  # fmt: skip
+    say("kernel", case=name, levels=n_levels, lanes_other_level=moved, lanes_other_level_other_order=moved_other,
+        lanes_compared=int(keep.sum()), **{f"{lb}_from_f64": {k: f"{v:.3e}" for k, v in d.items()} for lb, d in dist.items()},
+        f64_largest_k=f"{float(truth[0].abs().max()):.3e}", ok_lanes=f"{int(got[2].sum())}/{got[2].numel()}")  # fmt: skip
+    return dict(lanes_other_level=moved, lanes_other_level_other_order=moved_other, from_f64=dist)
+
+
+def three_link(dtype):
+    """A three-revolute arm (axes y, x, y; 0.4 m links, centres of mass
+    mid-link, damped), the joint count no robot of the zoo has
+    (tests/test_torch_kernels_on_host.py's)."""
+    joints = [
+        dict(type="revolute", parent=i - 1, axis=axis, placement_trans=[0.0, 0.0, 0.4 * (i > 0)],
+             mass=1.0 - 0.2 * i, com=[0.0, 0.0, 0.2], inertia=np.diag([0.02, 0.02, 0.005]))
+        for i, axis in enumerate(([0.0, 1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]))
+    ]  # fmt: skip
+    model = build_model(joints, name="three_link", device=DEV, dtype=dtype)
+    model.damping = torch.full((3,), 0.05, device=DEV, dtype=dtype)
+    return model
+
+
+def double_pendulum_path(card):
+    """Phase 15: BASELINE configs[2] at full size through #2 (nv = 2) and #1
+    at (4, 2, 2) Gauss-Newton, the shapes no library had before this phase:
+    (15c) the recipe through the kernel route with exact launch counts and
+    the feasible share against ddp_tpu's on the CPU, through jvp/sweep, and
+    both routes in f64 at 64 lanes; (15a) #1 at (4, 2, 2) against its plain
+    version on the kernel route's finished inputs in f32 and f64, timed, and
+    at (6, 3, 3) both orders and (12, 6, 12) second order on seeded SPD
+    inputs; (15b) #2 and #3 at nv = 3 and #2 on the double pendulum at
+    N = B·H, against their plain versions, #2 timed."""
+    t0 = time.perf_counter()
+    out = {}
+    # 15c: the recipe on both routes
+    p32, res_k, c_k, wall_k = double_pendulum_solve(torch.float32, DP_B, "kernel", "kernel")
+    n_bwd = 1 + DP.max_iterations
+    expect = dict(riccati=n_bwd, fd=2 + DP.max_iterations, fd2=0, linesearch=0, flat_solve=0,
+                  levels_swept=n_bwd * DP_REG_LEVELS)  # fmt: skip
+    check(c_k == expect, f"double pendulum launches {c_k} != {expect}")
+    for name in RESULT_FIELDS:
+        check(bool(torch.isfinite(getattr(res_k, name)).all()), f"double pendulum: non-finite {name}")
+    check(res_k.us.shape == (DP_B, DP_H, 2) and res_k.xs.shape == (DP_B, DP_H + 1, 4),
+          "double pendulum: result shapes")  # fmt: skip
+    frac_k = float((res_k.opt_constr < 1e-2).float().mean())
+    check(frac_k >= DP_JAX_CPU_SHARE - 0.01,
+          f"double pendulum share {frac_k} below ddp_tpu's {DP_JAX_CPU_SHARE} - 0.01")  # fmt: skip
+    _, res_j, c_j, wall_j = double_pendulum_solve(torch.float32, DP_B, "jvp", "sweep")
+    # solves/s of the kernel route after its checked solve (the first solve
+    # of the run at these shapes pays the allocator's and libraries' warm-up)
+    wall_k_first = wall_k
+    _, res_k2, c_k2, wall_k = double_pendulum_solve(torch.float32, DP_B, "kernel", "kernel")
+    check(c_k2 == expect and torch.equal(res_k2.us, res_k.us), "double pendulum: a second kernel solve differs")
+    check(sum(v for k, v in c_j.items() if k != "levels_swept") == 0,
+          f"a kernel ran on the jvp/sweep route: {c_j}")  # fmt: skip
+    frac_j = float((res_j.opt_constr < 1e-2).float().mean())
+    _, r64_k, _, _ = double_pendulum_solve(torch.float64, DP_B64, "kernel", "kernel", DP64)
+    _, r64_j, _, _ = double_pendulum_solve(torch.float64, DP_B64, "jvp", "sweep", DP64)
+    err64 = lane_scaled_err(r64_k, r64_j)
+    check(err64 <= 1e-7, f"double pendulum f64 us max scaled err {err64}")
+    check(torch.equal(r64_k.mu, r64_j.mu), "double pendulum f64: per-lane mu differs")
+    out["path"] = dict(
+        launch_counts=c_k, feasible_kernel=frac_k, feasible_jvp_sweep=frac_j,
+        feasible_ddp_tpu_cpu=DP_JAX_CPU_SHARE, solves_per_s_kernel=DP_B / wall_k,
+        solves_per_s_jvp_sweep=DP_B / wall_j, f64_us_max_scaled_err=err64,
+    )  # fmt: skip
+    say("double_pendulum", card=f"'{card}'", B=DP_B, H=DP_H, iters=DP.max_iterations, launches=c_k,
+        frac_kernel=frac_k, frac_jvp_sweep=frac_j, frac_ddp_tpu_cpu=DP_JAX_CPU_SHARE,
+        p99_eq=f"{float(torch.quantile(res_k.opt_constr, 0.99)):.3e}",
+        mu_equal_routes=float((res_k.mu == res_j.mu).float().mean()),
+        solve_s_kernel=f"{wall_k:.3f}", solve_s_kernel_first=f"{wall_k_first:.3f}",
+        solve_s_jvp_sweep=f"{wall_j:.3f}",
+        solves_per_s_kernel=f"{DP_B / wall_k:.1f}", solves_per_s_jvp_sweep=f"{DP_B / wall_j:.1f}",
+        f64_B=DP_B64, f64_us_max_scaled_err=f"{err64:.3e}", f64_mu_identical=True)  # fmt: skip
+
+    # 15a: #1 at (4, 2, 2) on the inputs of the path's first backward call
+    # (the initial rollout, μ0, zero multipliers) at phase 3's bars, and on
+    # its last call's (the finished solve's, μ up to 1e11), where no float32
+    # order resolves the gains: f64 copies held to the plain f64 version at
+    # a bar 100× another order's distance, f32 to what f32 resolves there
+    err32 = kernel_vs_plain(f"dp_first_call_f32_B{DP_B}_T{DP_H}", *double_pendulum_first_inputs(torch.float32),
+                            DP_REG_LEVELS, 2e-3, 2e-4)[0]  # fmt: skip
+    err64k = kernel_vs_plain(f"dp_first_call_f64_B{DP_B}_T{DP_H}", *double_pendulum_first_inputs(torch.float64),
+                             DP_REG_LEVELS, 1e-9, 1e-9)[0]  # fmt: skip
+    inputs, mu, reg = finished_inputs(p32, res_k)
+    fin32 = kernel_f32_unresolved(f"dp_finished_f32_B{DP_B}_T{DP_H}", inputs, mu, reg, DP_REG_LEVELS)
+    wide = ((precise.wide(inputs[0]), inputs[1].double(), inputs[2].double()), mu.double(), reg.double())
+    fin64 = kernel_vs_other_order(f"dp_finished_f64_B{DP_B}_T{DP_H}", *wide, DP_REG_LEVELS)
+    for so, dims, Bk, Tk in ((False, (6, 3, 3), 1000, 16), (True, (6, 3, 3), 1000, 16),
+                             (True, (12, 6, 12), QUAD_B, QUAD_H)):  # fmt: skip
+        label = f"{'so_' if so else ''}n{dims[0]}m{dims[1]}e{dims[2]}_B{Bk}_T{Tk}"
+        kernel_vs_plain(label + "_f64", *spd_inputs(Bk, Tk, *dims, torch.float64, so), DP_REG_LEVELS,
+                        1e-9, 1e-9, so)  # fmt: skip
+        kernel_vs_plain(label + "_f32", *spd_inputs(Bk, Tk, *dims, torch.float32, so), DP_REG_LEVELS,
+                        2e-3, 2e-4, so)  # fmt: skip
+    ladder = time_ladder(card, "n4m2e2", (inputs, mu, reg), DP_REG_LEVELS, (DP_H, 4, 2, 2, DP_B))
+    plan = rs.plan_launch(*inputs, mu, torch.stack(_reg_levels(mu, reg, DP_REG_LEVELS)))
+    ladder["device_ms"] = device_ms(lambda: rs.launch_plan(plan))
+    ladder["f64_ms"] = event_ms(lambda: rs.backward_ladder(*wide[0], wide[1],
+                                                           torch.stack(_reg_levels(*wide[1:], DP_REG_LEVELS))))
+    say("time_backward_device", card=f"'{card}'", shape=f"n4m2e2_T{DP_H}_B{DP_B}_L{DP_REG_LEVELS}",
+        device_ms_f32=f"{ladder['device_ms']:.4f}",
+        device_over_bound=f"{ladder['device_ms'] / ladder['bound_ms']:.1f}",
+        wrapper_call_f64_ms=f"{ladder['f64_ms']:.4f}")  # fmt: skip
+    out["riccati"] = dict(ladder, shape=f"n4m2e2_T{DP_H}_B{DP_B}_L{DP_REG_LEVELS}_f32",
+                          launches=c_k["riccati"], levels_swept=c_k["levels_swept"],
+                          max_abs_err=err32, f64_max_abs_err=err64k,
+                          finished_f32=fin32, finished_f64=fin64)  # fmt: skip
+
+    # 15b: #2 and #3 at nv = 3, #2 at the recipe's N = B·H on its model
+    t32, t64 = three_link(torch.float32), three_link(torch.float64)
+    fd_kernel_vs_plain("three_link_f32_N4096", t32, 4096, torch.float32, t64)
+    fd_kernel_vs_plain("three_link_f64_N4096", t64, 4096, torch.float64)
+    fd_kernel_vs_plain("fd2_three_link_f32_N4096", t32, 4096, torch.float32, t64, second=True)
+    fd_kernel_vs_plain("fd2_three_link_f64_N1000", t64, 1000, torch.float64, second=True)
+    dp32, dp64 = double_pendulum(device=DEV, dtype=torch.float32), double_pendulum(device=DEV, dtype=torch.float64)
+    N = DP_B * DP_H
+    fd_err32, fd_in = fd_kernel_vs_plain(f"double_pendulum_f32_N{N}", dp32, N, torch.float32, dp64)
+    fd_kernel_vs_plain(f"double_pendulum_f64_N{N}", dp64, N, torch.float64)
+    fd_f64_in = tuple(x.double() for x in fd_in)
+    fdt = dict(ms=event_ms(lambda: fd.fd_derivs(dp32, *fd_in)),
+               plain_ms=event_ms(lambda: fd.fd_derivs_reference(dp32, *fd_in), reps=5),
+               f64_ms=event_ms(lambda: fd.fd_derivs(dp64, *fd_f64_in)))  # fmt: skip
+    fdt["bound_ms"], fdt["bound_by"] = fd_bound_ms(dp32, N)
+    say("time_fd_derivs", card=f"'{card}'", shape=f"double_pendulum_N{N}_f32", kernel_ms=f"{fdt['ms']:.4f}",
+        plain_ms=f"{fdt['plain_ms']:.4f}", bound_ms=f"{fdt['bound_ms']:.5f}", bound_by=fdt["bound_by"],
+        kernel_over_bound=f"{fdt['ms'] / fdt['bound_ms']:.1f}", kernel_f64_ms=f"{fdt['f64_ms']:.4f}")  # fmt: skip
+    out["fd"] = dict(fdt, shape=f"double_pendulum_N{N}_f32", launches=c_k["fd"], max_abs_err=fd_err32)
+    say("phase15", wall_s=f"{time.perf_counter() - t0:.1f}")
+    return out
+
+
+def build_kernels():
+    """Phase 2: every library the run loads (#1 at ``RICCATI_SHAPES``, #2 and
+    #3 at ``FD_JOINTS``, the two flat-lane sources), one nvcc each, as many
+    at once as the host has cores.  Returns the libraries built and nvcc's
+    seconds for each."""
+    t0 = time.perf_counter()
+    jobs = [(f"riccati_small_n{n}m{m}e{e}{'_so' if so else ''}", rs, (n, m, e, so),
+             rs.instantiation(n, m, e, so)) for n, m, e, so in RICCATI_SHAPES]  # fmt: skip
+    jobs += [(f"{mod.SOURCE[:-3]}_nv{nv}", mod, (nv,), fd.instantiation(nv))
+             for mod in (fd, fd2) for nv in FD_JOINTS]  # fmt: skip
+    jobs += [(mod.SOURCE[:-3], mod, (), None) for mod in (lsf, fs)]
+    with ThreadPoolExecutor(os.cpu_count() or 8) as pool:
+        for built in [pool.submit(mod._kernel_fn, *args) for _, mod, args, _ in jobs]:
             built.result()
-    say("build", sources=",".join(sources), wall_s=f"{time.perf_counter() - t0:.1f}",
-        nvcc_s=[f"{_build.build_seconds(x):.1f}" for x in sources])  # fmt: skip
+    nvcc_s = {name: _build.build_seconds(mod.SOURCE, c) for name, mod, _, c in jobs}
+    say("build", libraries=len(jobs), wall_s=f"{time.perf_counter() - t0:.1f}",
+        nvcc_s={k: f"{v:.1f}" for k, v in nvcc_s.items()})  # fmt: skip
+    return _build.loaded(), nvcc_s
 
 
 def riccati_checks():
@@ -2759,7 +3069,7 @@ def main():
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)  # fmt: skip
 
     # 2. build
-    build_kernels()
+    built, nvcc_s = build_kernels()
 
     # 3. kernel vs plain version
     k3 = kernel_checks()
@@ -2908,8 +3218,8 @@ def main():
             peak_mem_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.1f}")  # fmt: skip
 
     fd_ms = event_ms(lambda: fd.fd_derivs(panda32, *fd_in))
-    fd_plain_ms = event_ms(lambda: fd.fd_derivs_reference(panda32, *fd_in))
-    fd_model_ms = event_ms(lambda: panda32.fd_derivatives(*fd_in))
+    fd_plain_ms = event_ms(lambda: fd.fd_derivs_reference(panda32, *fd_in), reps=5)
+    fd_model_ms = event_ms(lambda: panda32.fd_derivatives(*fd_in), reps=5)
     fd_bound, fd_bound_by = fd_bound_ms(panda32, N)
     fd_f64_in = tuple(x.double() for x in fd_in)
     fd_f64_ms = event_ms(lambda: fd.fd_derivs(panda64, *fd_f64_in))
@@ -2945,7 +3255,7 @@ def main():
                f64_ms=event_ms(lambda: fd.fd_derivs(ur5_64, *ur5_fd_f64_in)))  # fmt: skip
     ufd["bound_ms"], ufd["bound_by"] = fd_bound_ms(ur5_32, NU)
     ufd2 = dict(ms=event_ms(lambda: fd2.fd_derivs2(ur5_32, *ur5_fd_in)),
-                plain_ms=event_ms(lambda: fd2.fd_derivs2_reference(ur5_32, *ur5_fd_in), reps=3),
+                plain_ms=event_ms(lambda: fd2.fd_derivs2_reference(ur5_32, *ur5_fd_in), reps=1),
                 f64_ms=event_ms(lambda: fd2.fd_derivs2(ur5_64, *ur5_fd_f64_in), reps=5))  # fmt: skip
     ufd2["bound_ms"], ufd2["bound_by"] = fd2_bound_ms(ur5_32, NU)
     for name, t in (("fd_derivs", ufd), ("fd_derivs2", ufd2)):
@@ -2974,11 +3284,11 @@ def main():
         quadrotor_single_solve_s=f"{solve_walls['quadrotor_s']:.3f}")  # fmt: skip
 
     fd2_ms = event_ms(lambda: fd2.fd_derivs2(panda32, *fd_in))
-    fd2_plain_ms = event_ms(lambda: fd2.fd_derivs2_reference(panda32, *fd_in), reps=5)
+    fd2_plain_ms = event_ms(lambda: fd2.fd_derivs2_reference(panda32, *fd_in), reps=2)
     fd2_bound, fd2_bound_by = fd2_bound_ms(panda32, N)
     fd2_f64_in = tuple(x.double() for x in fd_in)
     fd2_f64_ms = event_ms(lambda: fd2.fd_derivs2(panda64, *fd2_f64_in), reps=5)
-    fd2_plain_f64_ms = event_ms(lambda: fd2.fd_derivs2_reference(panda64, *fd2_f64_in), reps=3)
+    fd2_plain_f64_ms = event_ms(lambda: fd2.fd_derivs2_reference(panda64, *fd2_f64_in), reps=1)
     fd2_bound_f64, _ = fd2_bound_ms(panda64, N, item=8)
     say("time_fd_derivs2", card=f"'{card}'", shape=f"panda7_N{N}_f32", kernel_ms=f"{fd2_ms:.4f}",
         plain_ms=f"{fd2_plain_ms:.4f}", bound_ms=f"{fd2_bound:.5f}", bound_by=fd2_bound_by,
@@ -2988,7 +3298,7 @@ def main():
         bound_f64_ms=f"{fd2_bound_f64:.5f}")  # fmt: skip
     torch.cuda.reset_peak_memory_stats()
     walls = []
-    for _ in range(2):
+    for _ in range(1):  # phase 6 ran this stage: no warm-up
         t0 = time.perf_counter()
         ddp_stage(a2_32, ax32, gn_k, "kernel", "kernel")
         walls.append(time.perf_counter() - t0)
@@ -3010,6 +3320,11 @@ def main():
     # 14. give_up_after's dead lanes, and the examples as entry points
     p14 = give_up_and_examples(card, (a32, ax32, au32))
 
+    # 15. BASELINE configs[2], the double-pendulum reach, through #2 and #1 at
+    # shapes built on demand
+    p15 = double_pendulum_path(card)
+
+    check(_build.loaded() == built, f"libraries built after phase 2: {_build.loaded() - built}")
     say("total", wall_s=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
         {
@@ -3072,6 +3387,9 @@ def main():
                 shape=f"n14m7e3_T{ARM_H}_B{ARM_B}_L{ARM_REG_LEVELS}_f32", arm=p14["a"],
                 pendulum_f64_launches=p14["b"], fleet_example=p14["c"]["fleet"],
             ),
+            # phase 15: BASELINE configs[2] through #1 at (4, 2, 2), 4 levels
+            "double_pendulum_path": dict(p15["riccati"], **p15["path"]),
+            "nvcc_s": {k: v for k, v in nvcc_s.items() if k.startswith("riccati")},
             "tf_yardstick": dict(
                 shape=f"n2m1e1_T{T}_B{B}_L{HEADLINE_KW['n_reg_levels']}_f64", launches=p12["c"]["launches"],
                 max_abs_err=p12["c"]["max_abs_err"], max_rel_err=p12["c"]["max_rel_err"],
@@ -3092,6 +3410,9 @@ def main():
                              max_abs_err=k3["ur5_fd_err32"]),
             # phase 14a: the racing arm fleet, 1 + 24 + 1 launches a solve
             "give_up_path": dict(shape=f"panda7_N{N}_f32", launches_each=p14["a"]["launches"]["fd"]),
+            # phase 15: BASELINE configs[2], nv = 2 over B·H samples
+            "double_pendulum_path": p15["fd"],
+            "nvcc_s": {k: v for k, v in nvcc_s.items() if k.startswith("fd_derivs_")},
         },
         {
             "name": "fd_derivs2", "route": "cuda",
@@ -3102,6 +3423,7 @@ def main():
             "library_ms": None, "f64_ms": fd2_f64_ms,
             "ur5_path": dict(ufd2, shape=f"ur5_N{NU}_f32", launches=ur5c["launches_ddp"]["fd2"],
                              max_abs_err=k3["ur5_fd2_err32"]),
+            "nvcc_s": {k: v for k, v in nvcc_s.items() if k.startswith("fd_derivs2")},
         },
         {
             "name": "riccati_small_bwd_second_order", "route": "cuda",
@@ -3132,7 +3454,7 @@ def main():
             "plain_ms": ls_plain_ms, "bound_ms": ls_bound, "bound_by": ls_bound_by,
             "library_ms": None, "wrapper_call_ms": ls_call_ms, "f64_ms": ls_f64_ms,
             "device_ms": ls_device_ms, "device_f64_ms": ls_device_f64_ms,
-            "riccati_launches_on_its_path": ls_rs_launches,
+            "riccati_launches_on_its_path": ls_rs_launches, "nvcc_s": nvcc_s["linesearch_flat"],
         },
         {
             "name": "flat_solve", "route": "cuda",
@@ -3141,6 +3463,7 @@ def main():
             "launches": fs_launches, "max_abs_err": k3["fs_err32"], "ms": fs_ms,
             "plain_ms": fs_plain_ms, "bound_ms": fs_bound, "bound_by": fs_bound_by,
             "library_ms": None, "wrapper_call_ms": fs_call_ms, "f64_ms": fs_f64_ms,
+            "nvcc_s": nvcc_s["flat_solve"],
         },
     ]}))  # fmt: skip
     print(json.dumps({"ok": True, "device": {

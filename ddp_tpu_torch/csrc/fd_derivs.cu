@@ -16,7 +16,7 @@
 // with fd_derivs2.cu): world kinematics, world spatial inertias, RNEA with
 // gravity and damping, composite bodies for M, one Cholesky of M (IEEE sqrt).
 //
-// The model is DATA, not code: one source serves every model with NV joints.
+// The model is DATA, not code: one library serves every model with NV joints.
 // ``topo`` holds joint types (0 revolute, 1 prismatic) and parents (a parent
 // precedes its children; -1 for a root), ``consts`` the axes, placements,
 // spatial inertias, gravity and damping; all threads read the same addresses,
@@ -164,6 +164,13 @@ __global__ void __launch_bounds__(64) fd_v_kernel(
 
 // ------------------------------------------------------------ launch
 
+// One library serves one joint count, both value types: kernels/_build.py
+// compiles this file with -DDDP_NV=nv for the model of the call.
+#ifndef DDP_NV
+#error "build with -DDDP_NV=<joint count> (kernels/_build.py)"
+#endif
+static_assert(DDP_NV >= 1, "a model has at least one joint");
+
 template <typename S, int NV>
 int launch(const void* topo_, const void* consts_, const void* qvu_, void* a_, void* Aq_,
            void* Av_, void* Mi_, void* Lf_, void* kin_, int N, cudaStream_t stream) {
@@ -183,28 +190,20 @@ int launch(const void* topo_, const void* consts_, const void* qvu_, void* a_, v
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NV>
-int launch_dtype(int is_double, const void* topo, const void* consts, const void* qvu, void* a,
-                 void* Aq, void* Av, void* Mi, void* Lf, void* kin, int N, cudaStream_t s) {
-  return is_double ? launch<double, NV>(topo, consts, qvu, a, Aq, Av, Mi, Lf, kin, N, s)
-                   : launch<float, NV>(topo, consts, qvu, a, Aq, Av, Mi, Lf, kin, N, s);
-}
-
 }  // namespace
 
 // Plain C entry point, loaded through ctypes.  ``topo`` is int32 [2*nv]
 // (joint types, parents); ``consts`` is [51*nv + 3 + nv] of the working type
 // (axes, jp_rot, jp_trans, inertias, gravity, damping); ``qvu`` is
 // [3*nv, N]; ``Lf`` [nv*(nv+1)/2, N] and ``kin`` [42*nv, N] are scratch.
-// Returns cudaGetLastError() after the three launches; -1 for an nv this
-// build does not instantiate.
+// Returns cudaGetLastError() after the three launches; -1 for an nv other
+// than the one this library was built for.
 extern "C" int ddp_fd_derivs(int is_double, int nv, int N, const void* topo,
                              const void* consts, const void* qvu, void* a,
                              void* Aq, void* Av, void* Mi, void* Lf, void* kin, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nv != DDP_NV) return -1;  // a wrong library: the wrapper loads one per joint count
   if (N <= 0) return 0;  // an empty grid is not a valid launch
-  if (nv == 2) return launch_dtype<2>(is_double, topo, consts, qvu, a, Aq, Av, Mi, Lf, kin, N, s);
-  if (nv == 6) return launch_dtype<6>(is_double, topo, consts, qvu, a, Aq, Av, Mi, Lf, kin, N, s);
-  if (nv == 7) return launch_dtype<7>(is_double, topo, consts, qvu, a, Aq, Av, Mi, Lf, kin, N, s);
-  return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_double ? launch<double, DDP_NV>(topo, consts, qvu, a, Aq, Av, Mi, Lf, kin, N, s)
+                   : launch<float, DDP_NV>(topo, consts, qvu, a, Aq, Av, Mi, Lf, kin, N, s);
 }

@@ -275,6 +275,15 @@ __global__ void __launch_bounds__(64) fd2_pair_kernel(
   }
 }
 
+// ------------------------------------------------------------ launch
+
+// One library serves one joint count, both value types: kernels/_build.py
+// compiles this file with -DDDP_NV=nv for the model of the call.
+#ifndef DDP_NV
+#error "build with -DDDP_NV=<joint count> (kernels/_build.py)"
+#endif
+static_assert(DDP_NV >= 1, "a model has at least one joint");
+
 template <typename S, int NV>
 int launch(const void* topo_, const void* consts_, const void* qvu_, void* a_, void* Aq_,
            void* Av_, void* Mi_, void* Lf_, void* H_, int N, cudaStream_t stream) {
@@ -298,28 +307,20 @@ int launch(const void* topo_, const void* consts_, const void* qvu_, void* a_, v
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NV>
-int launch_dtype(int is_double, const void* topo, const void* consts, const void* qvu, void* a,
-                 void* Aq, void* Av, void* Mi, void* Lf, void* H, int N, cudaStream_t s) {
-  return is_double ? launch<double, NV>(topo, consts, qvu, a, Aq, Av, Mi, Lf, H, N, s)
-                   : launch<float, NV>(topo, consts, qvu, a, Aq, Av, Mi, Lf, H, N, s);
-}
-
 }  // namespace
 
 // Plain C entry point, loaded through ctypes.  ``topo``, ``consts`` and
 // ``qvu`` are ddp_fd_derivs's (fd_derivs.cu); ``Lf`` is a scratch buffer of
 // [nv*(nv+1)/2, N] for the factor of M; ``H`` is [nv*(3nv)*(3nv), N].
-// Returns cudaGetLastError() after the four launches; -1 for an nv this build
-// does not instantiate.
+// Returns cudaGetLastError() after the four launches; -1 for an nv other
+// than the one this library was built for.
 extern "C" int ddp_fd_derivs2(int is_double, int nv, int N, const void* topo,
                               const void* consts, const void* qvu, void* a,
                               void* Aq, void* Av, void* Mi, void* Lf, void* H,
                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nv != DDP_NV) return -1;  // a wrong library: the wrapper loads one per joint count
   if (N <= 0) return 0;  // an empty grid is not a valid launch
-  if (nv == 2) return launch_dtype<2>(is_double, topo, consts, qvu, a, Aq, Av, Mi, Lf, H, N, s);
-  if (nv == 6) return launch_dtype<6>(is_double, topo, consts, qvu, a, Aq, Av, Mi, Lf, H, N, s);
-  if (nv == 7) return launch_dtype<7>(is_double, topo, consts, qvu, a, Aq, Av, Mi, Lf, H, N, s);
-  return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_double ? launch<double, DDP_NV>(topo, consts, qvu, a, Aq, Av, Mi, Lf, H, N, s)
+                   : launch<float, DDP_NV>(topo, consts, qvu, a, Aq, Av, Mi, Lf, H, N, s);
 }

@@ -25,9 +25,10 @@
 //
 // Two programs.
 //
-// Large dims, n >= 12 ((12, 6, 6), (12, 6, 12) and (14, 7, 3)): one block per lane, one
-// warp per level.  Inputs are read lane-major, straight from the batch-major
-// [B, T, ...] tensors of Derivs (a lane's step slab is contiguous): the block
+// Large dims, 12 <= n <= 31 (UR5 (12, 6, 6), the quadrotor (12, 6, 12),
+// panda7 (14, 7, 3)): one block per lane, one warp per level.  Inputs are
+// read lane-major, straight from the batch-major [B, T, ...] tensors of
+// Derivs (a lane's step slab is contiguous): the block
 // copies lane b's step t-1 into shared memory with cp.async (4- or 8-byte
 // granules: slabs of 7, 21, 49 or 98 values neither start nor end on 16
 // bytes) while step t computes, once for all its levels.  The level-free
@@ -43,12 +44,12 @@
 // level's to the batch-major k [B, T, m], K [B, T, m, n] (a one-level call
 // writes them there directly).
 //
-// Small dims ((2, 1, 1), (4, 2, 2)): one thread per lane and level, state in
-// registers, inputs read batch-major like the large-dims program's (a lane's
-// slab of a field over all T steps is contiguous, so a warp's load is 32
-// sectors apart).  The kernel alone is slower than over a batch-last copy,
-// but the call is faster, since it makes no copy (examples/
-// torch_riccati_layout.py).  A block is 32 lanes x L levels, which meet in
+// Small dims, n < 12 (the pendulum (2, 1, ·), the double pendulum (4, 2, 2)):
+// one thread per lane and level, state in registers, inputs read batch-major
+// like the large-dims program's (a lane's slab of a field over all T steps is
+// contiguous, so a warp's load is 32 sectors apart).  The kernel alone is
+// slower than over a batch-last copy, but the call is faster, since it makes
+// no copy (examples/torch_riccati_layout.py).  A block is 32 lanes x L levels, which meet in
 // shared memory for the choice.  4096 lanes make 128 blocks.
 //
 // Bound: at (14, 7, 3), T = 16, B = 256, four levels the multiply-adds of
@@ -601,6 +602,19 @@ __global__ void __launch_bounds__(32 * kMaxLevels, 1) ladder_small_kernel(const 
 
 // ------------------------------------------------------------ launch
 
+// One library serves one shape and order, both value types: kernels/_build.py
+// compiles this file with -DDDP_N=n -DDDP_M=m -DDDP_E=e -DDDP_SO=0|1 for the
+// shape of the call (the CUDA counterpart of Pallas specialising at trace
+// time), so the template parameters below are compile-time constants.
+#if !defined(DDP_N) || !defined(DDP_M) || !defined(DDP_E) || !defined(DDP_SO)
+#error "build with -DDDP_N=<n> -DDDP_M=<m> -DDDP_E=<e> -DDDP_SO=<0|1> (kernels/_build.py)"
+#endif
+static_assert(DDP_N >= 1 && DDP_M >= 1 && DDP_E >= 1, "n, m and e are at least 1");
+// the large-dims program solves the 1 + n right-hand sides one a lane of a
+// warp, and a column of the Cholesky below its pivot one row a lane
+static_assert(DDP_N < 12 || (DDP_N <= 31 && DDP_M <= 32),
+              "the large-dims program takes n <= 31 and m <= 32");
+
 // extra return codes beside cudaGetLastError()'s
 constexpr int kNoInstantiation = -1;
 constexpr int kTooManyLevels = -2;
@@ -629,24 +643,7 @@ int launch(const Args<S>& a, cudaStream_t stream) {
 }
 
 template <typename S>
-int dispatch(int second_order, int n, int m, int e, const Args<S>& a, cudaStream_t s) {
-  if (second_order) {
-    if (n == 2 && m == 1 && e == 1) return launch<S, 2, 1, 1, true>(a, s);
-    if (n == 2 && m == 1 && e == 2) return launch<S, 2, 1, 2, true>(a, s);
-    if (n == 4 && m == 2 && e == 2) return launch<S, 4, 2, 2, true>(a, s);
-    if (n == 12 && m == 6 && e == 6) return launch<S, 12, 6, 6, true>(a, s);
-    if (n == 14 && m == 7 && e == 3) return launch<S, 14, 7, 3, true>(a, s);
-    return kNoInstantiation;
-  }
-  if (n == 2 && m == 1 && e == 1) return launch<S, 2, 1, 1, false>(a, s);
-  if (n == 12 && m == 6 && e == 6) return launch<S, 12, 6, 6, false>(a, s);
-  if (n == 12 && m == 6 && e == 12) return launch<S, 12, 6, 12, false>(a, s);
-  if (n == 14 && m == 7 && e == 3) return launch<S, 14, 7, 3, false>(a, s);
-  return kNoInstantiation;
-}
-
-template <typename S>
-int run(int second_order, int n, int m, int e, int T, int B, int L,
+int run(int second_order, int T, int B, int L,
         const void* const* in, void* ks, void* Ks, void* k, void* K, void* ok,
         void* reg_used, void* stream) {
   Args<S> a;
@@ -665,7 +662,7 @@ int run(int second_order, int n, int m, int e, int T, int B, int L,
   a.T = T;
   a.B = B;
   a.L = L;
-  return dispatch<S>(second_order, n, m, e, a, static_cast<cudaStream_t>(stream));
+  return launch<S, DDP_N, DDP_M, DDP_E, DDP_SO != 0>(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -677,15 +674,17 @@ int run(int second_order, int n, int m, int e, int T, int B, int L,
 // The per-step inputs are batch-major [B, T, rows].  ``ks``/``Ks`` are per-level scratch of
 // L*B*T*m and L*B*T*m*n values (unread when L == 1); k [B, T, m],
 // K [B, T, m, n], ok [B], reg_used [B] are written.  Returns
-// cudaGetLastError() after the launch, -1 for dims or an order this build
-// does not instantiate, -2 for L outside 1..16, -3 for more shared memory
+// cudaGetLastError() after the launch, -1 for dims or an order other than
+// the ones this library was built for, -2 for L outside 1..16, -3 for more shared memory
 // than a block of this card can have.
 extern "C" int ddp_riccati_ladder(int is_double, int second_order, int n, int m,
                                   int e, int T, int B, int L,
                                   const void* const* in, void* ks, void* Ks,
                                   void* k, void* K, void* ok, void* reg_used,
                                   void* stream) {
+  if (n != DDP_N || m != DDP_M || e != DDP_E || (second_order != 0) != (DDP_SO != 0))
+    return kNoInstantiation;  // a wrong library: the wrapper loads one per shape
   if (B <= 0 || T <= 0) return 0;  // an empty grid is not a valid launch
-  return is_double ? run<double>(second_order, n, m, e, T, B, L, in, ks, Ks, k, K, ok, reg_used, stream)
-                   : run<float>(second_order, n, m, e, T, B, L, in, ks, Ks, k, K, ok, reg_used, stream);
+  return is_double ? run<double>(second_order, T, B, L, in, ks, Ks, k, K, ok, reg_used, stream)
+                   : run<float>(second_order, T, B, L, in, ks, Ks, k, K, ok, reg_used, stream);
 }

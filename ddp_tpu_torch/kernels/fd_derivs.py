@@ -12,15 +12,16 @@ CUDA tensors (a primal pass a thread a sample: the chain, the factor of M, a
 and M⁻¹ once; then a q pass and a v pass, a thread a sample and direction,
 each carrying only its own tangent and solving against the primal pass's
 factor; the model's constants are data uploaded by the wrapper, so one
-compiled source serves every model with the same joint count) and the plain
-PyTorch version ``fd_derivs_reference`` on CPU tensors.  The plain version
-follows the kernel's algorithm step by step, so the two compare tightly on
-the card.
+library, which nvcc builds for the joint count at its first call, serves
+every model with that count) and the plain PyTorch version
+``fd_derivs_reference`` on CPU tensors.  The plain version follows the
+kernel's algorithm step by step, so the two compare tightly on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import weakref
 
 import torch
@@ -32,9 +33,6 @@ from ddp_tpu_torch.models.rigid_body import _block2, _mv
 from ddp_tpu_torch.ops import lie
 
 SOURCE = "fd_derivs.cu"
-# joint counts the CUDA source instantiates (each for float and double):
-# cartpole/acrobot, UR5-class arms, panda7
-KERNEL_NV = (2, 6, 7)
 # kernel calls since import (or since a caller reset it); each launches the
 # primal pass, the q pass and the v pass
 LAUNCHES = 0
@@ -209,8 +207,6 @@ def _model_constants(model, dtype, device):
     cache = _CONSTANTS.setdefault(model, {})
     key = (torch.device(device), dtype)
     if key not in cache:
-        if any(p >= i for i, p in enumerate(model.parents)):
-            raise ValueError("fd_derivs needs every parent to precede its children")
         codes = [_JOINT_CODE[t] for t in model.joint_types]
         topo = torch.tensor(codes + list(model.parents), dtype=torch.int32, device=device)
         consts = torch.cat(
@@ -232,11 +228,13 @@ def forget_model(model) -> None:
     _CONSTANTS.pop(model, None)
 
 
-def _launch(model, q, v, tau):
-    global LAUNCHES
-    nv = len(model.joint_types)
-    if nv not in KERNEL_NV:
-        raise ValueError(f"no CUDA instantiation for nv={nv}; have {KERNEL_NV}")
+def check_launch(model, q, v, tau) -> int:
+    """The launch gates of both fd kernels: the joints, the parents' order,
+    the dtype, and the device, dtype and shape of every input.  Raises
+    ValueError or TypeError before anything is built; returns nv."""
+    nv = check_model(model)
+    if any(p >= i for i, p in enumerate(model.parents)):
+        raise ValueError("fd_derivs needs every parent to precede its children")
     N, dtype, dev = q.shape[0], q.dtype, q.device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernel takes float32 or float64, got {dtype}")
@@ -245,11 +243,25 @@ def _launch(model, q, v, tau):
             raise ValueError(f"{name}: {x.dtype} on {x.device}, expected {dtype} on {dev}")
         if tuple(x.shape) != (N, nv):
             raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {(N, nv)}")
+    return nv
+
+
+def instantiation(nv: int) -> dict:
+    """The build constants of the library that serves ``nv`` joints (for
+    this kernel and the second-order one): one nvcc build a joint count,
+    made at its first call (``_build``)."""
+    return {"NV": nv}
+
+
+def _launch(model, q, v, tau):
+    global LAUNCHES
+    nv = check_launch(model, q, v, tau)
+    N, dtype, dev = q.shape[0], q.dtype, q.device
     a_t = torch.empty((nv, N), dtype=dtype, device=dev)
     Aq_t, Av_t, Mi_t = (torch.empty((nv * nv, N), dtype=dtype, device=dev) for _ in range(3))
     if N == 0:  # nothing to launch, and nothing to count
         return unpack_outputs(a_t, Aq_t, Av_t, Mi_t)
-    fn = _kernel_fn()
+    fn = _kernel_fn(nv)
     topo, consts = _model_constants(model, dtype, dev)
     qvu = pack_inputs(q, v, tau)
     # scratch of the primal pass: the factor of M and the kinematics
@@ -268,8 +280,11 @@ def _launch(model, q, v, tau):
     return unpack_outputs(a_t, Aq_t, Av_t, Mi_t)
 
 
-def _kernel_fn():
-    lib = _build.load(SOURCE)
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(nv):
+    """The C entry point of the library for ``nv`` joints, built on first
+    use and cached: a launch pays a dict lookup for it."""
+    lib = _build.load(SOURCE, instantiation(nv))
     fn = lib.ddp_fd_derivs
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
     fn.restype = ctypes.c_int

@@ -11,7 +11,8 @@ factor of M:
     M ∂(τ_k)∂s a = −(∂s M)·(M⁻¹ e_k),         ∂τ∂τ' a = 0
 
 — what the full-DDP derivative pass needs of the dynamics.  ``fd_derivs2``
-runs the CUDA kernel ``csrc/fd_derivs2.cu`` on CUDA tensors (a primal pass
+runs the CUDA kernel ``csrc/fd_derivs2.cu`` on CUDA tensors (from the
+library nvcc builds for the joint count at its first call; a primal pass
 that runs the chain, factors M and forms a and M⁻¹ once a sample, then one
 pass per kind of pair of (q, v) directions, a thread per sample and pair:
 the whole chain in hyper-dual numbers for a (q, q) pair, the kinematics in
@@ -27,16 +28,18 @@ one value.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 from torch.func import jvp, vmap
 
 from ddp_tpu_torch.kernels import _build
 from ddp_tpu_torch.kernels.fd_derivs import (
-    KERNEL_NV,
     _chain_M_bias,
     _model_constants,
+    check_launch,
     check_model,
+    instantiation,
     pack_inputs,
     unpack_outputs,
 )
@@ -134,24 +137,15 @@ def fd_derivs2(model, q, v, tau):
 
 def _launch(model, q, v, tau):
     global LAUNCHES
-    nv = len(model.joint_types)
-    if nv not in KERNEL_NV:
-        raise ValueError(f"no CUDA instantiation for nv={nv}; have {KERNEL_NV}")
+    nv = check_launch(model, q, v, tau)
     N, dtype, dev = q.shape[0], q.dtype, q.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"kernel takes float32 or float64, got {dtype}")
-    for name, x in (("q", q), ("v", v), ("tau", tau)):
-        if x.device != dev or x.dtype != dtype:
-            raise ValueError(f"{name}: {x.dtype} on {x.device}, expected {dtype} on {dev}")
-        if tuple(x.shape) != (N, nv):
-            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {(N, nv)}")
     a_t = torch.empty((nv, N), dtype=dtype, device=dev)
     Aq_t, Av_t, Mi_t = (torch.empty((nv * nv, N), dtype=dtype, device=dev) for _ in range(3))
     H_t = torch.empty((nv * 9 * nv * nv, N), dtype=dtype, device=dev)
     L_t = torch.empty((nv * (nv + 1) // 2, N), dtype=dtype, device=dev)  # factor of M
     if N == 0:  # nothing to launch, and nothing to count
         return (*unpack_outputs(a_t, Aq_t, Av_t, Mi_t), unpack_hessian(H_t, nv))
-    fn = _kernel_fn()
+    fn = _kernel_fn(nv)
     topo, consts = _model_constants(model, dtype, dev)
     qvu = pack_inputs(q, v, tau)
     with torch.cuda.device(dev):
@@ -167,8 +161,11 @@ def _launch(model, q, v, tau):
     return (*unpack_outputs(a_t, Aq_t, Av_t, Mi_t), unpack_hessian(H_t, nv))
 
 
-def _kernel_fn():
-    lib = _build.load(SOURCE)
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(nv):
+    """The C entry point of the library for ``nv`` joints, built on first
+    use and cached: a launch pays a dict lookup for it."""
+    lib = _build.load(SOURCE, instantiation(nv))
     fn = lib.ddp_fd_derivs2
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
     fn.restype = ctypes.c_int

@@ -8,9 +8,11 @@ the first one whose factorization held: (k [B, T, m], K [B, T, m, n],
 ok [B], reg_used [B]).  On CUDA tensors that is one launch of
 ``csrc/riccati_small.cu``, reading the batch-major tensors as they are (one
 block per lane and a warp per level at n ≥ 12, one thread per lane and level
-below); on CPU tensors it is the plain PyTorch version
-``backward_ladder_reference``, one ``backward_sweep_reference`` per level
-over the batch-last ``pack_batch_last`` layout below.  AL multiplier terms
+below), from the library nvcc built for that (n, m, e) and order at its
+first call (``instantiation``, ``_build.load``); on CPU tensors it is the
+plain PyTorch version ``backward_ladder_reference``, one
+``backward_sweep_reference`` per level over the batch-last
+``pack_batch_last`` layout below.  AL multiplier terms
 throughout; with ``second_order`` the six rank-3 slabs ``fxx … equu`` add
 ``Vx·fxx + tmp·eqxx`` and its ux/uu counterparts to the Q expansion, without
 them it is the Gauss-Newton form.
@@ -19,6 +21,7 @@ them it is the Gauss-Newton form.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -26,18 +29,15 @@ import torch
 from ddp_tpu_torch.kernels import _build
 
 SOURCE = "riccati_small.cu"
-# (n, m, e) the CUDA source instantiates: the pendulum headline, UR5 with a
-# configuration target, the quadrotor with a state target, panda7 with a
-# frame target
-KERNEL_DIMS = ((2, 1, 1), (12, 6, 6), (12, 6, 12), (14, 7, 3))
-# … and with the second-order terms: the pendulum with a configuration and
-# with a state target, cartpole/acrobot and UR5 with a configuration target,
-# panda7 with a frame target
-KERNEL_DIMS_SECOND_ORDER = ((2, 1, 1), (2, 1, 2), (4, 2, 2), (12, 6, 6), (14, 7, 3))
+# n from which a lane takes a block (a warp a level) instead of a thread a
+# level, and the widths that program takes (a right-hand side of the 1 + n,
+# and a row below a Cholesky pivot, a lane of a warp)
+LARGE_N = 12
+LARGE_MAX_N, LARGE_MAX_M = 31, 32
 # the most reg levels one launch sweeps (a warp, or a row of threads, each)
 MAX_LEVELS = 16
 # kernel launches since import (or since a caller reset it), how many of
-# them ran a second-order instantiation, and the reg levels they swept
+# them ran a second-order library, and the reg levels they swept
 LAUNCHES = 0
 LAUNCHES_SECOND_ORDER = 0
 LEVELS_SWEPT = 0
@@ -215,19 +215,28 @@ def backward_ladder(derivs, mult_val, mult_jac, mu, levels, second_order=False):
     return launch_plan(plan_launch(derivs, mult_val, mult_jac, mu, levels, second_order))
 
 
+def instantiation(n, m, e, second_order=False) -> dict:
+    """The build constants of the library that serves (n, m, e) and the
+    order: one nvcc build a shape, made at its first call (``_build``).
+    Raises ValueError for a shape the source does not take."""
+    if min(n, m, e) < 1:
+        raise ValueError(f"the kernel takes n, m, e >= 1, got (n, m, e)={(n, m, e)}")
+    if n >= LARGE_N and (n > LARGE_MAX_N or m > LARGE_MAX_M):
+        raise ValueError(
+            f"(n, m, e)={(n, m, e)}: the kernel's large-dims program takes "
+            f"n <= {LARGE_MAX_N} and m <= {LARGE_MAX_M} (a lane of a warp each)"
+        )
+    return {"N": n, "M": m, "E": e, "SO": int(second_order)}
+
+
 def kernel_inputs(derivs, mult_val, mult_jac, mu, levels, second_order=False):
-    """Check a call against the kernel's instantiations and gates, and return
-    the tensors it reads, contiguous, by name: the per-step fields
-    (batch-major [B, T, rows]), mu, levels, lfx [B, n] and lfxx [B, n*n].  Raises ValueError or TypeError for
-    what the kernel does not take."""
+    """Check a call against the kernel's gates, and return the tensors it
+    reads, contiguous, by name: the per-step fields (batch-major
+    [B, T, rows]), mu, levels, lfx [B, n] and lfxx [B, n*n].  Raises
+    ValueError or TypeError for what the kernel does not take."""
     B, T = derivs.lx.shape[0], derivs.lx.shape[1]
     n, m, e = derivs.lx.shape[-1], derivs.lu.shape[-1], derivs.eq.shape[-1]
-    have = KERNEL_DIMS_SECOND_ORDER if second_order else KERNEL_DIMS
-    if (n, m, e) not in have:
-        raise ValueError(
-            f"no CUDA instantiation for (n, m, e)={(n, m, e)}"
-            f"{' with second-order terms' if second_order else ''}; have {have}"
-        )
+    instantiation(n, m, e, second_order)
     dtype, dev = mu.dtype, mu.device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernel takes float32 or float64, got {dtype}")
@@ -264,7 +273,8 @@ class LaunchPlan(NamedTuple):
 
 def plan_launch(derivs, mult_val, mult_jac, mu, levels, second_order=False) -> LaunchPlan:
     """Check a call against the kernel's gates and lay out and allocate what
-    one launch needs (``kernel_inputs``, the outputs, the scratch)."""
+    one launch needs (``kernel_inputs``, the outputs, the scratch).  Builds
+    nothing: the launch loads the shape's library."""
     tensors = kernel_inputs(derivs, mult_val, mult_jac, mu, levels, second_order)
     B, T = derivs.lx.shape[0], derivs.lx.shape[1]
     n, m, e = derivs.lx.shape[-1], derivs.lu.shape[-1], derivs.eq.shape[-1]
@@ -291,19 +301,22 @@ def launch_plan(plan: LaunchPlan):
     ptrs = (ctypes.c_void_p * len(plan.inputs))(
         *[0 if x is None else x.data_ptr() for x in plan.inputs]
     )
+    _, second_order, n, m, e, _, _, L = plan.ints
+    fn = _kernel_fn(n, m, e, second_order)
     dev = plan.outputs[0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel_fn()(
+        rc = fn(
             *plan.ints, ctypes.cast(ptrs, ctypes.c_void_p),
             *[x.data_ptr() for x in plan.scratch + plan.outputs], stream,
         )  # fmt: skip
-    _, second_order, n, m, e, _, _, L = plan.ints
     if rc == -3:
         raise RuntimeError(
             f"riccati_small: {L} levels at {(n, m, e)} need more shared memory a block "
             "than this card allows; use fewer levels"
         )
+    if rc == -1:
+        raise RuntimeError(f"riccati_small: the library loaded for {(n, m, e)} serves another shape")
     if rc != 0:
         raise RuntimeError(f"riccati_small kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
@@ -312,8 +325,11 @@ def launch_plan(plan: LaunchPlan):
     return plan.outputs
 
 
-def _kernel_fn():
-    lib = _build.load(SOURCE)
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(n, m, e, second_order=False):
+    """The C entry point of the library for (n, m, e) and the order, built
+    on first use and cached: a launch pays a dict lookup for it."""
+    lib = _build.load(SOURCE, instantiation(n, m, e, second_order))
     fn = lib.ddp_riccati_ladder
     fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 8
     fn.restype = ctypes.c_int

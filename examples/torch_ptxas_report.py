@@ -2,18 +2,23 @@
 """Registers, stack frame and spills of every instantiation of the port's
 CUDA kernels, as ``nvcc -Xptxas -v`` reports them.
 
-    python3 examples/torch_ptxas_report.py [source.cu ...]
+    python3 examples/torch_ptxas_report.py [source.cu[:KEY=V,...] ...]
 
-Compiles each source of ``ddp_tpu_torch/csrc/`` (all of them by default) with
-the flags of ``ddp_tpu_torch/kernels/_build.py`` plus ``-Xptxas -v``, one
-nvcc per source, all at once, and prints one line per kernel instantiation:
-value type, template integers, registers, bytes of stack frame, bytes of
-spill stores and loads, and the seconds nvcc took for the file.  Needs nvcc,
-no card; the libraries it writes go to a temporary directory.
+Compiles each library (by default every one that chip_smoke.py's build
+phase makes: #1 at its (n, m, e) and orders, #2 and #3 at its joint counts,
+the flat-lane sources; or the sources named, each with the build constants
+after its colon, e.g. ``riccati_small.cu:N=4,M=2,E=2,SO=0``) with the flags
+of ``ddp_tpu_torch/kernels/_build.py`` plus ``-Xptxas -v``, one nvcc per
+library, as many at once as the host has cores, and prints one line per
+kernel instantiation: value type, template integers, registers, bytes of
+stack frame, bytes of spill stores and loads, and the seconds nvcc took for
+the library.  Needs nvcc, no card; the libraries it writes go to a
+temporary directory.
 """
 
 from __future__ import annotations
 
+import os
 import re
 import subprocess
 import sys
@@ -54,17 +59,34 @@ def describe(mangled: str) -> str:
     return mangled
 
 
-def report(source: str, out_dir: str):
-    src = _build.CSRC / source
+def libraries():
+    """(source, build constants) of every library chip_smoke.py builds."""
+    import chip_smoke as cs
+    from ddp_tpu_torch.kernels import fd_derivs as fd
+    from ddp_tpu_torch.kernels import riccati_small as rs
+
+    out = [(rs.SOURCE, rs.instantiation(*shape)) for shape in cs.RICCATI_SHAPES]
+    out += [(src, fd.instantiation(nv)) for src in ("fd_derivs.cu", "fd_derivs2.cu")
+            for nv in cs.FD_JOINTS]  # fmt: skip
+    return out + [("linesearch_flat.cu", None), ("flat_solve.cu", None)]
+
+
+def parse(arg: str):
+    """``source.cu[:KEY=V,...]`` → (source, build constants or None)."""
+    source, _, rest = arg.partition(":")
+    consts = {k: int(v) for k, v in (kv.split("=") for kv in rest.split(",") if kv)}
+    return source, consts or None
+
+
+def report(source: str, consts, out_dir: str):
+    out = Path(out_dir) / _build.library_path(source, consts).name
+    nvcc, *args = _build.nvcc_command(source, consts, out)
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
-         "-o", str(Path(out_dir) / (src.stem + ".so")), str(src)],
-        capture_output=True, text=True,
-    )  # fmt: skip
+    proc = subprocess.run([nvcc, "-Xptxas", "-v", *args], capture_output=True, text=True)
     seconds = time.perf_counter() - t0
+    name = out.name.rsplit("-", 1)[0]
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {name}:\n{proc.stdout}\n{proc.stderr}")
     rows, entry, frame = [], None, None
     for line in proc.stderr.splitlines():
         if m := ENTRY.search(line):
@@ -74,16 +96,16 @@ def report(source: str, out_dir: str):
         elif (m := REGS.search(line)) and entry:
             rows.append((describe(entry), m.group(1), *(frame or ("?",) * 3)))
             entry = None
-    return source, seconds, rows
+    return name, seconds, rows
 
 
 def main():
-    sources = sys.argv[1:] or sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    with tempfile.TemporaryDirectory() as out_dir, ThreadPoolExecutor(len(sources)) as pool:
-        for source, seconds, rows in pool.map(lambda s: report(s, out_dir), sources):
-            print(f"{source}: nvcc {seconds:.1f} s")
-            for name, regs, frame, stores, loads in sorted(rows):
-                print(f"  {name}: {regs} registers, {frame} B frame, "
+    libs = [parse(a) for a in sys.argv[1:]] or libraries()
+    with tempfile.TemporaryDirectory() as out_dir, ThreadPoolExecutor(os.cpu_count() or 8) as pool:
+        for name, seconds, rows in pool.map(lambda lib: report(*lib, out_dir), libs):
+            print(f"{name}: nvcc {seconds:.1f} s")
+            for kernel, regs, frame, stores, loads in sorted(rows):
+                print(f"  {kernel}: {regs} registers, {frame} B frame, "
                       f"{stores} B spill stores, {loads} B spill loads")  # fmt: skip
 
 

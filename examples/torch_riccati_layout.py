@@ -7,7 +7,8 @@ of ``riccati_small.pack_batch_last``, on one CUDA card.
 
 Builds ``csrc/riccati_small.cu`` as it is and a copy whose small-dims
 program indexes its inputs [T, rows, B] (one line changed; nvcc with
-``kernels/_build.py``'s flags into a temporary directory), then at the
+``kernels/_build.py``'s flags and each shape's defines into a temporary
+directory), then at the
 small-dims shapes of chip_smoke.py — (2, 1, 1) at B=4096, T=32, one level,
 Gauss-Newton and second order, and (4, 2, 2) second order at B=1000, T=16,
 four levels, in f32 — times one launch of each on the same inputs (CUDA
@@ -39,15 +40,17 @@ BATCH_MAJOR = "      return p[(static_cast<size_t>(b) * T + t) * rows + r];"
 BATCH_LAST = "      return p[(static_cast<size_t>(t) * rows + r) * Bs + b];"
 
 
-def build_batch_last(out_dir: Path):
+def build_batch_last(out_dir: Path, consts: dict):
+    """The batch-last copy of the source, built for the shape ``consts``."""
     src = (_build.CSRC / rs.SOURCE).read_text()
     if src.count(BATCH_MAJOR) != 1:
         raise RuntimeError("the small-dims program's input indexing is not where this script expects it")
     copy = out_dir / rs.SOURCE
     copy.write_text(src.replace(BATCH_MAJOR, BATCH_LAST))
-    lib = out_dir / "riccati_small_batch_last.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o", str(lib), str(copy)],
-                   check=True, capture_output=True, text=True)  # fmt: skip
+    lib = _build.library_path(rs.SOURCE, consts)
+    lib = out_dir / f"batch_last_{lib.name}"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *_build.defines(consts), f"-I{_build.CSRC}",
+                    "-o", str(lib), str(copy)], check=True, capture_output=True, text=True)  # fmt: skip
     fn = ctypes.CDLL(str(lib)).ddp_riccati_ladder
     fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 8
     fn.restype = ctypes.c_int
@@ -86,8 +89,6 @@ def main():
     ).stdout.strip().splitlines()[0]  # fmt: skip
     print(card, flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        last_fn = build_batch_last(Path(tmp))
-        major_fn = rs._kernel_fn()
         cases = (
             ("n2m1e1_gn_B4096_T32_L1", cs.pendulum_inputs(cs.B, torch.float32), 1, False),
             ("n2m1e1_so_B4096_T32_L1",
@@ -98,6 +99,9 @@ def main():
         for label, (inputs, mu, reg), n_levels, so in cases:
             levels = torch.stack(_reg_levels(mu, reg, n_levels))
             plan = rs.plan_launch(*inputs, mu, levels, so)
+            shape = plan.ints[2:5]
+            last_fn = build_batch_last(Path(tmp), rs.instantiation(*shape, so))
+            major_fn = rs._kernel_fn(*shape, so)
             plan_bl = batch_last_plan(plan, *inputs, so)
             run_major, run_last = launcher(major_fn, plan), launcher(last_fn, plan_bl)
             run_major()

@@ -65,6 +65,7 @@ int main(int argc, char** argv) {
   if (argc != 4) return 2;
   const int nv = std::atoi(argv[1]), N = std::atoi(argv[2]);
   if (nv == 2) return run<2>(N, argv[3]);
+  if (nv == 3) return run<3>(N, argv[3]);
   if (nv == 6) return run<6>(N, argv[3]);
   if (nv == 7) return run<7>(N, argv[3]);
   return 2;

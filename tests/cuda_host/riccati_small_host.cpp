@@ -1,5 +1,6 @@
 // Runs csrc/riccati_small.cu's ladder kernels (float64) on the host, block by
-// block.
+// block, at the shapes main() lists (on the card each shape is a library of
+// its own; here one harness holds them all).
 //   riccati_small_host SECOND_ORDER N M E T B L DIR
 // reads DIR/<field>.f64 for the 18 per-step fields (the six rank-3 ones only
 // with SECOND_ORDER; batch-major [B, T, rows]) and mu, levels, lfx, lfxx, and writes DIR/{k, K,
@@ -84,9 +85,13 @@ int main(int argc, char** argv) {
   if (so && n == 2 && m == 1 && e == 1) return run<2, 1, 1, true>(T, B, L, dir);
   if (so && n == 4 && m == 2 && e == 2) return run<4, 2, 2, true>(T, B, L, dir);
   if (so && n == 2 && m == 1 && e == 2) return run<2, 1, 2, true>(T, B, L, dir);
+  if (so && n == 6 && m == 3 && e == 3) return run<6, 3, 3, true>(T, B, L, dir);
   if (so && n == 12 && m == 6 && e == 6) return run<12, 6, 6, true>(T, B, L, dir);
+  if (so && n == 12 && m == 6 && e == 12) return run<12, 6, 12, true>(T, B, L, dir);
   if (so && n == 14 && m == 7 && e == 3) return run<14, 7, 3, true>(T, B, L, dir);
   if (!so && n == 2 && m == 1 && e == 1) return run<2, 1, 1, false>(T, B, L, dir);
+  if (!so && n == 4 && m == 2 && e == 2) return run<4, 2, 2, false>(T, B, L, dir);
+  if (!so && n == 6 && m == 3 && e == 3) return run<6, 3, 3, false>(T, B, L, dir);
   if (!so && n == 12 && m == 6 && e == 6) return run<12, 6, 6, false>(T, B, L, dir);
   if (!so && n == 12 && m == 6 && e == 12) return run<12, 6, 12, false>(T, B, L, dir);
   if (!so && n == 14 && m == 7 && e == 3) return run<14, 7, 3, false>(T, B, L, dir);

@@ -20,6 +20,7 @@ from torch_parity_helpers import both_robots, branched_tree, t
 from ddp_tpu.kernels.fd_derivs2 import fd_derivs2_pallas
 from ddp_tpu.models import robots as jrobots
 from ddp_tpu.models.rigid_body import build_model as jbuild_model
+from ddp_tpu_torch.kernels import _build
 from ddp_tpu_torch.kernels import fd_derivs as fd
 from ddp_tpu_torch.kernels import fd_derivs2 as fd2
 
@@ -142,13 +143,17 @@ def test_rejects_quaternion_models():
 
 
 def test_launch_gates_raise_before_any_build():
-    """Joint counts, dtypes and shapes the kernel does not take raise."""
+    """Dtypes and shapes the kernel does not take raise before any build;
+    every joint count has a library."""
     _, three = both_robots(
         jbuild_model([dict(type="revolute", parent=i - 1) for i in range(3)], dtype=jnp.float64)
     )
     x3 = torch.zeros(4, 3, dtype=torch.float64)
-    with pytest.raises(ValueError, match=r"no CUDA instantiation for nv=3"):
-        fd2._launch(three, x3, x3, x3)
+    # nv = 3 passes the gates and maps to a library of its own (built at
+    # the first launch on a card; nothing is built here)
+    assert fd2.check_launch(three, x3, x3, x3) == 3 and fd2.instantiation(3) == {"NV": 3}
+    paths = {_build.library_path(fd2.SOURCE, fd2.instantiation(nv)) for nv in (2, 3, 6, 7)}
+    assert len(paths) == 4 and not _build.loaded()
     _, two = both_robots(jrobots.cartpole(dtype=jnp.float64))
     x2 = torch.zeros(4, 2, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32 or float64"):

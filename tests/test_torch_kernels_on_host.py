@@ -35,6 +35,7 @@ from ddp_tpu_torch.kernels import linesearch_flat as lsf
 from ddp_tpu_torch.kernels.flat_problem import pack_problem
 from ddp_tpu_torch.kernels import riccati_small as rs
 from ddp_tpu_torch.models import robots
+from ddp_tpu_torch.models.rigid_body import build_model
 from ddp_tpu_torch.solver import batched as tbatched
 from ddp_tpu_torch.solver.solve import SolverParams
 
@@ -43,14 +44,9 @@ from torch_parity_helpers import random_spd_derivs, t, to_torch_derivs
 REPO = Path(__file__).resolve().parent.parent
 CSRC = REPO / "ddp_tpu_torch" / "csrc"
 HOST = REPO / "tests" / "cuda_host"
-# where each source's host launchers (they use <<<…>>>) begin
-CUTS = {
-    "fd_derivs.cu": "// ------------------------------------------------------------ launch",
-    "flat_solve.cu": "// ------------------------------------------------------------ launch",
-    "fd_derivs2.cu": "template <typename S, int NV>\nint launch(",
-    "riccati_small.cu": "// ------------------------------------------------------------ launch",
-    "linesearch_flat.cu": "// ------------------------------------------------------------ launch",
-}
+# where every source's host launchers (they use <<<…>>>) and the build
+# constants that pick a library's shape begin
+CUT = "// ------------------------------------------------------------ launch"
 DYNAMIC_SMEM = "extern __shared__ __align__(16) unsigned char smem_raw[];"
 FLAGS = {
     "O1": ["-O1"],
@@ -63,15 +59,23 @@ def run(args):
     subprocess.run(args, check=True, timeout=600, env=dict(os.environ, **RUN_ENV))
 
 
+# (harness, flags) → the executable: pytest sets a module fixture up again
+# when the parameters of the fixtures around it interleave, and a build under
+# the sanitizers takes tens of seconds
+_BUILT = {}
+
+
 def build(source, harness, out_dir, flags):
     """The kernels of ``csrc/<source>`` (everything before its launchers) in
     ``tests/cuda_host/<harness>``, compiled with the host's g++ and
-    ``FLAGS[flags]``."""
+    ``FLAGS[flags]``, once a test run."""
+    if (harness, flags) in _BUILT:
+        return _BUILT[harness, flags]
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no host C++ compiler (g++) to build the kernels for the CPU")
     src = (CSRC / source).read_text()
-    body = src[: src.index(CUTS[source])] + "\n}  // namespace\n"
+    body = src[: src.index(CUT)] + "\n}  // namespace\n"
     if DYNAMIC_SMEM in body:
         body = body.replace(DYNAMIC_SMEM, "unsigned char* const smem_raw = host_dynamic_smem;")
     (out_dir / "kernel.inc").write_text(body)
@@ -81,6 +85,7 @@ def build(source, harness, out_dir, flags):
          "-o", str(exe), str(HOST / harness)],
         check=True, capture_output=True, timeout=600,
     )  # fmt: skip
+    _BUILT[harness, flags] = exe
     return exe
 
 
@@ -88,10 +93,26 @@ def dump(x, path):
     x.detach().contiguous().numpy().tofile(path)
 
 
+def three_link(device, dtype):
+    """A three-revolute arm (axes y, x, y; 0.4 m links, centres of mass
+    mid-link, damped): a joint count no robot of the zoo has."""
+    joints = [
+        dict(type="revolute", parent=i - 1, axis=axis, placement_trans=[0.0, 0.0, 0.4 * (i > 0)],
+             mass=1.0 - 0.2 * i, com=[0.0, 0.0, 0.2], inertia=np.diag([0.02, 0.02, 0.005]))
+        for i, axis in enumerate(([0.0, 1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]))
+    ]  # fmt: skip
+    model = build_model(joints, name="three_link", device=device, dtype=dtype)
+    model.damping = torch.full((3,), 0.05, device=device, dtype=dtype)
+    return model
+
+
+MODELS = dict(cartpole=robots.cartpole, panda7=robots.panda7, ur5=robots.ur5, three_link=three_link)
+
+
 def fd_inputs(name, tmp_path_factory, N):
     """A model, its constants and N numpy-seeded samples, dumped for a host
     harness.  Returns (model, q, v, tau, the directory)."""
-    model = getattr(robots, name)(device="cpu", dtype=torch.float64)
+    model = MODELS[name](device="cpu", dtype=torch.float64)
     rng = np.random.default_rng(11)
     q = t(rng.uniform(-np.pi, np.pi, (N, model.nv)))
     v, tau = t(rng.normal(size=(N, model.nv))), t(rng.normal(size=(N, model.nv)))
@@ -117,7 +138,7 @@ def fd_host(request, tmp_path_factory):
     return build("fd_derivs.cu", "fd_derivs_host.cpp", tmp_path_factory.mktemp("fd"), request.param)
 
 
-@pytest.fixture(scope="module", params=["cartpole", "panda7", "ur5"])
+@pytest.fixture(scope="module", params=["cartpole", "panda7", "ur5", "three_link"])
 def fd_case(request, fd_host, tmp_path_factory):
     """The host-built primal, q and v passes and the plain version on 40
     numpy-seeded samples (a block of 64 with its ragged edge)."""
@@ -147,7 +168,7 @@ FD2_OUTPUTS = ("a", "da_dq", "da_dv", "Minv", "H")
 FD2_BARS = (1e-9, 1e-9, 1e-9, 1e-9, 1e-8)
 
 
-@pytest.fixture(scope="module", params=["cartpole", "panda7", "ur5"])
+@pytest.fixture(scope="module", params=["cartpole", "panda7", "ur5", "three_link"])
 def fd2_case(request, fd2_host, tmp_path_factory):
     """The host-built kernel and the plain version on 3 numpy-seeded samples."""
     N = 3
@@ -213,8 +234,13 @@ def ladder_inputs(B, T, n, m, e, second_order, seed):
         (True, (2, 1, 1), 37, 6, 3),
         (True, (2, 1, 2), 37, 6, 4),
         (True, (4, 2, 2), 37, 6, 4),
+        (True, (12, 6, 12), 3, 4, 4),
+        (False, (4, 2, 2), 37, 6, 4),
+        (False, (6, 3, 3), 37, 5, 4),
+        (True, (6, 3, 3), 37, 5, 4),
     ],
-    ids=["gn_n14_L4", "so_n14_L4", "gn_n12_L1", "so_n12_L4", "gn_n12_e12_L4", "gn_n2_L1", "so_n2_L3", "so_n2_e2_L4", "so_n4_L4"],
+    ids=["gn_n14_L4", "so_n14_L4", "gn_n12_L1", "so_n12_L4", "gn_n12_e12_L4", "gn_n2_L1", "so_n2_L3",
+         "so_n2_e2_L4", "so_n4_L4", "so_n12_e12_L4", "gn_n4_L4", "gn_n6_L4", "so_n6_L4"],
 )
 def test_riccati_ladder_kernel_matches_plain_version(riccati_host, tmp_path, second_order, dims, B, T, L):
     """Both programs (a block per lane and a warp per level at n >= 12; a

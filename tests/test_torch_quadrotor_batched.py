@@ -69,7 +69,7 @@ def test_quadrotor_solve_batched_matches_ddp_tpu(quad_row, backward):
     Riccati kernel's plain version at (12, 6, 12): us within 1e-7 of each
     lane's largest |u|, identical μ, unit quaternions."""
     tp, x0s, us0, rj = quad_row
-    assert (tp.ndx, tp.nu, tp.ne) == (12, 6, 12) and (12, 6, 12) in rs.KERNEL_DIMS
+    assert (tp.ndx, tp.nu, tp.ne) == (12, 6, 12) and rs.instantiation(12, 6, 12)["SO"] == 0
     before = rs.LAUNCHES
     res = solve_batched(tp, SolverParams(**RECIPE), t(x0s), us_init=t(us0), deriv="jvp",
                         backward=backward, **RECIPE_KW)  # fmt: skip

@@ -13,6 +13,12 @@ tier-1:
   benchmarks/arm_second_order.py's UR5 chain (B = 512, H = 16, 8 iterations,
   f32, jit, deriv="jvp", backward="sweep"), the bar chip_smoke.py holds the
   port's UR5 chain to (~2 min);
+- ``double_pendulum_share``: ddp_tpu's feasible share for BASELINE
+  configs[2], benchmarks/double_pendulum_reach.py's recipe (B = 2048,
+  H = 32, 12 iterations, f32, jit, n_linesearch=8, forward="seq",
+  matmul_precision="high") through deriv="jvp", backward="sweep" (the
+  recipe's "pallas" backends run on the CPU only in interpret mode), the bar
+  chip_smoke.py phase 15c holds the port's kernel route to;
 - ``arm_lanes``: the arm fleet of examples/torch_arm_lanes.py at a seed
   (default 3) through jvp/sweep in both packages: feasible shares and the
   lanes whose opt_lag is not finite (~3 min);
@@ -155,6 +161,38 @@ def ur5_share():
                                         forward="seq"))(x0s)  # fmt: skip
     oc = np.asarray(r.opt_constr)
     print(f"ddp_tpu UR5 Gauss-Newton stage: feasible share {float(np.mean(oc < 1e-2))}, p99 "
+          f"{float(np.percentile(oc, 99)):.3e}, finite us {bool(np.isfinite(np.asarray(r.us)).all())}, "
+          f"{time.perf_counter() - t0:.1f} s")  # fmt: skip
+
+
+def double_pendulum_share():
+    from ddp_tpu.models.rigid_body import double_pendulum
+    from ddp_tpu.ocp import constraints, costs, dynamics
+    from ddp_tpu.ocp.problem import Problem
+    from ddp_tpu.solver.batched import solve_batched
+    from ddp_tpu.solver.solve import SolverParams
+
+    dtype, B, H = jnp.float32, 2048, 32
+    model = double_pendulum(dtype=dtype)
+    dyn = dynamics.euler(model, 0.01)
+    con = constraints.advance_time(
+        constraints.ConfigTarget(model=model, target=jnp.asarray([0.8, -0.5], dtype), active_ts=(H,)),
+        dyn, times=2,
+    )  # fmt: skip
+    problem = Problem(dynamics=dyn, cost=costs.quad_control(1.0, dtype=dtype), constraint=con,
+                      horizon=H, second_order=False)  # fmt: skip
+    params = SolverParams(max_iterations=12, threshold=1e-5, mu=1e4, inner_iters_max=1)
+    rng = np.random.default_rng(0)
+    x0s = jnp.asarray(
+        np.concatenate([rng.uniform(-0.3, 0.3, (B, 2)), 0.2 * rng.standard_normal((B, 2))], axis=1),
+        dtype,
+    )
+    t0 = time.perf_counter()
+    r = jax.jit(lambda x: solve_batched(problem, params, x, backward="sweep", deriv="jvp",
+                                        matmul_precision="high", n_linesearch=8,
+                                        forward="seq"))(x0s)  # fmt: skip
+    oc = np.asarray(r.opt_constr)
+    print(f"ddp_tpu double pendulum (configs[2]): feasible share {float(np.mean(oc < 1e-2))}, p99 "
           f"{float(np.percentile(oc, 99)):.3e}, finite us {bool(np.isfinite(np.asarray(r.us)).all())}, "
           f"{time.perf_counter() - t0:.1f} s")  # fmt: skip
 
@@ -449,7 +487,8 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     what = sys.argv[1] if len(sys.argv) > 1 else ""
-    jobs = dict(quadrotor_share=quadrotor_share, ur5_share=ur5_share, arm_lanes=arm_lanes, golden_draws=golden_draws,
+    jobs = dict(quadrotor_share=quadrotor_share, ur5_share=ur5_share,
+                double_pendulum_share=double_pendulum_share, arm_lanes=arm_lanes, golden_draws=golden_draws,
                 jit_vs_eager=jit_vs_eager, assoc_share=assoc_share, tf_share=tf_share,
                 precise_draws=precise_draws, storage_gains=storage_gains, examples=examples)  # fmt: skip
     if what not in jobs:

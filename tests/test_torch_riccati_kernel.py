@@ -18,6 +18,7 @@ from ddp_tpu.solver import al as jal
 from ddp_tpu.solver import batched as jbatched
 from ddp_tpu.solver.batched import _backward_pallas_levels
 from ddp_tpu.solver.batched import _backward_sweep as jax_backward_sweep
+from ddp_tpu_torch.kernels import _build
 from ddp_tpu_torch.kernels import riccati_small as rs
 from ddp_tpu_torch.ocp.problem import Derivs as TDerivs
 from ddp_tpu_torch.solver import batched as tbatched
@@ -160,10 +161,11 @@ def test_wrapper_on_cpu_runs_the_plain_version_without_a_launch():
 
 
 def test_second_order_terms_are_not_ported():
-    """… at dims the CUDA source does not instantiate with them: the launch
-    gate raises before any build.  The packing carries the six rank-3 slabs
-    (it used to raise), and on CPU tensors the wrapper runs them through the
-    plain version."""
+    """Second order at (12, 6, 12), once not ported, and every other shape
+    that passes the gates map to a library of their own, built at the
+    first call (nothing is built here).  The packing carries the six rank-3
+    slabs, and on CPU tensors the wrapper runs them through the plain
+    version."""
     B, H = 2, 4
     fields, pe, pex = random_spd_derivs(B, H, 2, 1, 1, seed=0)
     packed = rs.pack_batch_last(to_torch_derivs(fields), t(pe), t(pex), second_order=True)
@@ -177,10 +179,16 @@ def test_second_order_terms_are_not_ported():
     assert bool(ok.all()) and k.shape == (B, H, 1) and K.shape == (B, H, 1, 2)
     assert bool((reg_used == 0).all())
     f12, pe12, pex12 = second_order_fields(B, H, 12, 6, 12, seed=0)
-    with pytest.raises(ValueError, match=r"\(12, 6, 12\) with second-order terms"):
-        rs.plan_launch(to_torch_derivs(f12), t(pe12), t(pex12), t(np.ones(B)), t(np.zeros((1, B))), True)
-    assert (12, 6, 12) in rs.KERNEL_DIMS  # … while its Gauss-Newton form is there
-    assert (12, 6, 6) in rs.KERNEL_DIMS_SECOND_ORDER  # UR5 under its ConfigTarget
+    plan = rs.plan_launch(
+        to_torch_derivs(f12), t(pe12), t(pex12), t(np.ones(B)), t(np.zeros((1, B))), True
+    )
+    assert plan.ints == (1, 1, 12, 6, 12, H, B, 1)
+    assert len(plan.inputs) == 22 and plan.inputs[rs._INPUTS.index("pex")].shape == (B, H, 144)
+    assert rs.instantiation(12, 6, 12, True) == {"N": 12, "M": 6, "E": 12, "SO": 1}
+    shapes = [(12, 6, 12, True), (12, 6, 12, False), (12, 6, 6, True), (4, 2, 2, False),
+              (6, 3, 3, True)]  # fmt: skip
+    paths = {_build.library_path(rs.SOURCE, rs.instantiation(*s)) for s in shapes}
+    assert len(paths) == len(shapes) and not _build.loaded()
 
 
 def test_launch_gates_raise_before_any_build():
@@ -197,9 +205,15 @@ def test_launch_gates_raise_before_any_build():
         rs.plan_launch(d, t(pe), t(pex[:, :, :2]), mu, t(np.zeros((1, B))), False)
     with pytest.raises(ValueError, match="levels: torch.float32"):
         rs.plan_launch(d, t(pe), t(pex), mu, t(np.zeros((2, B), np.float32)), False)
-    with pytest.raises(ValueError, match=r"\(3, 1, 1\)"):
-        f3, pe3, pex3 = random_spd_derivs(B, H, 3, 1, 1, seed=1)
-        rs.plan_launch(to_torch_derivs(f3), t(pe3), t(pex3), mu, t(np.zeros((1, B))), False)
+    # any (n, m, e) has a library of its own; the large-dims program's
+    # widths and e >= 1 are the kernel's bounds
+    f3, pe3, pex3 = random_spd_derivs(B, H, 3, 1, 1, seed=1)
+    plan = rs.plan_launch(to_torch_derivs(f3), t(pe3), t(pex3), mu, t(np.zeros((1, B))), False)
+    assert plan.ints[2:5] == (3, 1, 1)
+    with pytest.raises(ValueError, match=r"n <= 31 and m <= 32"):
+        rs.instantiation(32, 4, 4)
+    with pytest.raises(ValueError, match=r"n, m, e >= 1"):
+        rs.instantiation(2, 1, 0)
 
 
 @pytest.mark.parametrize(

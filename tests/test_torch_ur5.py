@@ -116,7 +116,7 @@ def test_wrappers_on_cpu_are_the_plain_versions_on_ur5():
     assert all(torch.equal(a, b) for a, b in zip(out, got))
     ref2 = fd2.fd_derivs2_reference(tm, t(q[:4]), t(v[:4]), t(tau[:4]))
     assert all(torch.equal(a, b) for a, b in zip(out2, ref2))
-    assert fd.check_model(tm) == 6 and 6 in fd.KERNEL_NV
+    assert fd.check_model(tm) == 6 and fd.instantiation(6) == {"NV": 6}
 
 
 # ----------------------------------------------------------- solve anchors
@@ -219,7 +219,7 @@ def test_ur5_chain_matches_ddp_tpu():
         np.testing.assert_array_equal(got.mu.numpy(), np.asarray(ref.mu))
     assert float((tr.us - t1.us).abs().max()) > 1e-9
     assert bool((tr.opt_constr <= t1.opt_constr + 1e-6).all())
-    assert td.second_order and (12, 6, 6) in rs.KERNEL_DIMS_SECOND_ORDER
+    assert td.second_order and rs.instantiation(12, 6, 6, True) == {"N": 12, "M": 6, "E": 6, "SO": 1}
 
 
 def test_ur5_chain_routes_agree():
