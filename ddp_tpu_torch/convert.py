@@ -59,7 +59,10 @@ def constraint_from_spec(spec: dict, model, dyn, *, device, dtype: torch.dtype):
     [nq]), "state" (``target`` [nq + nv]), "frame" (``target`` [3],
     ``frame_id``), "trajectory_config" (``targets`` [T_pad, nq]) or "stack"
     (``parts``, each a spec of its own); every kind but "none" and "stack"
-    has an ``active_ts`` schedule (``schedule_from_spec``)."""
+    has an ``active_ts`` schedule (``schedule_from_spec``).  The layers are
+    over ``dyn`` unless ``advance_dynamics`` lists them, outermost first,
+    each None (``dyn``) or a ``dynamics_from_spec`` spec of pendulum
+    dynamics of its own."""
 
     def tt(x):
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)
@@ -84,7 +87,21 @@ def constraint_from_spec(spec: dict, model, dyn, *, device, dtype: torch.dtype):
             con = constraints.TrajectoryConfigTarget(model, tt(spec["targets"]), ts)
         else:
             raise ValueError(f"unknown constraint kind {kind!r}")
-    return constraints.advance_time(con, dyn, times=int(spec.get("advance_times", 0)))
+    times = int(spec.get("advance_times", 0))
+    layers = spec.get("advance_dynamics") or [None] * times
+    if len(layers) != times:
+        raise ValueError(f"advance_dynamics lists {len(layers)} layers for advance_times={times}")
+    for layer in reversed(layers):  # outermost first
+        con = constraints.AdvanceTime(con, dyn if layer is None else dynamics_from_spec(layer, device=device, dtype=dtype))
+    return con
+
+
+def dynamics_from_spec(spec: dict, *, device, dtype: torch.dtype):
+    """Pendulum dynamics from ``discretization`` ("euler", the default, or
+    "rk4"), ``dt``, ``mass`` and ``length``."""
+    model = pendulum(float(spec["mass"]), float(spec["length"]), device=device, dtype=dtype)
+    discretize = {"euler": dynamics.euler, "rk4": dynamics.rk4}[spec.get("discretization", "euler")]
+    return discretize(model, float(spec["dt"]))
 
 
 def cost_from_spec(spec: dict, model, *, device, dtype: torch.dtype):

@@ -14,8 +14,10 @@
 // of the gains; in each iteration before that the re-anchoring of multipliers
 // and gains at the trajectory, both optimality adjoints, and the schedule of
 // multipliers, mu, w, n and reg; at the end the final measures.  The
-// constraint is active at one step `ta`: its value and Jacobian are evaluated
-// there once per iteration and enter the sweeps behind t == ta.  Derivatives
+// constraint is active at one step `ta`: its E rows' value and Jacobian are
+// evaluated there (with ta as the time index, masked by the rows' mask at
+// ta) once per iteration and enter the sweeps behind t == ta; the terminal
+// cost's gradient and Hessian start the sweeps and the adjoints.  Derivatives
 // come from the problem class's device functions (flat_problem.cuh) in Dual
 // numbers (cost gradient, dynamics and constraint Jacobians) and HyperDual
 // numbers (cost Hessian), as forward-mode differentiation does in the TPU
@@ -52,8 +54,10 @@
 // order (the AL cost over t, the adjoints, the candidates' ladder scan), so
 // the gates see the same inputs.  The time loops stay loops (#pragma unroll
 // 1): T, the iteration budget, the candidate count, ta, the method and every
-// threshold are run-time arguments; only (NX, M, E), the scalar type and the
-// problem class are compiled in.
+// threshold are run-time arguments; the scalar type and the problem class's
+// integrator, cost kind and row count E are compiled in: a library serves one
+// class, its -DDDP_DYN, -DDDP_COST and -DDDP_E from kernels/_build.py::load
+// (flat_problem.cuh says what is compiled in and what is data).
 //
 // A failed factorization gives NaN gains through sqrt of a negative pivot and
 // ok = false for the lane, which then keeps its trajectory and escalates its
@@ -148,7 +152,7 @@ struct SolveArgs {
   S* stats;  // [6, B]: opt_constr, opt_lag, mu, reg, w, n
   S* mval;   // [T, E, B]
   S* mjac;   // [T, E*NX, B]
-  int T, B, n_iters, n_ls, ta, advance, affine, primal, has_mu_max, has_mult_max;
+  int T, B, n_iters, n_ls, ta, affine, primal, has_mu_max, has_mult_max;
   int inner_max;  // -1: none
   int G, LPB;     // the launch plan: threads a lane, lanes a block
   S threshold, w_min, mu_factor, mu_max, mult_max;
@@ -210,10 +214,9 @@ inline bool flat_solve_plan(int T, int nx, int m, int e, int n_ls, int item, int
   return false;
 }
 
-template <typename S, typename P, int E>
+template <typename S, typename P>
 __global__ void __launch_bounds__(kMaxThreads) flat_solve_kernel(SolveArgs<S> a) {
-  static_assert(E == 0 || E == P::NE, "constraint rows of the problem class");
-  constexpr int NX = P::NX, M = P::M, NZ = NX + M;
+  constexpr int NX = P::NX, M = P::M, NZ = NX + M, E = P::NE;
   constexpr int EK = E > 0 ? E : 1;  // array extents; loops run to E
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* const sm = reinterpret_cast<S*>(smem_raw);
@@ -225,7 +228,7 @@ __global__ void __launch_bounds__(kMaxThreads) flat_solve_kernel(SolveArgs<S> a)
   const int b = live ? lane : a.B - 1;
   const size_t Bs = static_cast<size_t>(a.B);
   const int T = a.T, ta = a.ta, n_ls = a.n_ls;
-  const P prob(a.consts, a.advance);
+  const P prob(a.consts);
   const LaneLayout lay(T, NX, M, E, n_ls);
   // element i of this lane's shared arrays
   auto at = [&](int i) -> S& { return sm[static_cast<size_t>(i) * LPB + slot]; };
@@ -306,13 +309,13 @@ __global__ void __launch_bounds__(kMaxThreads) flat_solve_kernel(SolveArgs<S> a)
       if (ta < 0) return;
       S x[NX], u[M], ev[E];
       load_xu(ta, x, u);
-      prob.eq(x, u, ev);
+      prob.eq(ta, x, u, ev);
       for (int r = 0; r < E; ++r) eqr_v[r] = ev[r] * mrow[r];
       for (int j = 0; j < NZ; ++j) {
         Dual<S> xd[NX], ud[M], ed[E];
         for (int i = 0; i < NX; ++i) xd[i] = Dual<S>(x[i], i == j ? S(1) : S(0));
         for (int i = 0; i < M; ++i) ud[i] = Dual<S>(u[i], NX + i == j ? S(1) : S(0));
-        prob.eq(xd, ud, ed);
+        prob.eq(ta, xd, ud, ed);
         for (int r = 0; r < E; ++r) eqr_z[r][j] = ed[r].t * mrow[r];
       }
     }
@@ -469,7 +472,7 @@ __global__ void __launch_bounds__(kMaxThreads) flat_solve_kernel(SolveArgs<S> a)
     if constexpr (E > 0) {
       if (ta < 0) return total;
       S ce[E];
-      prob.eq(x, u, ce);
+      prob.eq(ta, x, u, ce);
       for (int r = 0; r < E; ++r) {
         const S cea = ce[r] * mrow[r];
         S p = MV(ta, r);
@@ -738,9 +741,13 @@ __global__ void __launch_bounds__(kMaxThreads) flat_solve_kernel(SolveArgs<S> a)
 
 // ------------------------------------------------------------ launch
 
-template <typename S, typename P, int E>
-int launch(const void* const* p, const int* n, const double* r, int* plan,
-           cudaStream_t stream) {
+#if !defined(DDP_DYN) || !defined(DDP_COST) || !defined(DDP_E)
+#error "build with -DDDP_DYN=, -DDDP_COST= and -DDDP_E= (kernels/_build.py::load)"
+#endif
+
+template <typename S>
+int launch(const void* const* p, const int* n, const double* r, int* plan, cudaStream_t stream) {
+  using P = PendulumClass<S, DDP_DYN, DDP_COST, DDP_E>;
   SolveArgs<S> a;
   a.x0 = static_cast<const S*>(p[0]);
   a.us0 = static_cast<const S*>(p[1]);
@@ -754,12 +761,11 @@ int launch(const void* const* p, const int* n, const double* r, int* plan,
   a.n_iters = n[2];
   a.n_ls = n[3];
   a.ta = n[4];
-  a.advance = n[5];
-  a.affine = n[6];
-  a.primal = n[7];
-  a.has_mu_max = n[8];
-  a.has_mult_max = n[9];
-  a.inner_max = n[10];
+  a.affine = n[5];
+  a.primal = n[6];
+  a.has_mu_max = n[7];
+  a.has_mult_max = n[8];
+  a.inner_max = n[9];
   a.threshold = static_cast<S>(r[0]);
   a.w_min = static_cast<S>(r[1]);
   a.mu_factor = static_cast<S>(r[2]);
@@ -768,13 +774,13 @@ int launch(const void* const* p, const int* n, const double* r, int* plan,
   if (a.B <= 0) return 0;  // an empty grid is not a valid launch
   if (a.n_ls < 1 || a.n_ls > 31 || a.T < 1 || a.ta >= a.T) return -1;
   long smem;
-  if (!flat_solve_plan(a.T, P::NX, P::M, E, a.n_ls, sizeof(S), &a.G, &a.LPB, &smem)) return -1;
+  if (!flat_solve_plan(a.T, P::NX, P::M, P::NE, a.n_ls, sizeof(S), &a.G, &a.LPB, &smem)) return -1;
   if (plan != nullptr) {
     plan[0] = a.G;
     plan[1] = a.LPB;
     plan[2] = static_cast<int>(smem);
   }
-  auto kernel = flat_solve_kernel<S, P, E>;
+  auto kernel = flat_solve_kernel<S, P>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -783,32 +789,23 @@ int launch(const void* const* p, const int* n, const double* r, int* plan,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename S>
-int launch_class(int class_id, int nx, int m, int e, const void* const* p, const int* n,
-                 const double* r, int* plan, cudaStream_t s) {
-  if (class_id == 0 && nx == 2 && m == 1) {
-    using P = PendulumEulerTarget<S>;
-    if (e == 1) return launch<S, P, 1>(p, n, r, plan, s);
-    if (e == 0) return launch<S, P, 0>(p, n, r, plan, s);
-  }
-  return -1;
-}
-
 }  // namespace
 
-// Plain C entry point, loaded through ctypes.  ``ptrs``: 12 device pointers
-// in the order x0, us0, scal, consts, mrow, then the outputs us, xs, fbk, fbK,
-// stats, mval, mjac.  ``ints`` (host): T, B, n_iters, n_ls, ta (-1:
-// unconstrained), advance, affine, primal, has_mu_max, has_mult_max,
-// inner_max (-1: none).  ``reals`` (host): threshold, w_min, mu_factor,
-// mu_max, mult_max.  ``plan`` (host, may be null) receives the launch plan:
-// G threads a lane, LPB lanes a block, shared-memory bytes a block.  Returns
-// cudaGetLastError() after the launch; -1 for a class, dims or counts this
-// build does not take, or a lane too large for the shared memory.
-extern "C" int ddp_flat_solve(int is_double, int class_id, int nx, int m, int e,
-                              const void* const* ptrs, const int* ints, const double* reals,
-                              int* plan, void* stream) {
+// Plain C entry point, loaded through ctypes.  ``dyn``, ``cost`` and ``e``
+// name the problem class (kernels/flat_problem.py).  ``ptrs``: 12 device
+// pointers in the order x0, us0, scal, consts, mrow, then the outputs us, xs,
+// fbk, fbK, stats, mval, mjac.  ``ints`` (host): T, B, n_iters, n_ls, ta (-1:
+// unconstrained), affine, primal, has_mu_max, has_mult_max, inner_max (-1:
+// none).  ``reals`` (host): threshold, w_min, mu_factor, mu_max, mult_max.
+// ``plan`` (host, may be null) receives the launch plan: G threads a lane,
+// LPB lanes a block, shared-memory bytes a block.  Returns cudaGetLastError()
+// after the launch; -1 for counts this build does not take or a lane too
+// large for the shared memory; -2 for a class this library was not built
+// for.
+extern "C" int ddp_flat_solve(int is_double, int dyn, int cost, int e, const void* const* ptrs,
+                              const int* ints, const double* reals, int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? launch_class<double>(class_id, nx, m, e, ptrs, ints, reals, plan, s)
-                   : launch_class<float>(class_id, nx, m, e, ptrs, ints, reals, plan, s);
+  if (dyn != DDP_DYN || cost != DDP_COST || e != DDP_E) return -2;
+  return is_double ? launch<double>(ptrs, ints, reals, plan, s)
+                   : launch<float>(ptrs, ints, reals, plan, s);
 }

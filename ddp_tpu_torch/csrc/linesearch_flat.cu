@@ -11,8 +11,10 @@
 //     u_t = us_t + step_c k_t + K_t (x_t - xs_t),   x_{t+1} = f(x_t, u_t)
 // out at step_c = 2^-c and sums the augmented-Lagrangian cost
 //     l(x_t, u_t) + p_t(x_t) eq_t + (mu/2) |eq_t|^2,   p_t = pe_t + pex_t (x_t - xs_t)
-// plus the terminal cost; one more row rolls out at step 0, which follows the
-// stored trajectory, and its cost is the incumbent's.  The lane takes the
+// at every step where the mask marks a row (the constraint evaluated with
+// the step's time index), plus the terminal cost; one more row rolls out at
+// step 0, which follows the stored trajectory, and its cost is the
+// incumbent's.  The lane takes the
 // largest step whose cost did not rise against that row and gets that
 // candidate's trajectory; a lane where every candidate raised the cost gets
 // its inputs back, bit for bit, and step 0.  The dynamics, the cost and the
@@ -56,9 +58,12 @@
 // then  cost = cost + c_t  for t = 0 .. T-1 in turn, then  cost + lf(x_T).
 // The acceptance scan takes the first accepted row, the largest step.
 //
-// T, C and B are run-time arguments (C from 1 to 31); only (NX, M, E), the
-// scalar type and the problem class are compiled in.  Build without
-// --use_fast_math and without -ftz: sinf/sin in their IEEE forms.
+// T, C and B are run-time arguments (C from 1 to 31); the scalar type and the
+// problem class's integrator, cost kind and row count E are compiled in: a
+// library serves one class, its -DDDP_DYN, -DDDP_COST and -DDDP_E from
+// kernels/_build.py::load (flat_problem.cuh says what is compiled in and what
+// is data).  Build without --use_fast_math and without -ftz: sinf/sin in
+// their IEEE forms.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -191,11 +196,10 @@ struct StepOperands {
   }
 };
 
-template <typename S, typename P, int E>
+template <typename S, typename P>
 __global__ void __launch_bounds__(kMaxThreads) linesearch_flat_kernel(
-    const LsArgs<S> a, const S* __restrict__ consts, int advance) {
-  static_assert(E == 0 || E == P::NE, "constraint rows of the problem class");
-  constexpr int NX = P::NX, M = P::M;
+    const LsArgs<S> a, const S* __restrict__ consts) {
+  constexpr int NX = P::NX, M = P::M, E = P::NE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* const sm = reinterpret_cast<S*>(smem_raw);
   const int T = a.T, C = a.n_cand, LPB = a.LPB;
@@ -226,7 +230,7 @@ __global__ void __launch_bounds__(kMaxThreads) linesearch_flat_kernel(
   // ---------------- the C candidates and the step-0 row, a role each ---------
   S* const row = sm + slot * lay.stride;
   if (slot < lanes && role <= C) {
-    const P prob(consts, advance);
+    const P prob(consts);
     const bool keep = role < C;  // the step-0 row keeps nothing
     // the step ladder 1, 1/2, ..., 2^-(C-1); row C carries step 0
     const S step = keep ? S(1) / S(1u << role) : S(0);
@@ -257,7 +261,7 @@ __global__ void __launch_bounds__(kMaxThreads) linesearch_flat_kernel(
         for (int r = 0; r < E; ++r) any = any || op.mask[r] != S(0);
         if (any) {
           S ce[E];
-          prob.eq(x, u, ce);
+          prob.eq(t, x, u, ce);
           for (int r = 0; r < E; ++r) {
             const S cea = ce[r] * op.mask[r];
             S p = op.pe[r];
@@ -298,9 +302,17 @@ __global__ void __launch_bounds__(kMaxThreads) linesearch_flat_kernel(
 
 // ------------------------------------------------------------ launch
 
-template <typename S, typename P, int E>
-int launch(const void* const* p, const void* consts, int advance, int T, int B, int n_cand,
-           int* plan, cudaStream_t stream) {
+#if !defined(DDP_DYN) || !defined(DDP_COST) || !defined(DDP_E)
+#error "build with -DDDP_DYN=, -DDDP_COST= and -DDDP_E= (kernels/_build.py::load)"
+#endif
+
+template <typename S>
+using Class = PendulumClass<S, DDP_DYN, DDP_COST, DDP_E>;
+
+template <typename S>
+int launch(const void* const* p, const void* consts, int T, int B, int n_cand, int* plan,
+           cudaStream_t stream) {
+  using P = Class<S>;
   LsArgs<S> a;
   a.xs = static_cast<const S*>(p[0]);
   a.us = static_cast<const S*>(p[1]);
@@ -318,51 +330,40 @@ int launch(const void* const* p, const void* consts, int advance, int T, int B, 
   a.n_cand = n_cand;
   int G;
   long smem;
-  if (!linesearch_plan(T, P::NX, P::M, E, n_cand, sizeof(S), &G, &a.LPB, &smem)) return -1;
+  if (!linesearch_plan(T, P::NX, P::M, P::NE, n_cand, sizeof(S), &G, &a.LPB, &smem)) return -1;
   if (plan != nullptr) {
     plan[0] = G;
     plan[1] = a.LPB;
     plan[2] = static_cast<int>(smem);
   }
-  auto kernel = linesearch_flat_kernel<S, P, E>;
+  auto kernel = linesearch_flat_kernel<S, P>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (B + a.LPB - 1) / a.LPB;
-  kernel<<<blocks, G * a.LPB, smem, stream>>>(a, static_cast<const S*>(consts), advance);
+  kernel<<<blocks, G * a.LPB, smem, stream>>>(a, static_cast<const S*>(consts));
   return static_cast<int>(cudaGetLastError());
-}
-
-// dims: class id, nx, m, e
-template <typename S>
-int launch_class(const int* dims, const void* const* p, const void* consts, int advance, int T,
-                 int B, int n_cand, int* plan, cudaStream_t s) {
-  const int e = dims[3];
-  if (dims[0] == 0 && dims[1] == 2 && dims[2] == 1) {
-    using P = PendulumEulerTarget<S>;
-    if (e == 1) return launch<S, P, 1>(p, consts, advance, T, B, n_cand, plan, s);
-    if (e == 0) return launch<S, P, 0>(p, consts, advance, T, B, n_cand, plan, s);
-  }
-  return -1;
 }
 
 }  // namespace
 
-// Plain C entry point, loaded through ctypes.  ``ptrs`` points at 11 device
-// pointers in the order xs, us, k, K, pe, pex, mask, mu, xs_out, us_out,
-// step_out, all batch-major and contiguous (pe, pex, mask are not read when
-// e == 0); ``consts`` is the problem class's constant buffer.  ``plan`` (host,
-// may be null) receives the launch plan: G threads a lane, LPB lanes a block,
-// shared-memory bytes a block.  Returns cudaGetLastError() after the launch;
-// -1 for a class, dims, a horizon or a candidate count this build does not
-// take, or a lane too large for the shared memory.
-extern "C" int ddp_linesearch_flat(int is_double, int class_id, int nx, int m, int e, int T,
-                                   int B, int n_cand, int advance, const void* const* ptrs,
-                                   const void* consts, int* plan, void* stream) {
+// Plain C entry point, loaded through ctypes.  ``dyn``, ``cost`` and ``e``
+// name the problem class (kernels/flat_problem.py); ``ptrs`` points at 11
+// device pointers in the order xs, us, k, K, pe, pex, mask, mu, xs_out,
+// us_out, step_out, all batch-major and contiguous (pe, pex, mask are not
+// read when e == 0); ``consts`` is the class's constant buffer.  ``plan``
+// (host, may be null) receives the launch plan: G threads a lane, LPB lanes
+// a block, shared-memory bytes a block.  Returns cudaGetLastError() after
+// the launch; -1 for a horizon or a candidate count this build does not
+// take, or a lane too large for the shared memory; -2 for a class this
+// library was not built for.
+extern "C" int ddp_linesearch_flat(int is_double, int dyn, int cost, int e, int T, int B,
+                                   int n_cand, const void* const* ptrs, const void* consts,
+                                   int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dyn != DDP_DYN || cost != DDP_COST || e != DDP_E) return -2;
   if (n_cand < 1 || n_cand > kMaxCandidates || T < 1) return -1;
   if (B <= 0) return 0;  // an empty grid is not a valid launch
-  const int dims[] = {class_id, nx, m, e};
-  return is_double ? launch_class<double>(dims, ptrs, consts, advance, T, B, n_cand, plan, s)
-                   : launch_class<float>(dims, ptrs, consts, advance, T, B, n_cand, plan, s);
+  return is_double ? launch<double>(ptrs, consts, T, B, n_cand, plan, s)
+                   : launch<float>(ptrs, consts, T, B, n_cand, plan, s);
 }

@@ -35,7 +35,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ddp_tpu_torch.kernels import _build
-from ddp_tpu_torch.kernels.flat_problem import KERNEL_DIMS, pack_problem
+from ddp_tpu_torch.kernels.flat_problem import FlatProblem, pack_problem
 from ddp_tpu_torch.ocp.dynamics import _vector_space_config
 from ddp_tpu_torch.solver import al as al_mod
 from ddp_tpu_torch.solver.batched import BatchSolveResult
@@ -44,7 +44,7 @@ from ddp_tpu_torch.solver.solve import Method
 SOURCE = "flat_solve.cu"
 # kernel launches since import (or since a caller reset it)
 LAUNCHES = 0
-_NO_FIT = "flat solve kernel: a lane of horizon {T} does not fit a block's shared memory"
+_NO_FIT = "flat solve kernel: a lane of horizon {T} with e = {e} does not fit a block's shared memory"
 
 
 def _setup(problem, params, x0s, us_init, method):
@@ -559,7 +559,7 @@ def solve_flat(
 
     Raises ``ValueError`` for a second-order problem, a model that is not a
     vector space, nx != ndx, more than one active constraint step, and a
-    problem outside the flat-lane classes ported so far
+    problem outside the flat-lane class
     (``kernels/flat_problem.py``)."""
     if n_linesearch < 1:
         raise ValueError(f"n_linesearch must be >= 1, got {n_linesearch}")
@@ -580,7 +580,7 @@ class LaunchPlan(NamedTuple):
     tensors: list  # x0, us0, scal, consts, mrow, 7 outputs
     ints: list
     reals: list
-    class_id: int
+    flat: FlatProblem
     dims: tuple  # (T, nx, m, e)
     geometry: dict
 
@@ -592,10 +592,6 @@ def plan_launch(problem, params, x0s, us_init=None, method=None, n_linesearch=8)
     flat = pack_problem(problem)
     B, nx = x0s.shape
     dtype, dev = x0s.dtype, x0s.device
-    if (nx, m, e) not in KERNEL_DIMS:
-        raise ValueError(
-            f"no CUDA instantiation for (nx, m, e)={(nx, m, e)}; have {KERNEL_DIMS}"
-        )
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernel takes float32 or float64, got {dtype}")
     if not 1 <= n_linesearch <= 31:
@@ -620,7 +616,7 @@ def plan_launch(problem, params, x0s, us_init=None, method=None, n_linesearch=8)
     outs = [empty(T, m, B), empty(T + 1, nx, B), empty(T, m, B), empty(T, m * nx, B),
             empty(6, B), empty(T, e_k, B), empty(T, e_k * nx, B)]  # fmt: skip
     ints = [
-        T, B, params.max_iterations, n_linesearch, ta, flat.advance,
+        T, B, params.max_iterations, n_linesearch, ta,
         int(method is Method.PRIMAL_DUAL_AFFINE), int(method is Method.PRIMAL),
         int(params.mu_max is not None), int(params.mult_max is not None),
         -1 if params.inner_iters_max is None else int(params.inner_iters_max),
@@ -632,7 +628,7 @@ def plan_launch(problem, params, x0s, us_init=None, method=None, n_linesearch=8)
     ]  # fmt: skip
     return LaunchPlan(
         tensors=[x0, us0, scal, flat.consts, mrow_t] + outs, ints=ints, reals=reals,
-        class_id=flat.class_id, dims=(T, nx, m, e), geometry={},
+        flat=flat, dims=(T, nx, m, e), geometry={},
     )  # fmt: skip
 
 
@@ -643,19 +639,21 @@ def launch_plan(plan: LaunchPlan) -> BatchSolveResult:
     T, nx, m, e = plan.dims
     x0 = plan.tensors[0]
     ptrs = (ctypes.c_void_p * len(plan.tensors))(*[x.data_ptr() for x in plan.tensors])
-    fn = _kernel_fn()
+    fn = _kernel_fn(plan.flat.build)
     geometry = (ctypes.c_int * 3)()
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream(x0.device).cuda_stream
         rc = fn(
-            int(x0.dtype == torch.float64), plan.class_id, nx, m, e,
+            int(x0.dtype == torch.float64), plan.flat.dynamics, plan.flat.cost, e,
             ctypes.cast(ptrs, ctypes.c_void_p),
             (ctypes.c_int * len(plan.ints))(*plan.ints),
             (ctypes.c_double * len(plan.reals))(*plan.reals),
             ctypes.cast(geometry, ctypes.c_void_p), stream,
         )  # fmt: skip
     if rc == -1:  # the only gate plan_launch cannot check: the shared memory
-        raise ValueError(_NO_FIT.format(T=T))
+        raise ValueError(_NO_FIT.format(T=T, e=e))
+    if rc == -2:
+        raise RuntimeError(f"flat_solve: the library does not serve the class {plan.flat.build}")
     if rc != 0:
         raise RuntimeError(f"flat_solve kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
@@ -665,9 +663,11 @@ def launch_plan(plan: LaunchPlan) -> BatchSolveResult:
     return _result(us, xs, fbk, fbK, stats, mval, mjac, T, m, e, nx)
 
 
-def _kernel_fn():
-    lib = _build.load(SOURCE)
+def _kernel_fn(build: dict):
+    """The kernel of the library built for a class's ``FlatProblem.build``
+    constants (prebuilt with ``_kernel_fn({"DYN": 0, "COST": 0, "E": 1})``)."""
+    lib = _build.load(SOURCE, build)
     fn = lib.ddp_flat_solve
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     return fn

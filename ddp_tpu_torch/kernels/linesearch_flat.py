@@ -11,7 +11,8 @@ trajectory, bit for bit, with step 0 where none did.  Same semantics as
 
 On CUDA tensors it launches ``csrc/linesearch_flat.cu`` (one launch; the
 problem's dynamics, cost and constraint run inside the kernel as the device
-functions of its class, ``kernels/flat_problem.py``); on CPU tensors it runs
+functions of its class, ``kernels/flat_problem.py``, from the library built
+for the class's integrator, cost kind and row count); on CPU tensors it runs
 ``linesearch_reference``, the plain PyTorch version of the kernel's per-lane
 program.  The multipliers must be anchored at the trajectory
 (``origin == xs[:, :-1]``): the kernel evaluates p = val + jac·(x ⊖ xs).
@@ -25,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ddp_tpu_torch.kernels import _build
-from ddp_tpu_torch.kernels.flat_problem import KERNEL_DIMS, FlatProblem, pack_problem
+from ddp_tpu_torch.kernels.flat_problem import FlatProblem, pack_problem
 from ddp_tpu_torch.models.base import state_difference
 
 SOURCE = "linesearch_flat.cu"
@@ -158,9 +159,9 @@ def plan_launch(
     B, Tp1, nx = xs.shape
     T, m, e = Tp1 - 1, us.shape[-1], mult_val.shape[-1]
     dtype, dev = xs.dtype, xs.device
-    if (nx, m, e) not in KERNEL_DIMS or (nx, m, e) != (flat.nx, flat.m, flat.e):
+    if (nx, m, e) != (flat.nx, flat.m, flat.e):
         raise ValueError(
-            f"no CUDA instantiation for (nx, m, e)={(nx, m, e)}; have {KERNEL_DIMS}"
+            f"(nx, m, e)={(nx, m, e)} for a packed problem of {(flat.nx, flat.m, flat.e)}"
         )
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernel takes float32 or float64, got {dtype}")
@@ -172,7 +173,8 @@ def plan_launch(
         raise ValueError(f"the kernel takes a horizon of at least 1 step, got {T}")
     expected = dict(
         xs=(B, T + 1, nx), us=(B, T, m), k=(B, T, m), K=(B, T, m, nx),
-        mult_val=(B, T, e), mult_jac=(B, T, e, nx), mask=(T, e), mu=(B,), consts=(5,),
+        mult_val=(B, T, e), mult_jac=(B, T, e, nx), mask=(T, e), mu=(B,),
+        consts=tuple(flat.consts.shape),
     )  # fmt: skip
     given = dict(xs=xs, us=us, k=k, K=K, mult_val=mult_val, mult_jac=mult_jac,
                  mask=flat.mask, mu=mu, consts=flat.consts)  # fmt: skip
@@ -196,17 +198,19 @@ def launch_plan(plan: LaunchPlan):
     xs, us = plan.tensors[0], plan.tensors[1]
     (B, Tp1, nx), m, flat = xs.shape, us.shape[-1], plan.flat
     ptrs = (ctypes.c_void_p * len(plan.tensors))(*[x.data_ptr() for x in plan.tensors])
-    fn = _kernel_fn()
+    fn = _kernel_fn(flat.build)
     geometry = (ctypes.c_int * 3)()
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
         rc = fn(
-            int(xs.dtype == torch.float64), flat.class_id, nx, m, flat.e, Tp1 - 1, B,
-            plan.n_candidates, flat.advance, ctypes.cast(ptrs, ctypes.c_void_p),
-            flat.consts.data_ptr(), ctypes.cast(geometry, ctypes.c_void_p), stream,
+            int(xs.dtype == torch.float64), flat.dynamics, flat.cost, flat.e, Tp1 - 1, B,
+            plan.n_candidates, ctypes.cast(ptrs, ctypes.c_void_p), flat.consts.data_ptr(),
+            ctypes.cast(geometry, ctypes.c_void_p), stream,
         )  # fmt: skip
     if rc == -1:  # the only gate plan_launch cannot check: the shared memory
-        raise ValueError(_NO_FIT.format(T=Tp1 - 1, C=plan.n_candidates, dtype=xs.dtype))
+        raise ValueError(_NO_FIT.format(T=Tp1 - 1, C=plan.n_candidates, e=flat.e, dtype=xs.dtype))
+    if rc == -2:
+        raise RuntimeError(f"linesearch_flat: the library does not serve the class {flat.build}")
     if rc != 0:
         raise RuntimeError(f"linesearch_flat kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
@@ -217,14 +221,17 @@ def launch_plan(plan: LaunchPlan):
 
 _NO_FIT = (
     "the line-search kernel keeps a lane's inputs and its candidates' rollouts in "
-    "one block's shared memory (232,448 bytes): T = {T} with {C} candidates in "
-    "{dtype} does not fit (every T <= 256 does, at up to 31 candidates in float64)"
+    "one block's shared memory (232,448 bytes): T = {T} with {C} candidates and "
+    "e = {e} in {dtype} does not fit (every T <= 256 does at e <= 3, up to 31 "
+    "candidates in float64)"
 )
 
 
-def _kernel_fn():
-    lib = _build.load(SOURCE)
+def _kernel_fn(build: dict):
+    """The kernel of the library built for a class's ``FlatProblem.build``
+    constants (prebuilt with ``_kernel_fn({"DYN": 0, "COST": 0, "E": 1})``)."""
+    lib = _build.load(SOURCE, build)
     fn = lib.ddp_linesearch_flat
-    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 4
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     return fn

@@ -42,16 +42,18 @@ class QuadTrackingCost(nn.Module):
         for name, v in dict(x_ref=x_ref, q_diag=q_diag, r_diag=r_diag, qf_diag=qf_diag).items():
             self.register_buffer(name, v)
 
+    # ½·s is written s / 2 (the same bits): under torch.func.jacfwd a Python
+    # float times a 0-dim reduction gives float64 tangents in float32
+    # problems, and integer 2 keeps the problem's dtype
+
     def stage(self, t, x, u):
         del t
         e = x - self.x_ref
-        return 0.5 * torch.sum(e * self.q_diag * e, dim=-1) + 0.5 * torch.sum(
-            u * self.r_diag * u, dim=-1
-        )
+        return torch.sum(e * self.q_diag * e, dim=-1) / 2 + torch.sum(u * self.r_diag * u, dim=-1) / 2
 
     def terminal(self, x):
         e = x - self.x_ref
-        return 0.5 * torch.sum(e * self.qf_diag * e, dim=-1)
+        return torch.sum(e * self.qf_diag * e, dim=-1) / 2
 
 
 class ManifoldTrackingCost(nn.Module):
@@ -76,20 +78,19 @@ class ManifoldTrackingCost(nn.Module):
         nv = self.model.nv
         return e[..., :nv], e[..., nv:]
 
-    def stage(self, t, x, u):
+    def stage(self, t, x, u):  # ½·s as s / 2: see QuadTrackingCost
         del t
         dq, dv = self._state_err(x)
         return (
-            0.5 * torch.sum(dq * self.q_diag * dq, dim=-1)
-            + 0.5 * torch.sum(dv * self.v_diag * dv, dim=-1)
-            + 0.5 * torch.sum(u * self.r_diag * u, dim=-1)
+            torch.sum(dq * self.q_diag * dq, dim=-1) / 2
+            + torch.sum(dv * self.v_diag * dv, dim=-1) / 2
+            + torch.sum(u * self.r_diag * u, dim=-1) / 2
         )
 
     def terminal(self, x):
         dq, dv = self._state_err(x)
         return self.terminal_scale * (
-            0.5 * torch.sum(dq * self.q_diag * dq, dim=-1)
-            + 0.5 * torch.sum(dv * self.v_diag * dv, dim=-1)
+            torch.sum(dq * self.q_diag * dq, dim=-1) / 2 + torch.sum(dv * self.v_diag * dv, dim=-1) / 2
         )
 
 

@@ -6,8 +6,9 @@ CUDA kernels, as ``nvcc -Xptxas -v`` reports them.
 
 Compiles each library (by default every one that chip_smoke.py's build
 phase makes: #1 at its (n, m, e) and orders, #2 and #3 at its joint counts,
-the flat-lane sources; or the sources named, each with the build constants
-after its colon, e.g. ``riccati_small.cu:N=4,M=2,E=2,SO=0``) with the flags
+#4 and #5 at the classes it runs; or the sources named, each with the build
+constants after its colon, e.g. ``riccati_small.cu:N=4,M=2,E=2,SO=0`` or
+``flat_solve.cu:DYN=1,COST=1,E=0``) with the flags
 of ``ddp_tpu_torch/kernels/_build.py`` plus ``-Xptxas -v``, one nvcc per
 library, as many at once as the host has cores, and prints one line per
 kernel instantiation: value type, template integers, registers, bytes of
@@ -38,9 +39,9 @@ REGS = re.compile(r"Used (\d+) registers")
 # bools...>` (as a lookahead, so that every start position is tried: the
 # length prefix must equal the name's length)
 MANGLED = re.compile(
-    r"(?=(\d{1,2})(\w+_kernel)I([fd])((?:NS_\d+[A-Za-z_]\w*?I[fd]EE|L[ib]\d+E)+)E)"
+    r"(?=(\d{1,2})(\w+_kernel)I([fd])((?:NS_\d+[A-Za-z_]\w*?I[fd](?:Li\d+E)*EE|L[ib]\d+E)+)E)"
 )
-ARG = re.compile(r"NS_(\d+)([A-Za-z_]\w*?)I([fd])EE|L([ib])(\d+)E")
+ARG = re.compile(r"NS_(\d+)([A-Za-z_]\w*?)I([fd])((?:Li\d+E)*)EE|L([ib])(\d+)E")
 SCALAR = {"f": "float", "d": "double"}
 
 
@@ -51,10 +52,11 @@ def describe(mangled: str) -> str:
         shown = []
         for a in ARG.finditer(m.group(4)):
             if a.group(2):  # a problem-class policy struct, itself a template
-                shown.append(f"{a.group(2)}<{SCALAR[a.group(3)]}>")
+                ints = "".join(f", {v}" for v in re.findall(r"Li(\d+)E", a.group(4)))
+                shown.append(f"{a.group(2)}<{SCALAR[a.group(3)]}{ints}>")
             else:
-                v = a.group(5)
-                shown.append(v if a.group(4) == "i" else str(bool(int(v))).lower())
+                v = a.group(6)
+                shown.append(v if a.group(5) == "i" else str(bool(int(v))).lower())
         return f"{m.group(2)}<{SCALAR[m.group(3)]}, {', '.join(shown)}>"
     return mangled
 
@@ -68,7 +70,9 @@ def libraries():
     out = [(rs.SOURCE, rs.instantiation(*shape)) for shape in cs.RICCATI_SHAPES]
     out += [(src, fd.instantiation(nv)) for src in ("fd_derivs.cu", "fd_derivs2.cu")
             for nv in cs.FD_JOINTS]  # fmt: skip
-    return out + [("linesearch_flat.cu", None), ("flat_solve.cu", None)]
+    return out + [(src, build) for src, names in (("linesearch_flat.cu", ("headline", "e0") + cs.FLAT_CLASSES),
+                                                   ("flat_solve.cu", ("headline", "e0") + cs.FS_CLASSES))
+                  for build in cs.flat_builds(names)]  # fmt: skip
 
 
 def parse(arg: str):

@@ -1,7 +1,8 @@
-// Runs csrc/flat_solve.cu's kernel (float64, the pendulum class) on the host,
-// block by block, on its launch plan.
-//   flat_solve_host E DIR
-// reads DIR/{ints.i32 (the kernel's 11 ints), reals.f64 (its 5 reals),
+// Runs csrc/flat_solve.cu's kernel (float64) on the host, block by block, on
+// its launch plan, for the flat-lane classes (DYN, COST, E) it instantiates
+// below.
+//   flat_solve_host DYN COST E DIR
+// reads DIR/{ints.i32 (the kernel's 10 ints), reals.f64 (its 5 reals),
 // x0.f64, us0.f64, scal.f64, consts.f64, mrow.f64} and writes
 // DIR/{us,xs,fbk,fbK,stats,mval,mjac}.f64 in the kernel's batch-last layouts,
 // and DIR/plan.i32 = {G, LPB, shared-memory bytes}.
@@ -28,17 +29,27 @@ static void write(const std::string& path, const std::vector<T>& v) {
   std::fclose(f);
 }
 
-template <int E>
+template <typename T>
+static std::vector<T> read_all(const std::string& path) {
+  FILE* f = std::fopen(path.c_str(), "rb");
+  if (!f) std::exit(3);
+  std::fseek(f, 0, SEEK_END);
+  const size_t n = std::ftell(f) / sizeof(T);
+  std::fclose(f);
+  return read<T>(path, n);
+}
+
+template <int DYN, int COST, int E>
 static int run(const std::string& dir) {
-  using P = PendulumEulerTarget<double>;
+  using P = PendulumClass<double, DYN, COST, E>;
   constexpr int NX = P::NX, M = P::M, EK = E > 0 ? E : 1;
-  auto n = read<int>(dir + "/ints.i32", 11);
+  auto n = read<int>(dir + "/ints.i32", 10);
   auto r = read<double>(dir + "/reals.f64", 5);
   const int T = n[0], B = n[1];
   auto x0 = read<double>(dir + "/x0.f64", NX * size_t(B));
   auto us0 = read<double>(dir + "/us0.f64", size_t(T) * M * B);
   auto scal = read<double>(dir + "/scal.f64", 4 * size_t(B));
-  auto consts = read<double>(dir + "/consts.f64", P::N_CONSTS);
+  auto consts = read_all<double>(dir + "/consts.f64");
   std::vector<double> mrow(EK, 0.0);  // empty without a constraint
   if (E > 0) mrow = read<double>(dir + "/mrow.f64", E);
   // outputs NaN until written, so an unwritten entry fails the comparison
@@ -63,12 +74,11 @@ static int run(const std::string& dir) {
   a.n_iters = n[2];
   a.n_ls = n[3];
   a.ta = n[4];
-  a.advance = n[5];
-  a.affine = n[6];
-  a.primal = n[7];
-  a.has_mu_max = n[8];
-  a.has_mult_max = n[9];
-  a.inner_max = n[10];
+  a.affine = n[5];
+  a.primal = n[6];
+  a.has_mu_max = n[7];
+  a.has_mult_max = n[8];
+  a.inner_max = n[9];
   a.threshold = r[0];
   a.w_min = r[1];
   a.mu_factor = r[2];
@@ -83,7 +93,7 @@ static int run(const std::string& dir) {
   for (index.x = 0; index.x < blocks; ++index.x) {
     // the shared memory as an uninitialised block finds it
     std::fill(host_dynamic_smem, host_dynamic_smem + smem, static_cast<unsigned char>(0xA5));
-    host_run_block(index, block, [&] { flat_solve_kernel<double, P, E>(a); });
+    host_run_block(index, block, [&] { flat_solve_kernel<double, P>(a); });
   }
   write(dir + "/us.f64", us);
   write(dir + "/xs.f64", xs);
@@ -97,9 +107,14 @@ static int run(const std::string& dir) {
 }
 
 int main(int argc, char** argv) {
-  if (argc != 3) return 2;
-  const int e = std::atoi(argv[1]);
-  if (e == 1) return run<1>(argv[2]);
-  if (e == 0) return run<0>(argv[2]);
+  if (argc != 5) return 2;
+  const int dyn = std::atoi(argv[1]), cost = std::atoi(argv[2]), e = std::atoi(argv[3]);
+  const std::string dir = argv[4];
+  // the classes the host test holds to the plain version: the headline's and
+  // its unconstrained twin, the arrive-at-rest target, the RK4 tracking twin
+  if (dyn == 0 && cost == 0 && e == 1) return run<0, 0, 1>(dir);
+  if (dyn == 0 && cost == 0 && e == 0) return run<0, 0, 0>(dir);
+  if (dyn == 0 && cost == 0 && e == 2) return run<0, 0, 2>(dir);
+  if (dyn == 1 && cost == 1 && e == 0) return run<1, 1, 0>(dir);
   return 2;
 }

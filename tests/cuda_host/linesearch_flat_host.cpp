@@ -1,13 +1,15 @@
-// Runs csrc/linesearch_flat.cu's kernel (float64, the pendulum class) on the
-// host, block by block, on its launch plan.
-//   linesearch_flat_host E T B C ADVANCE DIR
+// Runs csrc/linesearch_flat.cu's kernel (float64) on the host, block by
+// block, on its launch plan, for the flat-lane classes (DYN, COST, E) it
+// instantiates below.
+//   linesearch_flat_host DYN COST E T B C DIR
 // reads DIR/{xs,us,k,K,pe,pex,mask,mu,consts}.f64 (batch-major, as the
-// wrapper passes them; pe, pex, mask only with E = 1) and writes
+// wrapper passes them; pe, pex, mask only with E > 0) and writes
 // DIR/{xs_out,us_out,step}.f64 and DIR/plan.i32 = {G, LPB, shared-memory
 // bytes}.
-//   linesearch_flat_host plan T C ITEM
-// prints the launch plan "G LPB bytes" of the constrained class at horizon T,
-// C candidates and ITEM-byte scalars; exit code 4 when no lane fits.
+//   linesearch_flat_host plan T C ITEM [E]
+// prints the launch plan "G LPB bytes" of a class of E rows (default 1) at
+// horizon T, C candidates and ITEM-byte scalars; exit code 4 when no lane
+// fits.
 #include <cstdio>
 #include <cstdlib>
 #include <string>
@@ -31,9 +33,19 @@ static void write(const std::string& path, const std::vector<T>& v) {
   std::fclose(f);
 }
 
-template <int E>
-static int run(int T, int B, int C, int advance, const std::string& dir) {
-  using P = PendulumEulerTarget<double>;
+template <typename T>
+static std::vector<T> read_all(const std::string& path) {
+  FILE* f = std::fopen(path.c_str(), "rb");
+  if (!f) std::exit(3);
+  std::fseek(f, 0, SEEK_END);
+  const size_t n = std::ftell(f) / sizeof(T);
+  std::fclose(f);
+  return read<T>(path, n);
+}
+
+template <int DYN, int COST, int E>
+static int run(int T, int B, int C, const std::string& dir) {
+  using P = PendulumClass<double, DYN, COST, E>;
   constexpr int NX = P::NX, M = P::M;
   const size_t Bs = B;
   auto xs = read<double>(dir + "/xs.f64", Bs * (T + 1) * NX);
@@ -41,7 +53,7 @@ static int run(int T, int B, int C, int advance, const std::string& dir) {
   auto k = read<double>(dir + "/k.f64", Bs * T * M);
   auto K = read<double>(dir + "/K.f64", Bs * T * M * NX);
   auto mu = read<double>(dir + "/mu.f64", Bs);
-  auto consts = read<double>(dir + "/consts.f64", P::N_CONSTS);
+  auto consts = read_all<double>(dir + "/consts.f64");
   std::vector<double> pe, pex, mask;
   if (E > 0) {
     pe = read<double>(dir + "/pe.f64", Bs * T * E);
@@ -76,7 +88,7 @@ static int run(int T, int B, int C, int advance, const std::string& dir) {
     // the shared memory as an uninitialised block finds it
     std::fill(host_dynamic_smem, host_dynamic_smem + smem, static_cast<unsigned char>(0xA5));
     host_run_block(index, block,
-                   [&] { linesearch_flat_kernel<double, P, E>(a, consts.data(), advance); });
+                   [&] { linesearch_flat_kernel<double, P>(a, consts.data()); });
   }
   write(dir + "/xs_out.f64", xs_out);
   write(dir + "/us_out.f64", us_out);
@@ -86,19 +98,25 @@ static int run(int T, int B, int C, int advance, const std::string& dir) {
 }
 
 int main(int argc, char** argv) {
-  if (argc == 5 && std::string(argv[1]) == "plan") {
+  if ((argc == 5 || argc == 6) && std::string(argv[1]) == "plan") {
     int G, LPB;
     long smem;
-    if (!linesearch_plan(std::atoi(argv[2]), 2, 1, 1, std::atoi(argv[3]), std::atoi(argv[4]), &G,
+    const int e = argc == 6 ? std::atoi(argv[5]) : 1;
+    if (!linesearch_plan(std::atoi(argv[2]), 2, 1, e, std::atoi(argv[3]), std::atoi(argv[4]), &G,
                          &LPB, &smem))
       return 4;
     std::printf("%d %d %ld\n", G, LPB, smem);
     return 0;
   }
-  if (argc != 7) return 2;
-  const int e = std::atoi(argv[1]), T = std::atoi(argv[2]), B = std::atoi(argv[3]);
-  const int C = std::atoi(argv[4]), advance = std::atoi(argv[5]);
-  if (e == 1) return run<1>(T, B, C, advance, argv[6]);
-  if (e == 0) return run<0>(T, B, C, advance, argv[6]);
+  if (argc != 8) return 2;
+  const int dyn = std::atoi(argv[1]), cost = std::atoi(argv[2]), e = std::atoi(argv[3]);
+  const int T = std::atoi(argv[4]), B = std::atoi(argv[5]), C = std::atoi(argv[6]);
+  const std::string dir = argv[7];
+  // the classes the host test holds to the plain version: the headline's and
+  // its unconstrained twin, the arrive-at-rest target, the RK4 tracking twin
+  if (dyn == 0 && cost == 0 && e == 1) return run<0, 0, 1>(T, B, C, dir);
+  if (dyn == 0 && cost == 0 && e == 0) return run<0, 0, 0>(T, B, C, dir);
+  if (dyn == 0 && cost == 0 && e == 2) return run<0, 0, 2>(T, B, C, dir);
+  if (dyn == 1 && cost == 1 && e == 0) return run<1, 1, 0>(T, B, C, dir);
   return 2;
 }

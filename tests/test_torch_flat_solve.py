@@ -255,26 +255,34 @@ def test_bad_arguments_raise():
 
 @pytest.mark.parametrize("target", [1.25, None])
 def test_flat_problem_buffer_round_trips_the_spec(target):
+    """The headline's class as data: Euler, the control cost, and (unless
+    unconstrained) one configuration-target leaf behind its two layers of
+    the problem's own dynamics; the spec read back from the buffer builds a
+    problem that packs to the same buffer, mask and structure."""
     jp, tp = both_problems(5, np.float64, target=target)
     flat = flat_problem.pack_problem(tp)
     spec = spec_of(jp)
-    assert flat.class_id == flat_problem.PENDULUM_EULER_TARGET
+    assert flat.build == {"DYN": 0, "COST": 0, "E": 0 if target is None else 1}
     assert (flat.nx, flat.m, flat.e) == (2, 1, 0 if target is None else 1)
-    assert (flat.nx, flat.m, flat.e) in flat_problem.KERNEL_DIMS
-    np.testing.assert_array_equal(
-        flat.consts.numpy(),
-        [spec["mass"], spec["length"], spec["dt"], spec["c"], 0.0 if target is None else target],
-    )
+    own = [spec["mass"], spec["length"], spec["dt"]]
+    expected = own + [spec["c"]]
+    if target is None:
+        expected += [0.0]  # no leaf
+    else:  # one leaf: config, 2 layers at [10, 18), its target at [18]
+        layer = [0.0, spec["dt"], spec["mass"], spec["length"]]  # Euler, dt, mass, length
+        expected += [1.0, 0.0, 2.0, 10.0, 18.0, 1.0] + 2 * layer + [target]
+    np.testing.assert_array_equal(flat.consts.numpy(), expected)
     assert flat.consts.dtype == torch.float64 and flat.consts.is_contiguous()
     np.testing.assert_array_equal(flat.mask, tp.eq_mask())
     if target is not None:
-        assert flat.advance == spec["advance_times"] == 2
-        assert tp.active_ts() == (3,) and flat.active_ts == (5,)
+        assert spec["advance_times"] == 2
+        assert tp.active_ts() == (3,) and flat.active_ts == (3,)
     # … and back: the spec read from the buffer builds the same problem
     again = flat_problem.pack_problem(
         problem_from_numpy(flat.spec(), device="cpu", dtype=torch.float64)
     )
-    assert torch.equal(again.consts, flat.consts) and again[:4] == flat[:4]
+    assert torch.equal(again.consts, flat.consts) and again.build == flat.build
+    assert again.tree == flat.tree
     np.testing.assert_array_equal(again.mask, flat.mask)
 
 
@@ -282,4 +290,4 @@ def test_flat_problem_float32_buffer_follows_the_problem():
     _, tp = both_problems(5, np.float32)
     flat = flat_problem.pack_problem(tp)
     assert flat.consts.dtype == torch.float32
-    assert float(flat.consts[4]) == pytest.approx(3.14, rel=1e-6)
+    assert float(flat.consts[-1]) == pytest.approx(3.14, rel=1e-6)

@@ -39,6 +39,7 @@ from ddp_tpu_torch.models.rigid_body import build_model
 from ddp_tpu_torch.solver import batched as tbatched
 from ddp_tpu_torch.solver.solve import SolverParams
 
+from chip_smoke import flat_class_spec
 from torch_parity_helpers import random_spd_derivs, t, to_torch_derivs
 
 REPO = Path(__file__).resolve().parent.parent
@@ -281,37 +282,37 @@ FS_FIELDS = ("xs", "us", "fb_k", "fb_K", "opt_constr", "opt_lag", "mu", "reg", "
 
 
 @pytest.mark.parametrize(
-    "n_ls,constrained", [(4, True), (7, True), (4, False)], ids=["C4", "C7", "C4_e0"]
+    "n_ls,case",
+    [(4, "headline"), (7, "headline"), (4, "e0"), (4, "state"), (4, "rk4_tracking")],
+    ids=["C4", "C7", "C4_e0", "C4_state", "C4_rk4_tracking"],
 )
-def test_flat_solve_kernel_matches_plain_version(flat_solve_host, tmp_path, n_ls, constrained):
-    """The whole solve on the pendulum headline's class at T = 8, B = 40 (two
-    blocks of 32 lanes, the second ragged), 2 iterations, lane 3 started at a
-    NaN state; unconstrained from random controls.  Every field of the other
-    lanes within 1e-9 of its array's largest entry (opt_lag of the largest
-    |u|), μ and reg identical; the NaN lane keeps its controls and escalates
-    its reg as the plain version's does."""
-    spec = dict(
-        mass=1.0, length=1.0, dt=0.01, c=1.0, target=np.array([3.14]) if constrained else None,
-        active_ts=(FS_T,), advance_times=2, horizon=FS_T, second_order=False,
-    )  # fmt: skip
-    problem = problem_from_numpy(spec, device="cpu", dtype=torch.float64)
+def test_flat_solve_kernel_matches_plain_version(flat_solve_host, tmp_path, n_ls, case):
+    """The whole solve at T = 8, B = 40 (two blocks of 32 lanes, the second
+    ragged), 2 iterations, lane 3 started at a NaN state: on the pendulum
+    headline's class, its unconstrained twin from random controls, the
+    arrive-at-rest state target (e = 2) and the RK4 tracking twin (a
+    non-zero terminal cost).  Every field of the other lanes within 1e-9 of
+    its array's largest entry (opt_lag of the largest |u|), μ and reg
+    identical; the NaN lane keeps its controls and escalates its reg as the
+    plain version's does."""
+    problem = problem_from_numpy(flat_class_spec(case, FS_T), device="cpu", dtype=torch.float64)
     rng = np.random.default_rng(4)
     x0 = np.stack([rng.uniform(-np.pi, np.pi, FS_B), np.zeros(FS_B)], axis=1)
     x0[3, 0] = np.nan
-    us0 = t(0.5 * rng.normal(size=(FS_B, FS_T, 1))) if not constrained else None
+    us0 = t(0.5 * rng.normal(size=(FS_B, FS_T, 1))) if case == "e0" else None
     kw = dict(us_init=us0, n_linesearch=n_ls)
     plan = fs.plan_launch(problem, FS_PARAMS, t(x0), **kw)
     for name, x in zip(("x0", "us0", "scal", "consts", "mrow"), plan.tensors[:5]):
         dump(x, tmp_path / f"{name}.f64")
     np.asarray(plan.ints, dtype=np.int32).tofile(tmp_path / "ints.i32")
     np.asarray(plan.reals, dtype=np.float64).tofile(tmp_path / "reals.f64")
-    run([str(flat_solve_host), str(int(constrained)), str(tmp_path)])
+    flat = plan.flat
+    run([str(flat_solve_host), *map(str, (flat.dynamics, flat.cost, flat.e)), str(tmp_path)])
     outs = [
         torch.from_numpy(np.fromfile(tmp_path / f"{n}.f64").reshape(x.shape))
         for n, x in zip(("us", "xs", "fbk", "fbK", "stats", "mval", "mjac"), plan.tensors[5:12])
     ]
-    e = problem.ne if constrained else 0
-    got = fs._result(*outs, FS_T, 1, e, 2)
+    got = fs._result(*outs, FS_T, 1, problem.ne, 2)
     ref = fs.solve_flat_reference(problem, FS_PARAMS, t(x0), **kw)
     G, lpb, _ = np.fromfile(tmp_path / "plan.i32", dtype=np.int32).tolist()
     assert G == 8 and lpb == 32
@@ -344,18 +345,17 @@ LS_T = 12
 LS_GAINS = (1.5, 2.5, 5.0, 7.0, 11.0, 13.0, 100.0, 1000.0)
 
 
-def ls_inputs(B, constrained):
-    """A numpy-seeded line-search state of the pendulum headline's class at
-    T = 12 (target 2.0 two steps past the horizon, or unconstrained): a
-    rollout from random x0s and us, random multipliers, μ = 1e3, the gains of
-    a backward sweep at reg = 0 with lane i's k times LS_GAINS[i % 8], and
-    anti-descent gains (k = 1e3, K = 0) on every 5th lane from lane 3.
-    Returns (problem, (xs, us, k, K, mult_val, mult_jac, mu), the anti-descent
-    lanes)."""
-    spec = dict(
-        mass=1.0, length=1.0, dt=0.01, c=1.0, target=np.array([2.0]) if constrained else None,
-        active_ts=(LS_T,), advance_times=2, horizon=LS_T, second_order=False,
-    )  # fmt: skip
+def ls_inputs(B, case):
+    """A numpy-seeded line-search state at T = 12 of the pendulum headline's
+    class (target 2.0 two steps past the horizon), its unconstrained twin
+    ("e0") or a class of chip_smoke.py's ``flat_class_spec``: a rollout from random x0s and us,
+    random multipliers, μ = 1e3, the gains of a backward sweep at reg = 0
+    with lane i's k times LS_GAINS[i % 8], and anti-descent gains (k = 1e3,
+    K = 0) on every 5th lane from lane 3.  Returns (problem, (xs, us, k, K,
+    mult_val, mult_jac, mu), the anti-descent lanes)."""
+    spec = flat_class_spec(case, LS_T)
+    if case == "headline":
+        spec["target"] = np.array([2.0])
     problem = problem_from_numpy(spec, device="cpu", dtype=torch.float64)
     rng = np.random.default_rng(7)
     x0s, us = t(0.5 * rng.normal(size=(B, 2))), t(0.2 * rng.normal(size=(B, LS_T, 1)))
@@ -372,24 +372,28 @@ def ls_inputs(B, constrained):
 
 
 @pytest.mark.parametrize(
-    "n_cand,constrained,B",
-    [(1, True, 40), (4, True, 70), (7, True, 40), (4, False, 96)],
-    ids=["C1", "C4", "C7", "C4_e0"],
-)
-def test_linesearch_kernel_matches_plain_version(ls_host, tmp_path, n_cand, constrained, B):
-    """The kernel on the pendulum headline's class at T = 12 against its plain
-    version, over blocks of 32 lanes with a ragged last one (B = 96 with 4
-    candidates is three whole blocks), lanes accepting different steps and
-    anti-descent lanes rejecting all of them: every step equal, xs and us
-    within 1e-10 of each array's largest entry, the rejected lanes' inputs
-    back bit for bit."""
-    problem, state, bad = ls_inputs(B, constrained)
+    "n_cand,case,B",
+    [(1, "headline", 40), (4, "headline", 70), (7, "headline", 40), (4, "e0", 96),
+     (4, "state", 40), (4, "rk4_tracking", 40), (4, "trajectory", 40)],
+    ids=["C1", "C4", "C7", "C4_e0", "C4_state", "C4_rk4_tracking", "C4_trajectory"],
+)  # fmt: skip
+def test_linesearch_kernel_matches_plain_version(ls_host, tmp_path, n_cand, case, B):
+    """The kernel at T = 12 against its plain version, over blocks of 32
+    lanes with a ragged last one (B = 96 with 4 candidates is three whole
+    blocks), lanes accepting different steps and anti-descent lanes rejecting
+    all of them, on the pendulum headline's class and its unconstrained twin,
+    the arrive-at-rest state target (e = 2), the RK4 tracking twin (a
+    non-zero terminal cost) and the trajectory target active at every step
+    (its row read at each step's own t): every step equal, xs and us within
+    1e-10 of each array's largest entry, the rejected lanes' inputs back bit
+    for bit."""
+    problem, state, bad = ls_inputs(B, case)
     flat = pack_problem(problem)
     for name, x in zip(("xs", "us", "k", "K", "pe", "pex", "mu"), state):
         dump(x, tmp_path / f"{name}.f64")
     dump(flat.mask, tmp_path / "mask.f64")
     dump(flat.consts, tmp_path / "consts.f64")
-    args = [flat.e, LS_T, B, n_cand, flat.advance, tmp_path]
+    args = [flat.dynamics, flat.cost, flat.e, LS_T, B, n_cand, tmp_path]
     run([str(ls_host), *map(str, args)])
     xs_k = torch.from_numpy(np.fromfile(tmp_path / "xs_out.f64").reshape(B, LS_T + 1, 2))
     us_k = torch.from_numpy(np.fromfile(tmp_path / "us_out.f64").reshape(B, LS_T, 1))

@@ -5,8 +5,8 @@ ddp_tpu's numbers), the manifold Jacobians on the quadrotor and
 the schedules and stacked constraints of tests/test_methods_schedules.py,
 ``TrajectoryConfigTarget``, the tracking costs, the model identities of
 tests/test_model_zoo.py, ``problem_from_numpy`` building both packages'
-problems from one numpy spec, and ``pack_problem`` refusing the new
-classes."""
+problems from one numpy spec, and ``pack_problem`` taking the flat-lane
+class and refusing what lies outside it."""
 
 import jax
 import jax.numpy as jnp
@@ -440,9 +440,10 @@ def test_tracking_costs_match_ddp_tpu(which):
                         fields=("lx", "lu", "lxx", "lux", "luu", "lfx", "lfxx"))  # fmt: skip
 
 
-def test_pack_problem_refuses_the_new_classes():
-    """The flat-lane packer raises ValueError, naming the part, for every
-    new class instead of packing it."""
+def _flat_cases():
+    """Problems of the pendulum at T = 8 built from the port's constructors,
+    each with one part of the flat-lane class that PRs before the class was
+    widened refused."""
     from ddp_tpu_torch.models.pendulum import pendulum
     from ddp_tpu_torch.ocp import costs as tcosts
 
@@ -450,7 +451,8 @@ def test_pack_problem_refuses_the_new_classes():
     euler = dynamics.euler(pm, 0.01)
     quad = tcosts.quad_control(1.0, **F64)
     target = constraints.ConfigTarget(pm, torch.tensor([1.0], **F64), (8,))
-    cases = {
+    other_dt = dynamics.euler(pm, 0.02)
+    return {
         "RK4Dynamics": Problem(dynamics.rk4(pm, 0.01), quad, target, 8),
         "StateTarget": Problem(euler, quad, constraints.StateTarget(pm, torch.zeros(2, **F64), (8,)), 8),
         "TrajectoryConfigTarget": Problem(
@@ -465,12 +467,57 @@ def test_pack_problem_refuses_the_new_classes():
             euler, tcosts.QuadTrackingCost(torch.zeros(2, **F64), torch.ones(2, **F64),
                                            torch.ones(1, **F64), torch.ones(2, **F64)), target, 8,
         ),  # fmt: skip
+        "AdvanceTime_own_dt": Problem(euler, quad, constraints.advance_time(target, other_dt, 2), 8),
     }
-    for name, problem in cases.items():
-        with pytest.raises(ValueError, match="not in the flat-lane class") as exc:
-            pack_problem(problem)
-        assert name.split("_")[0].lower() in str(exc.value).lower().replace("inrange", "in_range").replace("everyk", "every_k"), name
-    assert pack_problem(Problem(euler, quad, target, 8)).active_ts == (8,)
+
+
+@pytest.mark.parametrize("case", list(_flat_cases()))
+def test_pack_problem_takes_the_new_classes(case):
+    """The flat-lane packer takes each class that ddp_tpu's flat kernels
+    take: the buffer's spec builds a problem that packs to the same buffer,
+    mask and structure, and the mask is the problem's."""
+    problem = _flat_cases()[case]
+    flat = pack_problem(problem)
+    assert flat.e == problem.ne and flat.build["E"] == problem.ne
+    assert flat.build["DYN"] == (case == "RK4Dynamics") and flat.build["COST"] == (case == "QuadTrackingCost")
+    np.testing.assert_array_equal(flat.mask.numpy(), problem.eq_mask())
+    again = pack_problem(problem_from_numpy(flat.spec(), **F64))
+    assert torch.equal(again.consts, flat.consts) and again.tree == flat.tree
+    assert torch.equal(again.mask, flat.mask) and again.leaves == flat.leaves
+    assert sum(len(layers) for _, layers in flat.leaves) == (2 if case == "AdvanceTime_own_dt" else 0)
+
+
+def _refused_cases():
+    from ddp_tpu_torch.models.pendulum import pendulum
+    from ddp_tpu_torch.ocp import costs as tcosts
+
+    pm, cart = pendulum(**F64), trobots.cartpole(**F64)
+    quad = tcosts.quad_control(1.0, **F64)
+    target = constraints.ConfigTarget(pm, torch.tensor([1.0], **F64), (8,))
+    cart_euler = dynamics.euler(cart, 0.01)
+    return {
+        "RobotModel": (
+            Problem(cart_euler, quad, constraints.ConfigTarget(cart, torch.zeros(2, **F64), (8,)), 8),
+            "a RobotModel model",
+        ),
+        "FrameTarget": (
+            Problem(cart_euler, quad, constraints.FrameTarget(cart, torch.zeros(3, **F64), 0, (8,)), 8),
+            "FrameTarget on a RobotModel",
+        ),
+        "AdvanceTime_over_RobotModel": (
+            Problem(dynamics.euler(pm, 0.01), quad, constraints.AdvanceTime(target, cart_euler), 8),
+            "an AdvanceTime layer over a RobotModel's dynamics",
+        ),
+    }
+
+
+@pytest.mark.parametrize("case", list(_refused_cases()))
+def test_pack_problem_refuses_what_ddp_tpu_refuses(case):
+    """What ddp_tpu's flat kernels refuse (a RobotModel captures constants)
+    raises ValueError naming the part."""
+    problem, reason = _refused_cases()[case]
+    with pytest.raises(ValueError, match=f"{reason} is not in the flat-lane class"):
+        pack_problem(problem)
 
 
 # ----------------------------------------------- tests/test_model_zoo.py

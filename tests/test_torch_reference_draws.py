@@ -51,6 +51,12 @@ tier-1:
   float32 matters (~5 min; last run, opt_lag < 1e-8 from: ddp_tpu 14, the
   port 16, K rounded only in the multiplier increment 0, only in the line
   search 16, rounded and summed in float32 as ddp_tpu sums 9).
+- ``state_fleet``: ddp_tpu's feasible share for the arrive-at-rest swing-up
+  fleet of chip_smoke.py phase 16b (B = 4096 pendulums to the state
+  [3.14, 0] two steps past T = 100, Euler dt = 0.01, ½‖u‖², 30 iterations,
+  f32, jit, n_reg_levels=1, n_linesearch=4) through ``backward="sweep"`` and
+  ``"assoc"``, and how many lanes the two routes leave within 1e-3 of their
+  largest |u| of each other: the bars phase 16b holds the port's routes to.
 - ``examples``: the recipes of examples/pendulum_swingup.py (f32 and f64),
   examples/ur5_reach.py (f64) and examples/mpc_fleet.py (one device,
   B = 512) in ddp_tpu, at full precision: the constants chip_smoke.py
@@ -314,6 +320,39 @@ def assoc_share():
                   f"same μ {_lane_agreement(r[b], r['pallas'])}", flush=True)  # fmt: skip
 
 
+def state_fleet():
+    from ddp_tpu.models.pendulum import pendulum
+    from ddp_tpu.ocp import constraints, costs, dynamics
+    from ddp_tpu.ocp.problem import Problem
+    from ddp_tpu.solver.batched import solve_batched
+    from ddp_tpu.solver.solve import SolverParams
+
+    dtype, B, H = jnp.float32, 4096, 100
+    model = pendulum(1.0, 1.0, dtype=dtype)
+    dyn = dynamics.euler(model, 0.01)
+    con = constraints.advance_time(
+        constraints.StateTarget(model=model, target=jnp.asarray([3.14, 0.0], dtype), active_ts=(H,)),
+        dyn, times=2,
+    )  # fmt: skip
+    problem = Problem(dynamics=dyn, cost=costs.quad_control(1.0, dtype=dtype), constraint=con,
+                      horizon=H, second_order=False)  # fmt: skip
+    params = SolverParams(max_iterations=30, threshold=1e-5, mu=1e4, inner_iters_max=1)
+    rng = np.random.default_rng(0)
+    x0s = jnp.asarray(np.stack([rng.uniform(-np.pi, np.pi, B), np.zeros(B)], axis=1), dtype)
+    r = {}
+    for backward in ("sweep", "assoc"):
+        t0 = time.perf_counter()
+        r[backward] = jax.jit(lambda x: solve_batched(problem, params, x, backward=backward,
+                                                      n_reg_levels=1, n_linesearch=4))(x0s)  # fmt: skip
+        oc = np.asarray(r[backward].opt_constr)
+        print(f"ddp_tpu arrive-at-rest fleet, {backward}: feasible share {float(np.mean(oc < 1e-2))}, "
+              f"p99 {float(np.percentile(oc, 99)):.3e}, finite us "
+              f"{bool(np.isfinite(np.asarray(r[backward].us)).all())}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)  # fmt: skip
+    print(f"ddp_tpu arrive-at-rest fleet: sweep against assoc: lanes agreeing, worst scaled "
+          f"difference, same μ {_lane_agreement(r['sweep'], r['assoc'])}", flush=True)  # fmt: skip
+
+
 def tf_share():
     _headline_share(32, backward="tf", precise_cost=True)
 
@@ -490,7 +529,8 @@ if __name__ == "__main__":
     jobs = dict(quadrotor_share=quadrotor_share, ur5_share=ur5_share,
                 double_pendulum_share=double_pendulum_share, arm_lanes=arm_lanes, golden_draws=golden_draws,
                 jit_vs_eager=jit_vs_eager, assoc_share=assoc_share, tf_share=tf_share,
-                precise_draws=precise_draws, storage_gains=storage_gains, examples=examples)  # fmt: skip
+                precise_draws=precise_draws, storage_gains=storage_gains, examples=examples,
+                state_fleet=state_fleet)  # fmt: skip
     if what not in jobs:
         sys.exit(f"usage: {sys.argv[0]} {{{','.join(jobs)}}} [seed]")
     jobs[what](*map(int, sys.argv[2:]))

@@ -119,15 +119,25 @@ def schedule_spec(ts):
     return tuple(int(x) for x in ts)
 
 
-def constraint_spec(con) -> dict:
-    """``convert.constraint_from_spec``'s spec of a ddp_tpu constraint."""
-    times = 0
+def constraint_spec(con, dyn=None) -> dict:
+    """``convert.constraint_from_spec``'s spec of a ddp_tpu constraint; an
+    AdvanceTime layer over other pendulum dynamics than ``dyn`` (the
+    problem's) is listed in ``advance_dynamics``."""
+    times, layers = 0, []
     while isinstance(con, constraints.AdvanceTime):
+        layer = None
+        if dyn is not None and con.dynamics is not dyn:
+            layer = dict(
+                discretization="rk4" if isinstance(con.dynamics, dynamics.RK4Dynamics) else "euler",
+                dt=np.asarray(con.dynamics.dt), mass=np.asarray(con.dynamics.model.mass),
+                length=np.asarray(con.dynamics.model.length),
+            )  # fmt: skip
         con, times = con.inner, times + 1
+        layers.append(layer)
     if isinstance(con, constraints.NoConstraint):
         return dict(kind="none")
     if isinstance(con, constraints.StackConstraints):
-        out = dict(kind="stack", parts=[constraint_spec(p) for p in con.parts])
+        out = dict(kind="stack", parts=[constraint_spec(p, dyn) for p in con.parts])
     else:
         kind = {
             constraints.ConfigTarget: "config", constraints.StateTarget: "state",
@@ -141,6 +151,8 @@ def constraint_spec(con) -> dict:
         if kind == "frame":
             out["frame_id"] = con.frame_id
     out["advance_times"] = times
+    if any(layer is not None for layer in layers):
+        out["advance_dynamics"] = layers
     return out
 
 
@@ -188,7 +200,7 @@ def spec_of(problem) -> dict:
         if isinstance(con, constraints.FrameTarget):
             spec["frame_id"] = con.frame_id
     else:
-        spec["constraint"] = constraint_spec(problem.constraint)
+        spec["constraint"] = constraint_spec(problem.constraint, problem.dynamics)
     if isinstance(problem.model, JRobotModel):
         spec["robot"] = robot_leaves(problem.model)
     else:
@@ -327,28 +339,29 @@ def to_torch_derivs(fields):
 GAIN_SCALES = (1.5, 2.5, 5.0, 7.0, 11.0, 13.0, 100.0, 1000.0)
 
 
-def linesearch_state(B, H, np_dtype, constrained=True, seed=0, scale_gains=True):
+def linesearch_state(B, H, np_dtype, constrained=True, seed=0, scale_gains=True, problem=None):
     """A line-search state made with numpy for both packages (≙
     tests/test_pallas_linesearch.py::make_state): the pendulum problem with a
-    target of 2.0 (or unconstrained), a rollout from random x0s and us, random
-    multipliers anchored at it, μ = 1e3, and the gains of ddp_tpu's backward
-    sweep at reg = 0, lane i's k times ``GAIN_SCALES[i % 8]`` unless
-    ``scale_gains`` is off (then every lane accepts the full step).  Returns (jax problem, the port's problem, a dict of
-    numpy arrays xs, us, k, K, val, jac, mu)."""
+    target of 2.0 (or unconstrained; or the ddp_tpu ``problem`` given, of
+    horizon H), a rollout from random x0s and us, random multipliers anchored
+    at it, μ = 1e3, and the gains of ddp_tpu's backward sweep at reg = 0,
+    lane i's k times ``GAIN_SCALES[i % 8]`` unless ``scale_gains`` is off
+    (then every lane accepts the full step).  Returns (jax problem, the
+    port's problem, a dict of numpy arrays xs, us, k, K, val, jac, mu)."""
     import jax
 
     from ddp_tpu.solver import al as jal
     from ddp_tpu.solver.batched import _backward_sweep
 
     dtype = jnp.dtype(np_dtype)
-    jp = jax_pendulum_problem(H, dtype, target=2.0 if constrained else None)
+    jp = problem or jax_pendulum_problem(H, dtype, target=2.0 if constrained else None)
     rng = np.random.default_rng(seed)
     x0s = jnp.asarray(0.5 * rng.standard_normal((B, 2)), dtype)
     us = jnp.asarray(0.2 * rng.standard_normal((B, H, 1)), dtype)
     xs = jax.vmap(jp.rollout)(x0s, us)
     derivs = jax.vmap(jp.derivatives)(xs, us)
     mults = jax.vmap(lambda x: jal.init_multipliers(jp, x))(xs)
-    if constrained:
+    if jp.ne:
         mults = mults._replace(
             val=jnp.asarray(0.3 * rng.standard_normal(mults.val.shape), dtype),
             jac=jnp.asarray(0.1 * rng.standard_normal(mults.jac.shape), dtype),
@@ -362,3 +375,58 @@ def linesearch_state(B, H, np_dtype, constrained=True, seed=0, scale_gains=True)
         k = k * jnp.asarray(factors, dtype)
     arrays = dict(xs=xs, us=us, k=k, K=K, val=mults.val, jac=mults.jac, mu=mu)
     return jp, torch_problem(jp, np_dtype), {k_: np.asarray(v) for k_, v in arrays.items()}
+
+
+# ----------------------------------------------- the flat-lane kernels' class
+
+
+def jax_problem_from_spec(spec, dtype):
+    """ddp_tpu's pendulum Problem of a ``convert.problem_from_numpy`` spec
+    (the long form: ``cost`` and ``constraint``), so that both packages build
+    one problem from the same numbers."""
+
+    def arr(x):
+        return jnp.asarray(np.asarray(x), dtype)
+
+    def pend_dynamics(s):
+        model = pendulum(float(s["mass"]), float(s["length"]), dtype=dtype)
+        discretize = {"euler": dynamics.euler, "rk4": dynamics.rk4}[s.get("discretization", "euler")]
+        return discretize(model, float(s["dt"]))
+
+    dyn = pend_dynamics(spec)
+    model = dyn.model
+
+    def schedule(s):
+        if isinstance(s, dict):
+            if "every_k" in s:
+                return constraints.every_k(int(s["every_k"]), int(s.get("offset", 0)))
+            return constraints.in_range(*map(int, s["in_range"]))
+        return tuple(int(x) for x in s)
+
+    def constraint(s):
+        kind = s["kind"]
+        if kind == "none":
+            return constraints.NoConstraint()
+        if kind == "stack":
+            con = constraints.StackConstraints(parts=tuple(constraint(p) for p in s["parts"]))
+        elif kind == "trajectory_config":
+            con = constraints.TrajectoryConfigTarget(model=model, targets=arr(s["targets"]),
+                                                     active_ts=schedule(s["active_ts"]))  # fmt: skip
+        else:
+            cls = {"config": constraints.ConfigTarget, "state": constraints.StateTarget}[kind]
+            con = cls(model=model, target=arr(s["target"]), active_ts=schedule(s["active_ts"]))
+        layers = s.get("advance_dynamics") or [None] * int(s.get("advance_times", 0))
+        for layer in reversed(layers):
+            con = constraints.AdvanceTime(inner=con, dynamics=dyn if layer is None else pend_dynamics(layer))
+        return con
+
+    c = spec["cost"]
+    if c["kind"] == "quad_control":
+        cost = costs.quad_control(float(c["c"]), dtype=dtype)
+    elif c["kind"] == "quad_tracking":
+        cost = costs.QuadTrackingCost(*(arr(c[k]) for k in ("x_ref", "q_diag", "r_diag", "qf_diag")))
+    else:
+        cost = costs.ManifoldTrackingCost(model, *(arr(c[k]) for k in
+                                                   ("x_ref", "q_diag", "v_diag", "r_diag", "terminal_scale")))  # fmt: skip
+    return Problem(dynamics=dyn, cost=cost, constraint=constraint(spec["constraint"]),
+                   horizon=int(spec["horizon"]), second_order=bool(spec["second_order"]))  # fmt: skip
