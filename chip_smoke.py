@@ -144,12 +144,16 @@
    bench.py's T200 row (H = 200, forward="seq") through assoc, sweep and
    kernel, one timed solve each, shares, lane agreement with the
    kernel route (at least ddp_tpu's own routes' agreement there less 0.02:
-   0.9714 and 0.9690 on the CPU), kernel #1 against its plain version on
+   0.9714 and 0.9690 on the CPU); path B (solve_flat, #5's streamed program:
+   exactly 1 launch, the share against ddp_tpu's less 0.01, f32 agreement
+   with the sweep route against 0.9690 less 0.02, f64 at 64 lanes within
+   1e-8 of each lane's |u| of the sweep route with identical μ; the kernel
+   timed beside its bound, its launch plan), kernel #1 against its plain version on
    the kernel route's finished inputs (f64 copies at 1e-10; f32, which
    those inputs are beyond at phase 3's bars, no further from f64 than 2×
-   the plain f32 version), and each backward's call on those inputs at T = 200 and on a
-   finished headline solve's at T = 32 (CUDA events; the device kernels of
-   one call and their device time by torch.profiler); (c) the headline through backward="tf" with
+   the plain f32 version), and each backward's call on those inputs at
+   T = 200 (CUDA events; the device kernels of one call and their device
+   time by torch.profiler); (c) the headline through backward="tf" with
    precise_cost=True (share ≥ 0.99) and one tf backward call on its finished
    inputs against kernel #1's float64 instantiation at (2, 1, 1) on float64
    copies (one launch; ok and reg_used equal, gains within 2·eps32 of each
@@ -181,7 +185,7 @@
    relative; (c) a line saying NCCL across cards stays unverified.
 14. give_up_after and the examples: (a) phase 5's arm fleet with lanes 3,
    77, 140 and 201 started at μ = ∞ (terminal racers), solved with
-   give_up_after None and 3 in turns (none, give-up, give-up, none): every
+   give_up_after None and 3 in turns (none, give-up, none): every
    solve's launches phase 5's (26 fd, 25 Riccati sweeping 4 levels), the
    lanes that never gave up bit for bit the same (bar: the spread of the two
    solves without it), the racers at μ = ∞ with every step 0, finite
@@ -230,7 +234,10 @@
    stack of a ConfigTarget and a StateTarget (e = 3; #4, #5), the manifold
    tracking cost with a ConfigTarget on every_k (#4), and in f64 a
    StateTarget behind an RK4 layer of another pendulum (#4, #5); each
-   timed beside its bound recounted for the class (flat_ops); #1 at the
+   timed beside its bound recounted for the class (flat_ops); #5 with
+   SolverParams' μ and multiplier caps binding (HEADLINE_CAPS) in f64 at
+   B=4096 (the streamed program) and B=1000 (the resident one), and the
+   streamed program on the f32 headline, where the plan picks the other; #1 at the
    new Gauss-Newton shapes (2, 1, 2) at T=100 and (2, 1, 3) against its
    plain version, timed; (b) the arrive-at-rest fleet (4096 pendulums to
    [3.14, 0] two steps past T=100, Euler dt 0.01, 30 iterations, f32)
@@ -238,10 +245,13 @@
    launch): feasible share against ddp_tpu's on the CPU less 0.01, f32
    lane agreement with the sweep route against ddp_tpu's own sweep/assoc
    agreement less 0.02, f64 at 64 lanes and 8 iterations within 1e-8 of
-   each lane's |u| with identical μ, wall and solves/s of each route;
+   each lane's |u| with identical μ, wall and solves/s of each route, #5 on
+   a launch plan of the fleet timed beside its bound;
    (c) the RK4 tracking twin at T=20, 16 iterations through path B (1
    launch; a non-zero terminal cost) against the sweep route, ≥ 99% of
-   lanes in f32, f64 at 64 lanes within 1e-8, identical μ.
+   lanes in f32, f64 at 64 lanes within 1e-8, identical μ, #5 timed beside
+   its bound.  Every #5 case prints the kernel's launch plan (program,
+   threads a lane, lanes a block and an SM, waves).
 
 Every phase prints one line (phase 3 one a case); any failure raises and
 the exit code is not 0.
@@ -304,6 +314,13 @@ from ddp_tpu_torch.solver.solve import SolverParams, solve_vmap
 B, T = 4096, 32
 HEADLINE = SolverParams(max_iterations=8, threshold=1e-5, mu=1e4, inner_iters_max=1)
 HEADLINE_KW = dict(n_reg_levels=1, n_linesearch=4)
+# the μ and multiplier caps of SolverParams on the headline (phase 16a):
+# both bind there (μ would reach 1e9, the multipliers' Jacobians 5e7), and
+# every lane stays feasible, so float64 resolves the solve (a 1e-15 change
+# of x0 moves xs by 1e-14 of its scale on the CPU; at μ ≤ 1e6 and
+# multipliers ≤ 1e3 most lanes stay infeasible and the same change moves
+# xs by 1.6e-9)
+HEADLINE_CAPS = HEADLINE._replace(mu_max=1e7, mult_max=1e5)
 SPEC = dict(
     mass=1.0, length=1.0, dt=0.01, c=1.0, target=np.array([3.14]),
     active_ts=(T,), advance_times=2, horizon=T, second_order=False,
@@ -923,7 +940,7 @@ def resolution_bars(bar, reference, x0s, distances):
 
 
 def flat_solve_vs_plain(name, dtype, Bk, constrained=True, bad_lane=None, spec=None, params=HEADLINE,
-                        resolution=False, x0s=None, wide=None):
+                        resolution=False, x0s=None, wide=None, program=None):
     """Run the whole-solve kernel and its plain version on the headline
     problem (or its unconstrained twin, from random controls) at the same
     inputs.  float64: every field within 1e-9 of its array's largest entry
@@ -951,6 +968,8 @@ def flat_solve_vs_plain(name, dtype, Bk, constrained=True, bad_lane=None, spec=N
       float64 result at these starts, where the caller has it.
 
     ``x0s``: these initial states instead of the headline's first ``Bk``.
+    ``program`` ("resident" or "streamed"): that program of the kernel
+    instead of the one its launch plan picks.  Prints the launch plan.
     Returns (the largest abs error on us, the plain version's seconds, the
     plain version's result)."""
     given = spec is not None
@@ -968,9 +987,11 @@ def flat_solve_vs_plain(name, dtype, Bk, constrained=True, bad_lane=None, spec=N
         lanes[bad_lane] = False
     kw = dict(us_init=us0, n_linesearch=HEADLINE_KW["n_linesearch"])
     before = fs.LAUNCHES
-    got = fs.solve_flat(problem, params, x0s, **kw)
+    plan = fs.plan_launch(problem, params, x0s, _program=program, **kw)
+    got = fs.launch_plan(plan)
     torch.cuda.synchronize()
     check(fs.LAUNCHES == before + 1, f"{name}: the wrapper did not launch its kernel")
+    check(program is None or plan.geometry["program"] == program, f"{name}: plan {plan.geometry}")
     t0 = time.perf_counter()
     ref = fs.solve_flat_reference(problem, params, x0s, **kw)
     torch.cuda.synchronize()
@@ -983,11 +1004,14 @@ def flat_solve_vs_plain(name, dtype, Bk, constrained=True, bad_lane=None, spec=N
     if bad_lane is not None:
         check(bool((got.us[bad_lane] == 0).all()) and float(got.reg[bad_lane]) > 0,
               f"{name}: the bad lane moved or kept its reg")  # fmt: skip
-        check(torch.equal(got.reg[bad_lane], ref.reg[bad_lane]), f"{name}: the bad lane's reg")
+        check(torch.equal(got.reg[bad_lane], ref.reg[bad_lane]) and torch.equal(got.mu[bad_lane], ref.mu[bad_lane]),
+              f"{name}: the bad lane's reg or mu")  # fmt: skip
+        for label, g, r in fields:  # a lane that went NaN stays NaN where the plain version's does
+            check(torch.equal(g[bad_lane].isnan(), r[bad_lane].isnan()), f"{name}: the bad lane's NaNs in {label}")
     us_err = float((got.us - ref.us)[lanes].abs().max())
     feas = [float((r.opt_constr[lanes] < 1e-2).float().mean()) for r in (got, ref)]
     out = dict(us_max_err=f"{us_err:.3e}", feasible_kernel=feas[0], feasible_plain=feas[1],
-               plain_s=f"{plain_s:.2f}")  # fmt: skip
+               plain_s=f"{plain_s:.2f}", plan=plan.geometry)  # fmt: skip
     if dtype == torch.float64:
         u_scale = max(1.0, float(ref.us[lanes].abs().max()))
 
@@ -2135,8 +2159,8 @@ def backward_times(card, label, routes, reps=None):
     longer to queue their calls than the sleep holds the stream)."""
     out = {}
     for name, fn in routes.items():
-        kernels, busy = device_profile(fn)
-        out[name] = dict(ms=event_ms(fn, reps=(reps or {}).get(name, 20)), device_busy_ms=busy,
+        kernels, busy = device_profile(fn)  # the profiled call is the warm-up
+        out[name] = dict(ms=event_ms(fn, reps=(reps or {}).get(name, 20), warm=False), device_busy_ms=busy,
                          device_kernels=kernels)  # fmt: skip
     say("time_backward_routes", card=f"'{card}'", shape=label,
         **{f"{k}_{n}": (f"{v:.4f}" if isinstance(v, float) else v)
@@ -2223,6 +2247,7 @@ def t200_row(card):
         check(agree >= bar, f"T200 {route}: only {agree} of lanes agree with the kernel route (bar {bar})")
     say("t200_row", B=B, T=T200, **{f"{k}_{r}": (f"{v:.4f}" if isinstance(v, float) else v)
                                     for r, d in out.items() for k, v in d.items()})  # fmt: skip
+    out["B"] = t200_path_b(card, p32, x32, res["sweep"])
 
     inputs, mu, reg = finished_inputs(p32, res["kernel"])
     # kernel #1 on this row's own inputs against its plain version: float64
@@ -2239,20 +2264,73 @@ def t200_row(card):
         "sweep": lambda: _backward_multi_reg(*inputs, mu, reg, 1),
         "kernel": lambda: rs.backward_ladder(*inputs, mu, levels),
     }
-    out["backward"] = backward_times(card, f"n2m1e1_T{T200}_B{B}_f32", routes, dict(sweep=3, assoc=3))
+    out["backward"] = backward_times(card, f"n2m1e1_T{T200}_B{B}_f32", routes, dict(sweep=1, assoc=1))
     plan = rs.plan_launch(*inputs, mu, levels)
     out["backward"]["kernel"]["device_ms"] = device_ms(lambda: rs.launch_plan(plan))
     out["bound_ms"], out["bound_by"] = riccati_bound_ms(T200, 2, 1, 1, B, levels=1, item=4)
-    # the headline's backward calls on the same routes, for the T = 32 row
-    p_h, x_h = pendulum_problem(T, torch.float32), headline_x0s(torch.float32)
-    inputs_h, mu_h, reg_h = finished_inputs(p_h, solve(p_h, x_h, "kernel"))
-    levels_h = torch.stack(_reg_levels(mu_h, reg_h, 1))
-    out["backward_headline"] = backward_times(
-        card, f"n2m1e1_T{T}_B{B}_f32",
-        {"assoc": lambda: backward_pass_assoc(*inputs_h, mu_h, reg_h),
-         "sweep": lambda: _backward_multi_reg(*inputs_h, mu_h, reg_h, 1),
-         "kernel": lambda: rs.backward_ladder(*inputs_h, mu_h, levels_h)},
-    )  # fmt: skip
+    return out
+
+
+def t200_path_b(card, p32, x32, res_sweep):
+    """Phase 12b, path B: bench.py's T200 row through the one-launch whole
+    solve (``solve_flat``, #5's streamed program), held as phase 4 holds path
+    B: exactly 1 launch and no other, finite results, the feasible share
+    against ddp_tpu's on the CPU less 0.01, f32 lane agreement with the sweep
+    route against ddp_tpu's own agreement there less 0.02, and f64 at 64
+    lanes, in the streamed program too (the plan would take the resident one
+    there), within 1e-8 of each lane's |u| of the sweep route with identical
+    μ (or within 10× what a 1e-15 change of x0 does to the sweep route, where
+    that is larger: near convergence a step's Δcost ≤ 0 is a roundoff draw).
+    The streamed program against its plain version in f64 at 1024 lanes
+    (``flat_solve_vs_plain``'s bars).  Then the kernel on the row's launch
+    plan (the streamed program, checked), timed beside its bound.  Returns
+    the numbers of the kernels' JSON."""
+    n_ls = HEADLINE_KW["n_linesearch"]
+    res, counts, wall = flat_route(p32, HEADLINE, x32, "B", n_ls)
+    expected = dict(riccati=0, fd=0, fd2=0, linesearch=0, flat_solve=1, levels_swept=0)
+    check(counts == expected, f"T200 B: launches {counts} != {expected}")
+    share = check_route(res, "T200 B", B, T200)
+    check(share >= ASSOC_T200_JAX_CPU_SHARE - 0.01,
+          f"T200 B share {share} below ddp_tpu's {ASSOC_T200_JAX_CPU_SHARE} - 0.01")  # fmt: skip
+    agree, worst = lane_agreement(res, res_sweep)
+    bar = T200_JAX_CPU_AGREE["sweep"] - 0.02
+    check(agree >= bar, f"T200 B: only {agree} of lanes agree with the sweep route (bar {bar})")
+    p64, x64 = pendulum_problem(T200, torch.float64), headline_x0s(torch.float64)[:STATE_B64]
+
+    def sweep64(x):
+        out_ = solve_batched(p64, HEADLINE, x, backward="sweep", **T200_KW)
+        torch.cuda.synchronize()
+        return out_
+
+    # the f32 row's program: at 64 lanes the plan would take the resident one
+    plan64 = fs.plan_launch(p64, HEADLINE, x64, n_linesearch=n_ls, _program="streamed")
+    b64, s64 = fs.launch_plan(plan64), sweep64(x64)
+    check(plan64.geometry["program"] == "streamed", f"T200 B f64: plan {plan64.geometry}")
+    err64, bar64 = lane_scaled_err(b64, s64), 1e-8
+    if err64 > bar64:
+        bar64 = resolution_bars(bar64, sweep64, x64, lambda r: {"us": lane_scaled_err(r, s64)})[0]["us"]
+    check(err64 <= bar64, f"T200 B: f64 us max scaled err {err64}, bar {bar64:.1e}")
+    check(torch.equal(b64.mu, s64.mu), "T200 B: f64 per-lane mu differs")
+    # the streamed program against its plain version in f64 at this row's
+    # shape (8 iterations)
+    Bp = 1024
+    plain64 = flat_solve_vs_plain(f"fs_headline_f64_streamed_B{Bp}_T{T200}", torch.float64, Bp,
+                                  spec=flat_class_spec("headline", T200), resolution=True, program="streamed")  # fmt: skip
+    plan = fs.plan_launch(p32, HEADLINE, x32, n_linesearch=n_ls)
+    check(plan.geometry["program"] == "streamed", f"T200 B: plan {plan.geometry}")
+    out = dict(launches=counts["flat_solve"], feasible=share, lanes_us_agree_sweep=agree, us_max_scaled_err=worst,
+               f64_us_max_scaled_err=err64, f64_bar=bar64, solve_s=wall, solves_per_s=B / wall,
+               plain_f64_us_max_abs_err=plain64[0], plain_f64_s=plain64[1],
+               ms=event_ms(lambda: fs.launch_plan(plan), reps=3),
+               device_ms=device_ms(lambda: fs.launch_plan(plan), n=5))  # fmt: skip
+    out["bound_ms"], out["bound_by"] = flat_solve_bound_ms(T200, 2, 1, 1, B, HEADLINE.max_iterations, n_ls)
+    out["plan"] = dict(plan.geometry)
+    say("t200_path_b", card=f"'{card}'", B=B, T=T200, launches=counts, feasible=share,
+        feasible_ddp_tpu_cpu=ASSOC_T200_JAX_CPU_SHARE, lanes_us_agree_sweep=agree, agree_bar=f"{bar:.4f}",
+        us_max_scaled_err=f"{worst:.3e}", f64_B=STATE_B64, f64_us_max_scaled_err=f"{err64:.3e}",
+        f64_bar=f"{bar64:.1e}", f64_mu_identical=True, solve_s=f"{wall:.4f}", solves_per_s=f"{B / wall:.1f}",
+        kernel_ms=f"{out['ms']:.4f}", kernel_device_ms=f"{out['device_ms']:.4f}",
+        bound_ms=f"{out['bound_ms']:.5f}", bound_by=out["bound_by"], plan=out["plan"])  # fmt: skip
     return out
 
 
@@ -2683,7 +2761,7 @@ def racing_solve(problem, x0s, us0, mu0, give_up_after):
 def racing_fleet(card, problem, x0s, us0):
     """Phase 14a: phase 5's arm fleet (f32, #2 and #1) with the lanes RACERS
     at μ = ∞, solved with give_up_after None and GIVE_UP in turns (none,
-    give-up, give-up, none; history on): the lanes that never gave up bit for
+    give-up, none; history on): the lanes that never gave up bit for
     bit the same, or no further apart than the two solves without give-up;
     the racers at μ = ∞ with every step 0, finite controls and their reg
     constant from the row they froze; the launches of every solve phase 5's.
@@ -2691,7 +2769,7 @@ def racing_fleet(card, problem, x0s, us0):
     mu0 = torch.full((ARM_B,), ARM.mu, dtype=torch.float32, device=DEV)
     mu0[list(RACERS)] = torch.inf
     runs = {None: [], GIVE_UP: []}
-    for g in (None, GIVE_UP, GIVE_UP, None):
+    for g in (None, GIVE_UP, None):
         runs[g].append(racing_solve(problem, x0s, us0, mu0, g))
     (base, _, rollouts_none), (rep, _, _) = runs[None]
     gu, _, rollouts_gu = runs[GIVE_UP][0]
@@ -2719,7 +2797,8 @@ def racing_fleet(card, problem, x0s, us0):
     out = dict(launches=dict(fd=fd.LAUNCHES, riccati=rs.LAUNCHES, levels_swept=rs.LEVELS_SWEPT),
                rollouts=dict(none=rollouts_none, give_up=rollouts_gu),
                wall_s=dict(none=walls[None], give_up=walls[GIVE_UP]),
-               give_up_over_none=sum(walls[GIVE_UP]) / sum(walls[None]), lanes_compared=len(kept),
+               give_up_over_none=statistics.mean(walls[GIVE_UP]) / statistics.mean(walls[None]),
+               lanes_compared=len(kept),
                lanes_bitwise_of_others=same, max_diff=diff, repeat_spread=bar,
                frac_main=dict(none=share[None], give_up=share[GIVE_UP]))  # fmt: skip
     say("give_up_arm_fleet", card=f"'{card}'", B=ARM_B, H=ARM_H, iters=ARM.max_iterations, racers=r,
@@ -3110,7 +3189,8 @@ def flat_class_times(card, name, problem, state, fs_plain_s):
     if fs_plain_s is not None:
         x32 = headline_x0s(torch.float32)
         fplan = fs.plan_launch(problem, HEADLINE, x32, n_linesearch=n_ls)
-        f = dict(ms=event_ms(lambda: fs.launch_plan(fplan), reps=5), plain_ms=1e3 * fs_plain_s)
+        f = dict(ms=event_ms(lambda: fs.launch_plan(fplan), reps=5), plain_ms=1e3 * fs_plain_s,
+                 plan=dict(fplan.geometry))  # fmt: skip
         f["bound_ms"], f["bound_by"] = flat_solve_bound_ms(T, 2, 1, problem.ne, B, HEADLINE.max_iterations,
                                                            n_ls, ops)  # fmt: skip
         out["flat_solve"] = f
@@ -3182,6 +3262,18 @@ def flat_classes_path(card):
             say("kernel", case=f"fs_{name}_refused", reason="single-active-step")
         out["classes"][name] = flat_class_times(card, name, p32, s32, fs_plain_s)
         out["classes"][name].update(build=pack_problem(p32).build, ls_max_abs_err=ls_err, fs_max_abs_err=fs_err)
+    # SolverParams' μ and multiplier caps, both binding on the headline: #5
+    # in f64 against the plain version in each program (the plan picks the
+    # streamed one at B = 4096, the resident one at B = 1000); and the
+    # streamed program in f32 at the headline, where the plan picks the
+    # resident one
+    for label, Bk in (("streamed", B), ("resident", 1000)):
+        capped = flat_solve_vs_plain(f"fs_capped_f64_{label}_B{Bk}_T{T}", f64, Bk, params=HEADLINE_CAPS,
+                                     program=label)[2]  # fmt: skip
+        check(float(capped.mu.max()) == HEADLINE_CAPS.mu_max
+              and float(capped.mults.jac.abs().max()) == HEADLINE_CAPS.mult_max,
+              f"fs_capped_f64_{label}: the caps did not bind")  # fmt: skip
+    flat_solve_vs_plain(f"fs_headline_f32_streamed_B{B}_T{T}", f32, B, program="streamed")
     # the fleet's own shapes (16b): #4 at T = 100, #5 at T = 100 and its f64
     # check's 8 iterations (μ ≤ 1e9), from 16b's float32 starts; the plain
     # float64 solve is 16b's yardstick of its float32 routes too
@@ -3258,6 +3350,12 @@ def flat_classes_path(card):
         check(agree8 >= sweep_agree - 0.02 and worst8 <= FD_F32_VS_PLAIN * sweep_worst,
               f"fleet route {route} at 8 iterations: against f64 {agree8} of lanes (worst {worst8:.3e}), "
               f"the sweep route {sweep_agree} ({sweep_worst:.3e})")  # fmt: skip
+    # #5 on a launch plan of the fleet, timed beside its bound
+    fplan = fs.plan_launch(p32, STATE, x32, n_linesearch=4)
+    fleet["B"].update(ms=event_ms(lambda: fs.launch_plan(fplan), reps=3),
+                      device_ms=device_ms(lambda: fs.launch_plan(fplan), n=5), plan=dict(fplan.geometry))  # fmt: skip
+    fleet["B"]["bound_ms"], fleet["B"]["bound_by"] = flat_solve_bound_ms(
+        STATE_T, 2, 1, p32.ne, B, STATE.max_iterations, 4, flat_ops(p32))  # fmt: skip
     for route, f in fleet.items():
         say("fleet_route", card=f"'{card}'", route=route, B=B, T=STATE_T, iters=STATE.max_iterations,
             launches=f["launch_counts"], feasible=f["feasible"], feasible_ddp_tpu_cpu=STATE_JAX_CPU_SHARE,
@@ -3265,7 +3363,8 @@ def flat_classes_path(card):
             solve_s=f"{f['solve_s']:.4f}", solves_per_s=f"{f['solves_per_s']:.1f}",
             **{k: (f"{v:.3e}" if "err" in k else v) for k, v in f.items()
                if k in ("lanes_us_agree_sweep", "us_max_scaled_err", "f64_us_max_scaled_err", "mu_equal_sweep",
-                        "f32_i8_lanes_agree_f64", "f32_i8_worst_f64")})  # fmt: skip
+                        "f32_i8_lanes_agree_f64", "f32_i8_worst_f64", "ms", "device_ms", "bound_ms", "bound_by",
+                        "plan")})  # fmt: skip
     say("fleet", agree_bar=STATE_JAX_CPU_AGREE - 0.02, ddp_tpu_cpu_agree_sweep_assoc=STATE_JAX_CPU_AGREE,
         f64_B=STATE_B64, f64_iters=STATE64.max_iterations, f64_mu_identical=True,
         mu_max_f32=float(res["sweep"].mu.max()), mu_max_f64=float(r64["sweep"].mu.max()),
@@ -3297,14 +3396,20 @@ def flat_classes_path(card):
     check(err64 <= bar64, f"tracking twin: f64 us max scaled err {err64}, bar {bar64:.1e}")
     check(torch.equal(b64.mu, s64.mu), "tracking twin: f64 per-lane mu differs")
     moved = float((rb.xs[:, -1, 0] - x32[:, 0]).abs().mean())
+    tplan = fs.plan_launch(p32, TRACK, x32, n_linesearch=4)
     out["tracking"] = dict(launch_counts=cb, lanes_us_agree_sweep=agree, us_max_scaled_err=worst,
                            f64_us_max_scaled_err=err64, f64_bar=bar64, solve_s=wall_b, solves_per_s=B / wall_b,
-                           sweep_solve_s=wall_s)  # fmt: skip
+                           sweep_solve_s=wall_s, ms=event_ms(lambda: fs.launch_plan(tplan), reps=5),
+                           device_ms=device_ms(lambda: fs.launch_plan(tplan), n=20), plan=dict(tplan.geometry))  # fmt: skip
+    out["tracking"]["bound_ms"], out["tracking"]["bound_by"] = flat_solve_bound_ms(
+        TRACK_T, 2, 1, p32.ne, B, TRACK.max_iterations, 4, flat_ops(p32))  # fmt: skip
     say("tracking_twin", card=f"'{card}'", B=B, T=TRACK_T, iters=TRACK.max_iterations, launches=cb,
         lanes_us_agree_sweep=agree, us_max_scaled_err=f"{worst:.3e}", mean_q_moved=f"{moved:.3f}",
         f64_B=TRACK_B64, f64_us_max_scaled_err=f"{err64:.3e}", f64_bar=f"{bar64:.1e}", f64_mu_identical=True,
         solve_s_B=f"{wall_b:.4f}", solve_s_sweep=f"{wall_s:.4f}", solves_per_s_B=f"{B / wall_b:.1f}",
-        solves_per_s_sweep=f"{B / wall_s:.1f}", wall_s=f"{time.perf_counter() - t2:.1f}")  # fmt: skip
+        solves_per_s_sweep=f"{B / wall_s:.1f}", kernel_ms=f"{out['tracking']['ms']:.4f}",
+        kernel_device_ms=f"{out['tracking']['device_ms']:.4f}", bound_ms=f"{out['tracking']['bound_ms']:.5f}",
+        plan=out["tracking"]["plan"], wall_s=f"{time.perf_counter() - t2:.1f}")  # fmt: skip
     out["wall_s"] = time.perf_counter() - t0
     say("phase16", wall_s=f"{out['wall_s']:.1f}")
     return out
@@ -3910,6 +4015,9 @@ def main():
             "launches": fs_launches, "max_abs_err": k3["fs_err32"], "ms": fs_ms,
             "plain_ms": fs_plain_ms, "bound_ms": fs_bound, "bound_by": fs_bound_by,
             "library_ms": None, "wrapper_call_ms": fs_call_ms, "f64_ms": fs_f64_ms,
+            "plan": fs_plan.geometry, "plan_f64": fs_plan64.geometry,
+            # phase 12b: bench.py's T200 row through path B
+            "t200_path": dict(p12["b"]["B"], shape=f"headline_T{T200}_B{B}_C4_f32"),
             # phase 16: each class it takes, the arrive-at-rest fleet's path
             # B, the RK4 tracking twin (a non-zero terminal cost)
             "classes": class_rows("flat_solve"),

@@ -25,34 +25,58 @@
 //
 // What bounds it on this card: not bytes (inputs and outputs are 1.6 MB at
 // the headline) and not the arithmetic rate, but the length of a lane's
-// dependent chain and the latency of each link.  The first design ran a
-// lane's whole solve in one thread, (iterations + 1) x (n_ls + 4) x T step
-// evaluations one after the other, each reading its operands from working
-// arrays in global memory (L2), with 32 blocks of 128 threads on 132 SMs.
+// dependent chain, the latency of each link, and how many chains run at once.
+// A lane is a group of G threads, G the power of two at least n_ls + 1
+// (G = 8 at 4 candidates), LPB lanes a block (32 where the shared memory
+// allows): thread r * LPB + l is role r of lane l, so with 32 lanes a block
+// every warp holds one role of 32 lanes and the roles run side by side
+// without diverging.  Independent work runs on separate roles: the per-step
+// derivatives and the re-anchoring spread over t across the group; the two
+// optimality adjoints on roles 0 and 1; the Riccati recursion (sequential in
+// t) on role 0 while role 1 sums the incumbent's AL cost; the n_ls candidate
+// rollouts on roles 0 .. n_ls - 1, each keeping its trajectory, so the
+// accepted one is copied, not rolled out again; the commit spread over t.
+// A lane's chain is about 3 x T step evaluations a pass.
 //
-// What the design does about it:
-//   - a lane per group of G threads, G the power of two at least n_ls + 1
-//     (G = 8 at the headline's 4 candidates), LPB lanes a block (32 where
-//     the shared memory allows, fewer in double or for long horizons): thread
-//     r * LPB + l is role r of lane l, so with 32 lanes a block every warp
-//     holds one role of 32 lanes and the roles run side by side without
-//     diverging; G and LPB are the launch plan's (flat_solve_plan below),
-//     chosen from n_ls, T and the type;
-//   - the lane's working set in shared memory: trajectory, controls, gains,
-//     multipliers and their anchors, the per-step derivatives, the
-//     candidates' rollouts, element i of lane l at i * LPB + l, so a warp's
-//     accesses are conflict-free; global memory is read once at the start and
-//     written once at the end;
-//   - independent work on separate roles: the per-step derivatives and the
-//     re-anchoring spread over t across the group; the two optimality
-//     adjoints on roles 0 and 1; the Riccati recursion (sequential in t) on
-//     role 0 while role 1 sums the incumbent's AL cost; the n_ls candidate
-//     rollouts on roles 0 .. n_ls - 1, each keeping its trajectory, so the
-//     accepted one is copied, not rolled out again; the commit spread over t.
-//     A lane's chain falls to about 3 x T step evaluations a pass.
+// At T = 32 the chain bounds it: the whole working set of 32 lanes fits one
+// block, B = 4096 lanes are 128 blocks on 132 SMs, one wave.  At T >= 100 the
+// working set bounds it too: it grows with T (the per-step derivatives, the
+// candidates' rollouts, the multipliers, the gains and their anchors), so
+// fewer lanes fit a block and the same chain runs in several waves.  Hence two
+// programs, one source, picked per launch by flat_solve_plan:
+//   - resident (STREAM = false): the lane's whole working set in shared
+//     memory, element i of lane l at i * LPB + l, conflict-free; global
+//     memory read once at the start and written once at the end;
+//   - streamed (STREAM = true): shared memory keeps only what a chain reads
+//     at every step, the trajectory, the controls and the new gains (6T + 2
+//     scalars a lane with the terminal derivatives, for the pendulum), and
+//     two rings of ring_depth steps.  Everything else lives in a global
+//     scratch [rows, lanes], lanes on the fast axis so a warp's accesses
+//     coalesce: the derivatives of each step (lz, fz, the upper triangle of
+//     lzz), written by the parallel derivative pass; the multipliers, the
+//     gains and their anchors; the candidates' rollouts, written by their
+//     chains without waiting.  The reverse sweeps (the backward on role 0,
+//     the adjoints on roles 0 and 1) read a step's derivatives and
+//     multipliers from the role's ring, filled ring_depth - 1 steps ahead
+//     with asynchronous copies (cp.async), so the L2's latency stays off the
+//     chain.  The commit reads the accepted rollout and, with the same
+//     loads, re-anchors the multipliers and gains for the next pass (the
+//     resident program does that at the start of the pass, from shared
+//     memory): one round trip to the scratch a step, where loads spread over
+//     two passes and ordered behind stores took several.
+// The plan takes the program with fewer waves at the launch's B (blocks an
+// SM from the card's occupancy of each instantiation: shared memory, threads
+// and registers), the resident one on a tie (its chain is shorter: on an H100
+// at the arrive-at-rest fleet's class, T = 100 and B = 1024, one wave each,
+// 2.98-3.00 ms against 3.64-3.67, examples/torch_flat_solve_ab.py).  At the
+// f32 headline the streamed program would take 0.34 ms against 0.24.  The
+// plan is its own entry point (ddp_flat_solve_plan), which also gives the
+// scratch's rows and stride: the wrapper asks once per class, T, B, n_ls,
+// type and card, and allocates a scratch only for the streamed program.
 // Every sum within a lane keeps the first design's and the plain version's
 // order (the AL cost over t, the adjoints, the candidates' ladder scan), so
-// the gates see the same inputs.  The time loops stay loops (#pragma unroll
+// the gates see the same inputs; the two programs differ only in where an
+// array lives and when the re-anchoring runs.  The time loops stay loops (#pragma unroll
 // 1): T, the iteration budget, the candidate count, ta, the method and every
 // threshold are run-time arguments; the scalar type and the problem class's
 // integrator, cost kind and row count E are compiled in: a library serves one
@@ -61,8 +85,11 @@
 //
 // A failed factorization gives NaN gains through sqrt of a negative pivot and
 // ok = false for the lane, which then keeps its trajectory and escalates its
-// reg: build without --use_fast_math and without -ftz.
+// reg: build without --use_fast_math and without -ftz.  The caps on mu and
+// the multipliers and the adjoints' largest residual keep a NaN as NaN, as
+// the plain version and ddp_tpu do, so a lane that went NaN reports NaN.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -136,6 +163,17 @@ __device__ __forceinline__ void terminal_derivs(const P& prob, const S* x, S* lf
   }
 }
 
+// the clip and the larger of two as torch.clamp, jnp.clip and torch.maximum
+// take them: a NaN stays NaN (fmin and fmax would return the other operand)
+template <typename S>
+__device__ __forceinline__ S clip(S x, S lo, S hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+template <typename S>
+__device__ __forceinline__ S maximum(S x, S y) {
+  return (y > x || y != y) ? y : x;
+}
+
 template <typename S>
 struct SolveArgs {
   // inputs
@@ -152,6 +190,10 @@ struct SolveArgs {
   S* stats;  // [6, B]: opt_constr, opt_lag, mu, reg, w, n
   S* mval;   // [T, E, B]
   S* mjac;   // [T, E*NX, B]
+  // the streamed program's working storage: [ScratchLayout rows, stride],
+  // column blockIdx.x * LPB + slot (padded lanes have their own)
+  S* scratch;
+  size_t stride;
   int T, B, n_iters, n_ls, ta, affine, primal, has_mu_max, has_mult_max;
   int inner_max;  // -1: none
   int G, LPB;     // the launch plan: threads a lane, lanes a block
@@ -160,94 +202,188 @@ struct SolveArgs {
 
 // the lane's scalars in shared memory, after its arrays
 constexpr int LANE_OK = 0, LANE_COST_OLD = 1, LANE_OO = 2, LANE_OLAG = 3, LANE_ACC = 4;
+// steps a streamed reverse sweep keeps in its ring, ring_depth - 1 of them
+// in flight: deeper in float, where a step's chain is shorter, than in double
+__host__ __device__ constexpr int ring_depth(int item) { return item == 4 ? 8 : 4; }
 
-// Offsets of one lane's arrays in shared memory, in scalars.
+// A streamed step's row: its derivatives (lz, fz, the upper triangle of lzz)
+// and, in a ring, its multipliers (pe, pex) after them.
+__host__ __device__ constexpr int deriv_rows(int nx, int m) {
+  return (nx + m) * (1 + nx) + (nx + m) * (nx + m + 1) / 2;
+}
+__host__ __device__ constexpr int ring_rows(int nx, int m, int e) {
+  return deriv_rows(nx, m) + e * (1 + nx);
+}
+
+// Offsets of one lane's arrays in shared memory, in scalars: the resident
+// program's whole working set, or the streamed program's trajectory,
+// controls, gains, terminal derivatives and the rings of roles 0 and 1, in a
+// type of `item` bytes.
 struct LaneLayout {
-  int xs, us, k, K, fbk, fbK, mval, mjac, morig, fborig, lz, lzz, fz, lfx, lfxx, xc, uc, flags;
+  int xs, us, k, K, fbk, fbK, mval, mjac, morig, fborig, lz, lzz, fz, lfx, lfxx, xc, uc, ring, flags;
   int total;
-  __host__ __device__ LaneLayout(int T, int nx, int m, int e, int n_ls) {
+  __host__ __device__ LaneLayout(int T, int nx, int m, int e, int n_ls, bool stream, int item) {
     const int nz = nx + m;
     int o = 0;
     xs = o, o += (T + 1) * nx;
     us = o, o += T * m;
     k = o, o += T * m;
     K = o, o += T * m * nx;
+    fbk = fbK = mval = mjac = morig = fborig = lz = lzz = fz = xc = uc = ring = 0;
+    if (!stream) {
+      fbk = o, o += T * m;
+      fbK = o, o += T * m * nx;
+      mval = o, o += T * e;
+      mjac = o, o += T * e * nx;
+      morig = o, o += T * nx;
+      fborig = o, o += T * nx;
+      lz = o, o += T * nz;
+      lzz = o, o += T * nz * nz;
+      fz = o, o += T * nx * nz;
+    }
+    lfx = o, o += nx;
+    lfxx = o, o += nx * nx;
+    if (!stream) {
+      xc = o, o += n_ls * (T + 1) * nx;
+      uc = o, o += n_ls * T * m;
+    } else {
+      ring = o, o += 2 * ring_depth(item) * ring_rows(nx, m, e);
+    }
+    flags = o, o += LANE_ACC + n_ls;
+    total = o;
+  }
+};
+
+// Rows of one lane's columns in the streamed program's global scratch.
+struct ScratchLayout {
+  int d, fbk, fbK, mval, mjac, morig, fborig, xc, uc, total;
+  __host__ __device__ ScratchLayout(int T, int nx, int m, int e, int n_ls) {
+    int o = 0;
+    d = o, o += T * deriv_rows(nx, m);
     fbk = o, o += T * m;
     fbK = o, o += T * m * nx;
     mval = o, o += T * e;
     mjac = o, o += T * e * nx;
     morig = o, o += T * nx;
     fborig = o, o += T * nx;
-    lz = o, o += T * nz;
-    lzz = o, o += T * nz * nz;
-    fz = o, o += T * nx * nz;
-    lfx = o, o += nx;
-    lfxx = o, o += nx * nx;
     xc = o, o += n_ls * (T + 1) * nx;
     uc = o, o += n_ls * T * m;
-    flags = o, o += LANE_ACC + n_ls;
     total = o;
   }
 };
 
-constexpr int kMaxThreads = 256;          // a block, the kernel's launch bound
-constexpr long kMaxSmem = 232448;         // dynamic shared memory a block may opt in to (sm_90)
+constexpr int kMaxThreads = 256;   // a block, the kernel's launch bound
+constexpr int kMaxLanes = 32;      // a block: one warp holds one role
+constexpr long kMaxSmem = 232448;  // dynamic shared memory a block may opt in to (sm_90)
 
-// The launch plan of (T, nx, m, e, n_ls) in a type of `item` bytes: G threads
-// a lane (the power of two at least n_ls + 1), LPB lanes a block (at most 32,
-// G * LPB at most kMaxThreads, the largest power of two whose lanes fit the
-// shared memory) and the block's shared-memory bytes.  Returns false when
-// not even one lane fits.
-inline bool flat_solve_plan(int T, int nx, int m, int e, int n_ls, int item, int* G, int* LPB,
-                            long* smem) {
+// The launch plan: G threads a lane, LPB lanes a block, the program (0
+// resident, 1 streamed), blocks an SM can hold, blocks, waves over the card's
+// SMs, and the block's shared-memory bytes.
+struct FlatSolvePlan {
+  int G, LPB, stream, per_sm, blocks, waves;
+  long smem;
+};
+
+// The plan of (T, nx, m, e, n_ls) over B lanes in a type of `item` bytes on
+// `sms` SMs.  G is the power of two at least n_ls + 1; each program takes the
+// largest power of two of lanes a block (at most kMaxLanes, G * LPB at most
+// kMaxThreads) whose lanes fit the shared memory, and `occupancy(stream,
+// threads, smem)` says how many such blocks an SM holds.  The program with
+// fewer waves wins, the resident one on a tie; `program` (0 or 1; -1:
+// either) takes that program alone.  Returns false when neither fits one lane.
+template <typename Occupancy>
+inline bool flat_solve_plan(int T, int nx, int m, int e, int n_ls, int item, int B, int sms,
+                            int program, Occupancy occupancy, FlatSolvePlan* plan) {
   int g = 2;
   while (g < n_ls + 1) g *= 2;
-  const long lane = static_cast<long>(LaneLayout(T, nx, m, e, n_ls).total) * item;
-  for (int lpb = kMaxThreads / g < 32 ? kMaxThreads / g : 32; lpb >= 1; lpb /= 2) {
-    if (lane * lpb <= kMaxSmem) {
-      *G = g;
-      *LPB = lpb;
-      *smem = lane * lpb;
-      return true;
+  bool found = false;
+  for (int stream = 0; stream < 2; ++stream) {
+    if (program >= 0 && program != stream) continue;
+    const long lane = static_cast<long>(LaneLayout(T, nx, m, e, n_ls, stream != 0, item).total) * item;
+    int lpb = kMaxThreads / g < kMaxLanes ? kMaxThreads / g : kMaxLanes;
+    while (lpb >= 1 && lane * lpb > kMaxSmem) lpb /= 2;
+    if (lpb < 1) continue;
+    const int per_sm = occupancy(stream, g * lpb, lane * lpb);
+    if (per_sm < 1) continue;
+    const int blocks = (B + lpb - 1) / lpb;
+    const long slots = static_cast<long>(sms) * per_sm;
+    const int waves = static_cast<int>((blocks + slots - 1) / slots);
+    if (!found || waves < plan->waves) {
+      *plan = FlatSolvePlan{g, lpb, stream, per_sm, blocks, waves, lane * lpb};
+      found = true;
     }
   }
-  return false;
+  return found;
 }
 
-template <typename S, typename P>
-__global__ void __launch_bounds__(kMaxThreads) flat_solve_kernel(SolveArgs<S> a) {
+// One block an SM is the least the plan needs: with that minimum stated,
+// ptxas gives the double instantiations the registers they use instead of
+// capping them at 128 and spilling.
+template <typename S, typename P, bool STREAM>
+__global__ void __launch_bounds__(kMaxThreads, 1) flat_solve_kernel(SolveArgs<S> a) {
   constexpr int NX = P::NX, M = P::M, NZ = NX + M, E = P::NE;
   constexpr int EK = E > 0 ? E : 1;  // array extents; loops run to E
+  constexpr int DR = deriv_rows(NX, M), RR = ring_rows(NX, M, E), kRing = ring_depth(sizeof(S));
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* const sm = reinterpret_cast<S*>(smem_raw);
   const int G = a.G, LPB = a.LPB;
   const int slot = threadIdx.x % LPB, role = threadIdx.x / LPB;
   // a slot past the batch's edge repeats the last lane and writes nothing
+  // but its own scratch column
   const int lane = static_cast<int>(blockIdx.x) * LPB + slot;
   const bool live = lane < a.B;
   const int b = live ? lane : a.B - 1;
   const size_t Bs = static_cast<size_t>(a.B);
   const int T = a.T, ta = a.ta, n_ls = a.n_ls;
   const P prob(a.consts);
-  const LaneLayout lay(T, NX, M, E, n_ls);
+  const LaneLayout lay(T, NX, M, E, n_ls, STREAM, sizeof(S));
+  const ScratchLayout sl(T, NX, M, E, n_ls);
   // element i of this lane's shared arrays
   auto at = [&](int i) -> S& { return sm[static_cast<size_t>(i) * LPB + slot]; };
+  // row i of this lane's scratch column (streamed)
+  auto gs = [&](int i) -> S& { return a.scratch[static_cast<size_t>(i) * a.stride + lane]; };
   // element (t, r) of a [T, rows, B] global array, this lane
   auto ix = [&](int t, int rows, int r) -> size_t {
     return (static_cast<size_t>(t) * rows + r) * Bs + b;
   };
+  // the arrays of both programs: in shared memory, or those the streamed
+  // program keeps in its scratch
   auto X = [&](int t, int i) -> S& { return at(lay.xs + t * NX + i); };
   auto U = [&](int t, int j) -> S& { return at(lay.us + t * M + j); };
   auto Kf = [&](int t, int j) -> S& { return at(lay.k + t * M + j); };
   auto KK = [&](int t, int j, int i) -> S& { return at(lay.K + (t * M + j) * NX + i); };
-  auto FBk = [&](int t, int j) -> S& { return at(lay.fbk + t * M + j); };
-  auto FBK = [&](int t, int j, int i) -> S& { return at(lay.fbK + (t * M + j) * NX + i); };
-  auto MV = [&](int t, int r) -> S& { return at(lay.mval + t * E + r); };
-  auto MJ = [&](int t, int r, int i) -> S& { return at(lay.mjac + (t * E + r) * NX + i); };
-  auto MO = [&](int t, int i) -> S& { return at(lay.morig + t * NX + i); };
-  auto FO = [&](int t, int i) -> S& { return at(lay.fborig + t * NX + i); };
-  auto XC = [&](int c, int t, int i) -> S& { return at(lay.xc + (c * (T + 1) + t) * NX + i); };
-  auto UC = [&](int c, int t, int j) -> S& { return at(lay.uc + (c * T + t) * M + j); };
+  auto FBk = [&](int t, int j) -> S& {
+    if constexpr (STREAM) return gs(sl.fbk + t * M + j);
+    else return at(lay.fbk + t * M + j);
+  };
+  auto FBK = [&](int t, int j, int i) -> S& {
+    if constexpr (STREAM) return gs(sl.fbK + (t * M + j) * NX + i);
+    else return at(lay.fbK + (t * M + j) * NX + i);
+  };
+  auto MV = [&](int t, int r) -> S& {
+    if constexpr (STREAM) return gs(sl.mval + t * E + r);
+    else return at(lay.mval + t * E + r);
+  };
+  auto MJ = [&](int t, int r, int i) -> S& {
+    if constexpr (STREAM) return gs(sl.mjac + (t * E + r) * NX + i);
+    else return at(lay.mjac + (t * E + r) * NX + i);
+  };
+  auto MO = [&](int t, int i) -> S& {
+    if constexpr (STREAM) return gs(sl.morig + t * NX + i);
+    else return at(lay.morig + t * NX + i);
+  };
+  auto FO = [&](int t, int i) -> S& {
+    if constexpr (STREAM) return gs(sl.fborig + t * NX + i);
+    else return at(lay.fborig + t * NX + i);
+  };
+  auto XC = [&](int c, int t, int i) -> S& {
+    if constexpr (STREAM) return gs(sl.xc + (c * (T + 1) + t) * NX + i);
+    else return at(lay.xc + (c * (T + 1) + t) * NX + i);
+  };
+  auto UC = [&](int c, int t, int j) -> S& {
+    if constexpr (STREAM) return gs(sl.uc + (c * T + t) * M + j);
+    else return at(lay.uc + (c * T + t) * M + j);
+  };
   auto flag = [&](int f) -> S& { return at(lay.flags + f); };
 
   const bool constrained = E > 0 && ta >= 0;
@@ -321,22 +457,97 @@ __global__ void __launch_bounds__(kMaxThreads) flat_solve_kernel(SolveArgs<S> a)
     }
   };
 
-  // the hoisted rows behind t == ta, and the multipliers of step t
-  auto eq_rows = [&](int t, S* eqv, S (*eqz)[NZ], S* pe, S (*pex)[NX]) {
+  // the hoisted rows behind t == ta
+  auto eq_rows = [&](int t, S* eqv, S (*eqz)[NZ]) {
     const S sel = (constrained && t == ta) ? S(1) : S(0);
     for (int r = 0; r < E; ++r) {
       eqv[r] = eqr_v[r] * sel;
       for (int j = 0; j < NZ; ++j) eqz[r][j] = eqr_z[r][j] * sel;
-      pe[r] = MV(t, r);
-      for (int i = 0; i < NX; ++i) pex[r][i] = MJ(t, r, i);
     }
   };
 
-  // the stored derivatives of step t
-  auto load_derivs = [&](int t, S* lz, S (*fz)[NZ]) {
-    for (int j = 0; j < NZ; ++j) lz[j] = at(lay.lz + t * NZ + j);
+  // the derivatives of step t along the trajectory, stored for the sweeps:
+  // lz and fz, then the cost Hessian lzz (the upper triangle where streamed)
+  auto store_first = [&](int t, const S* lz, const S (*fz)[NZ]) {
+    for (int j = 0; j < NZ; ++j) {
+      if constexpr (STREAM) gs(sl.d + t * DR + j) = lz[j];
+      else at(lay.lz + t * NZ + j) = lz[j];
+    }
     for (int o = 0; o < NX; ++o)
-      for (int j = 0; j < NZ; ++j) fz[o][j] = at(lay.fz + (t * NX + o) * NZ + j);
+      for (int j = 0; j < NZ; ++j) {
+        if constexpr (STREAM) gs(sl.d + t * DR + NZ + o * NZ + j) = fz[o][j];
+        else at(lay.fz + (t * NX + o) * NZ + j) = fz[o][j];
+      }
+  };
+  auto store_hessian = [&](int t, const S (*lzz)[NZ]) {
+    if constexpr (STREAM) {
+      int h = sl.d + t * DR + NZ * (1 + NX);
+      for (int i = 0; i < NZ; ++i)
+        for (int j = i; j < NZ; ++j) gs(h++) = lzz[i][j];
+    } else {
+      for (int i = 0; i < NZ; ++i)
+        for (int j = 0; j < NZ; ++j) at(lay.lzz + (t * NZ + i) * NZ + j) = lzz[i][j];
+    }
+  };
+
+  // streamed: step t's row (the lzz rows where `hess`) into slot t % kRing of
+  // ring `rr`, one group of asynchronous copies (an empty one for t < 0)
+  auto prefetch = [&](int rr, int t, bool hess) {
+    if constexpr (STREAM) {
+      if (t >= 0) {
+        const int base = lay.ring + (rr * kRing + t % kRing) * RR;
+        const int n = hess ? DR : NZ * (1 + NX);
+        for (int j = 0; j < n; ++j)
+          __pipeline_memcpy_async(&at(base + j), &gs(sl.d + t * DR + j), sizeof(S));
+        for (int r = 0; r < E; ++r) {
+          __pipeline_memcpy_async(&at(base + DR + r * (1 + NX)), &MV(t, r), sizeof(S));
+          for (int i = 0; i < NX; ++i)
+            __pipeline_memcpy_async(&at(base + DR + r * (1 + NX) + 1 + i), &MJ(t, r, i), sizeof(S));
+        }
+      }
+      __pipeline_commit();
+    }
+  };
+
+  // a reverse sweep from t = T - 1 on ring `rr`: the first kRing - 1 steps in
+  // flight
+  auto sweep_start = [&](int rr, bool hess) {
+    if constexpr (STREAM)
+      for (int d = 0; d < kRing - 1; ++d) prefetch(rr, T - 1 - d, hess);
+  };
+
+  // step t of a reverse sweep on ring `rr`: the stored derivatives (lzz
+  // where `hess`) and the multipliers of step t
+  auto step_inputs = [&](int rr, int t, bool hess, S* lz, S (*fz)[NZ], S (*lzz)[NZ], S* pe,
+                         S (*pex)[NX]) {
+    if constexpr (STREAM) {
+      prefetch(rr, t - (kRing - 1), hess);
+      __pipeline_wait_prior(kRing - 1);
+      const int base = lay.ring + (rr * kRing + t % kRing) * RR;
+      for (int j = 0; j < NZ; ++j) lz[j] = at(base + j);
+      for (int o = 0; o < NX; ++o)
+        for (int j = 0; j < NZ; ++j) fz[o][j] = at(base + NZ + o * NZ + j);
+      if (hess) {
+        int h = base + NZ * (1 + NX);
+        for (int i = 0; i < NZ; ++i)
+          for (int j = i; j < NZ; ++j) lzz[i][j] = lzz[j][i] = at(h++);
+      }
+      for (int r = 0; r < E; ++r) {
+        pe[r] = at(base + DR + r * (1 + NX));
+        for (int i = 0; i < NX; ++i) pex[r][i] = at(base + DR + r * (1 + NX) + 1 + i);
+      }
+    } else {
+      for (int j = 0; j < NZ; ++j) lz[j] = at(lay.lz + t * NZ + j);
+      for (int o = 0; o < NX; ++o)
+        for (int j = 0; j < NZ; ++j) fz[o][j] = at(lay.fz + (t * NX + o) * NZ + j);
+      if (hess)
+        for (int i = 0; i < NZ; ++i)
+          for (int j = 0; j < NZ; ++j) lzz[i][j] = at(lay.lzz + (t * NZ + i) * NZ + j);
+      for (int r = 0; r < E; ++r) {
+        pe[r] = MV(t, r);
+        for (int i = 0; i < NX; ++i) pex[r][i] = MJ(t, r, i);
+      }
+    }
   };
 
   // the Riccati reverse sweep over the stored derivatives: writes k, K; true
@@ -348,14 +559,13 @@ __global__ void __launch_bounds__(kMaxThreads) flat_solve_kernel(SolveArgs<S> a)
       for (int j = 0; j < NX; ++j) Vxx[i][j] = at(lay.lfxx + i * NX + j);
     }
     bool ok = true;
+    sweep_start(0, true);
 #pragma unroll 1
     for (int t = T - 1; t >= 0; --t) {
-      S lz[NZ], lzz[NZ][NZ], fz[NX][NZ];
-      load_derivs(t, lz, fz);
-      for (int i = 0; i < NZ; ++i)
-        for (int j = 0; j < NZ; ++j) lzz[i][j] = at(lay.lzz + (t * NZ + i) * NZ + j);
-      S eqv[EK], eqz[EK][NZ], pe[EK], pex[EK][NX], tmp[EK], tmp2[EK][NX];
-      eq_rows(t, eqv, eqz, pe, pex);
+      S lz[NZ], lzz[NZ][NZ], fz[NX][NZ], pe[EK], pex[EK][NX];
+      step_inputs(0, t, true, lz, fz, lzz, pe, pex);
+      S eqv[EK], eqz[EK][NZ], tmp[EK], tmp2[EK][NX];
+      eq_rows(t, eqv, eqz);
       for (int r = 0; r < E; ++r) {
         tmp[r] = pe[r] + mu_ * eqv[r];
         for (int j = 0; j < NX; ++j) tmp2[r][j] = pex[r][j] + mu_ * eqz[r][j];
@@ -430,18 +640,19 @@ __global__ void __launch_bounds__(kMaxThreads) flat_solve_kernel(SolveArgs<S> a)
   };
 
   // one optimality measure by its reverse adjoint recursion over the stored
-  // derivatives: the objective's (lag = false, the mu-weighted penalty in) or
-  // the Lagrangian's
-  auto adjoint = [&](bool lag, S mu_) -> S {
+  // derivatives, on ring `rr`: the objective's (lag = false, the mu-weighted
+  // penalty in) or the Lagrangian's
+  auto adjoint = [&](int rr, bool lag, S mu_) -> S {
     S adj[NX];
     for (int i = 0; i < NX; ++i) adj[i] = at(lay.lfx + i);
     S best = S(0);
+    sweep_start(rr, false);
 #pragma unroll 1
     for (int t = T - 1; t >= 0; --t) {
-      S lz[NZ], fz[NX][NZ];
-      load_derivs(t, lz, fz);
-      S eqv[EK], eqz[EK][NZ], pe[EK], pex[EK][NX];
-      eq_rows(t, eqv, eqz, pe, pex);
+      S lz[NZ], fz[NX][NZ], pe[EK], pex[EK][NX];
+      step_inputs(rr, t, false, lz, fz, nullptr, pe, pex);
+      S eqv[EK], eqz[EK][NZ];
+      eq_rows(t, eqv, eqz);
       S ss = S(0);
       for (int i = 0; i < M; ++i) {
         S vv = lz[NX + i];
@@ -450,7 +661,7 @@ __global__ void __launch_bounds__(kMaxThreads) flat_solve_kernel(SolveArgs<S> a)
         for (int o = 0; o < NX; ++o) vv = vv + fz[o][NX + i] * adj[o];
         ss = ss + vv * vv;
       }
-      best = fmax(best, root(ss));
+      best = maximum(best, root(ss));
       S nxt[NX];
       for (int i = 0; i < NX; ++i) {
         S s = lz[i];
@@ -543,13 +754,13 @@ __global__ void __launch_bounds__(kMaxThreads) flat_solve_kernel(SolveArgs<S> a)
     const bool last = it == a.n_iters + 1;
     hoist_eq();
     // re-anchor the multipliers (and, unless this is the final pass, the
-    // gains) at the trajectory, and store the derivatives along it: step t
-    // on role t mod G
+    // gains) at the trajectory (the streamed program did so at the last
+    // commit), and store the derivatives along it: step t on role t mod G
 #pragma unroll 1
     for (int t = role; t < T; t += G) {
       S x[NX], u[M];
       load_xu(t, x, u);
-      if (it > 0) {
+      if (!STREAM && it > 0) {
         S d[NX], df[NX];
         for (int i = 0; i < NX; ++i) {
           d[i] = x[i] - MO(t, i);
@@ -574,14 +785,11 @@ __global__ void __launch_bounds__(kMaxThreads) flat_solve_kernel(SolveArgs<S> a)
       }
       S lz[NZ], fz[NX][NZ];
       first_derivs<S, P>(prob, x, u, lz, fz);
-      for (int j = 0; j < NZ; ++j) at(lay.lz + t * NZ + j) = lz[j];
-      for (int o = 0; o < NX; ++o)
-        for (int j = 0; j < NZ; ++j) at(lay.fz + (t * NX + o) * NZ + j) = fz[o][j];
+      store_first(t, lz, fz);
       if (!last) {
         S lzz[NZ][NZ];
         cost_hessian<S, P>(prob, x, u, lzz);
-        for (int i = 0; i < NZ; ++i)
-          for (int j = 0; j < NZ; ++j) at(lay.lzz + (t * NZ + i) * NZ + j) = lzz[i][j];
+        store_hessian(t, lzz);
       }
     }
     if (role == G - 1) {
@@ -603,8 +811,8 @@ __global__ void __launch_bounds__(kMaxThreads) flat_solve_kernel(SolveArgs<S> a)
         for (int r = 0; r < E; ++r) s = s + eqr_v[r] * eqr_v[r];
         oc = root(s);
       }
-      if (role == 0) flag(LANE_OO) = adjoint(false, mu);
-      if (role == 1) flag(LANE_OLAG) = adjoint(true, mu);
+      if (role == 0) flag(LANE_OO) = adjoint(0, false, mu);
+      if (role == 1) flag(LANE_OLAG) = adjoint(1, true, mu);
       __syncthreads();
       oo = flag(LANE_OO);
       olag = flag(LANE_OLAG);
@@ -655,14 +863,14 @@ __global__ void __launch_bounds__(kMaxThreads) flat_solve_kernel(SolveArgs<S> a)
             if (!a.primal)
               for (int j = 0; j < M; ++j) fb_term = fb_term + eqr_z[r][NX + j] * FBk(ta, j);
             S v_new = MV(ta, r) + mu * (eqr_v[r] + fb_term);
-            if (a.has_mult_max) v_new = fmin(fmax(v_new, -a.mult_max), a.mult_max);
+            if (a.has_mult_max) v_new = clip(v_new, -a.mult_max, a.mult_max);
             if (a.affine) {
               for (int i = 0; i < NX; ++i) {
                 S fbj = S(0);
                 if (!a.primal)
                   for (int j = 0; j < M; ++j) fbj = fbj + eqr_z[r][NX + j] * FBK(ta, j, i);
                 S j_new = MJ(ta, r, i) + mu * (eqr_z[r][i] + fbj);
-                if (a.has_mult_max) j_new = fmin(fmax(j_new, -a.mult_max), a.mult_max);
+                if (a.has_mult_max) j_new = clip(j_new, -a.mult_max, a.mult_max);
                 if (upd_s) MJ(ta, r, i) = j_new;
               }
             }
@@ -671,7 +879,7 @@ __global__ void __launch_bounds__(kMaxThreads) flat_solve_kernel(SolveArgs<S> a)
         }
       }
       if (upd_f) mu_new = mu * a.mu_factor;
-      if (a.has_mu_max) mu_new = fmin(mu_new, a.mu_max);
+      if (a.has_mu_max && mu_new > a.mu_max) mu_new = a.mu_max;  // NaN stays NaN
       if (upd_s)
         n_tol = fmax(n_tol * power(mu, S(-0.9)), a.threshold);
       else if (upd_f)
@@ -710,22 +918,106 @@ __global__ void __launch_bounds__(kMaxThreads) flat_solve_kernel(SolveArgs<S> a)
     // commit the gains (anchored at the trajectory they were computed about;
     // before the iterations at the one the line search moved to) and the
     // trajectory, step t on role t mod G
+    if constexpr (!STREAM) {
 #pragma unroll 1
-    for (int t = role; t < T; t += G) {
-      if (keep)
-        for (int j = 0; j < M; ++j) U(t, j) = UC(chosen, t, j);
-      if (ok) {
-        for (int j = 0; j < M; ++j) {
-          FBk(t, j) = Kf(t, j);
-          for (int i = 0; i < NX; ++i) FBK(t, j, i) = KK(t, j, i);
+      for (int t = role; t < T; t += G) {
+        if (keep)
+          for (int j = 0; j < M; ++j) U(t, j) = UC(chosen, t, j);
+        if (ok) {
+          for (int j = 0; j < M; ++j) {
+            FBk(t, j) = Kf(t, j);
+            for (int i = 0; i < NX; ++i) FBK(t, j, i) = KK(t, j, i);
+          }
+        }
+        for (int i = 0; i < NX; ++i) {
+          // xs[t]: t = 0 never moves, t >= 1 moves with keep
+          const S x_old = X(t, i);
+          const S x_new = (keep && t > 0) ? XC(chosen, t, i) : x_old;
+          if (ok) FO(t, i) = (it == 0) ? x_new : x_old;
+          if (keep && t > 0) X(t, i) = x_new;
         }
       }
-      for (int i = 0; i < NX; ++i) {
-        // xs[t]: t = 0 never moves, t >= 1 moves with keep
-        const S x_old = X(t, i);
-        const S x_new = (keep && t > 0) ? XC(chosen, t, i) : x_old;
-        if (ok) FO(t, i) = (it == 0) ? x_new : x_old;
-        if (keep && t > 0) X(t, i) = x_new;
+    } else {
+      // streamed: the same commit and, from the same loads, the next pass's
+      // re-anchoring of the multipliers and (unless that pass is the final
+      // one) of the gains, as that pass would compute it; two steps at a
+      // time, every load from the scratch before any store to it
+      const bool next_last = it == a.n_iters;
+      struct Cold {
+        S uc[M], xc[NX], mo[NX], mv[EK], mj[EK][NX], fo[NX], fbk[M], fbK[M][NX];
+      };
+      auto fetch = [&](int t, Cold& c) {
+        if (keep) {
+          for (int j = 0; j < M; ++j) c.uc[j] = UC(chosen, t, j);
+          if (t > 0)
+            for (int i = 0; i < NX; ++i) c.xc[i] = XC(chosen, t, i);
+        }
+        for (int i = 0; i < NX; ++i) c.mo[i] = MO(t, i);
+        for (int r = 0; r < E; ++r) {
+          c.mv[r] = MV(t, r);
+          for (int i = 0; i < NX; ++i) c.mj[r][i] = MJ(t, r, i);
+        }
+        if (!ok && !next_last) {
+          for (int i = 0; i < NX; ++i) c.fo[i] = FO(t, i);
+          for (int j = 0; j < M; ++j) {
+            c.fbk[j] = FBk(t, j);
+            for (int i = 0; i < NX; ++i) c.fbK[j][i] = FBK(t, j, i);
+          }
+        }
+      };
+      auto settle = [&](int t, Cold& c) {
+        if (keep)
+          for (int j = 0; j < M; ++j) U(t, j) = c.uc[j];
+        if (ok) {
+          for (int j = 0; j < M; ++j) {
+            c.fbk[j] = Kf(t, j);
+            for (int i = 0; i < NX; ++i) c.fbK[j][i] = KK(t, j, i);
+          }
+        }
+        S x[NX], d[NX];
+        for (int i = 0; i < NX; ++i) {
+          const S x_old = X(t, i);
+          const S x_new = (keep && t > 0) ? c.xc[i] : x_old;
+          if (ok) c.fo[i] = (it == 0) ? x_new : x_old;
+          if (keep && t > 0) X(t, i) = x_new;
+          x[i] = (keep && t > 0) ? x_new : x_old;
+          d[i] = x[i] - c.mo[i];
+          MO(t, i) = x[i];
+        }
+        for (int r = 0; r < E; ++r) {
+          S s = c.mv[r];
+          for (int i = 0; i < NX; ++i) s = s + c.mj[r][i] * d[i];
+          MV(t, r) = s;
+        }
+        if (!next_last) {
+          S df[NX];
+          for (int i = 0; i < NX; ++i) {
+            df[i] = x[i] - c.fo[i];
+            FO(t, i) = x[i];
+          }
+          for (int j = 0; j < M; ++j) {
+            S s = c.fbk[j];
+            for (int i = 0; i < NX; ++i) s = s + c.fbK[j][i] * df[i];
+            FBk(t, j) = s;
+            if (ok)
+              for (int i = 0; i < NX; ++i) FBK(t, j, i) = c.fbK[j][i];
+          }
+        } else if (ok) {
+          for (int i = 0; i < NX; ++i) FO(t, i) = c.fo[i];
+          for (int j = 0; j < M; ++j) {
+            FBk(t, j) = c.fbk[j];
+            for (int i = 0; i < NX; ++i) FBK(t, j, i) = c.fbK[j][i];
+          }
+        }
+      };
+#pragma unroll 1
+      for (int t = role; t < T; t += 2 * G) {
+        Cold c0, c1;
+        const bool two = t + G < T;
+        fetch(t, c0);
+        if (two) fetch(t + G, c1);
+        settle(t, c0);
+        if (two) settle(t + G, c1);
       }
     }
     if (keep && role == 0)
@@ -745,8 +1037,48 @@ __global__ void __launch_bounds__(kMaxThreads) flat_solve_kernel(SolveArgs<S> a)
 #error "build with -DDDP_DYN=, -DDDP_COST= and -DDDP_E= (kernels/_build.py::load)"
 #endif
 
+// The launch plan of this build's class over (T, B, n_ls) in S on the
+// current device (`program` -1: the plan's choice, 0 resident, 1 streamed):
+// out[] = G, LPB, shared-memory bytes a block, the program, blocks an SM
+// holds, blocks, waves, and the streamed program's scratch rows and row
+// stride (0 and 0 for the resident program).  Returns 0, -1 for counts this
+// build does not take or a lane that does not fit, or a CUDA error.
 template <typename S>
-int launch(const void* const* p, const int* n, const double* r, int* plan, cudaStream_t stream) {
+int plan_launch(int T, int B, int n_ls, int program, int* out) {
+  using P = PendulumClass<S, DDP_DYN, DDP_COST, DDP_E>;
+  if (n_ls < 1 || n_ls > 31 || T < 1 || program < -1 || program > 1) return -1;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // blocks an SM holds of a program's instantiation (shared memory, threads
+  // and registers); 0, with the error cleared, where it cannot run
+  auto occupancy = [](int stream, int threads, long smem) {
+    auto kernel = stream ? flat_solve_kernel<S, P, true> : flat_solve_kernel<S, P, false>;
+    int blocks = 0;
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem)) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                      static_cast<size_t>(smem)) != cudaSuccess) {
+      cudaGetLastError();
+      return 0;
+    }
+    return blocks;
+  };
+  FlatSolvePlan fp;
+  if (!flat_solve_plan(T, P::NX, P::M, P::NE, n_ls, sizeof(S), B, sms, program, occupancy, &fp))
+    return -1;
+  const int rows = fp.stream ? ScratchLayout(T, P::NX, P::M, P::NE, n_ls).total : 0;
+  const int stride = fp.stream ? fp.blocks * fp.LPB : 0;
+  const int plan[] = {fp.G, fp.LPB, static_cast<int>(fp.smem), fp.stream, fp.per_sm, fp.blocks,
+                      fp.waves, rows, stride};
+  for (int i = 0; i < 9; ++i) out[i] = plan[i];
+  return 0;
+}
+
+template <typename S>
+int launch(const void* const* p, const int* n, const double* r, const int* plan,
+           cudaStream_t stream) {
   using P = PendulumClass<S, DDP_DYN, DDP_COST, DDP_E>;
   SolveArgs<S> a;
   a.x0 = static_cast<const S*>(p[0]);
@@ -754,8 +1086,8 @@ int launch(const void* const* p, const int* n, const double* r, int* plan, cudaS
   a.scal = static_cast<const S*>(p[2]);
   a.consts = static_cast<const S*>(p[3]);
   a.mrow = static_cast<const S*>(p[4]);
-  S** out[] = {&a.us, &a.xs, &a.fbk, &a.fbK, &a.stats, &a.mval, &a.mjac};
-  for (int i = 0; i < 7; ++i) *out[i] = static_cast<S*>(const_cast<void*>(p[5 + i]));
+  S** out[] = {&a.us, &a.xs, &a.fbk, &a.fbK, &a.stats, &a.mval, &a.mjac, &a.scratch};
+  for (int i = 0; i < 8; ++i) *out[i] = static_cast<S*>(const_cast<void*>(p[5 + i]));
   a.T = n[0];
   a.B = n[1];
   a.n_iters = n[2];
@@ -773,37 +1105,50 @@ int launch(const void* const* p, const int* n, const double* r, int* plan, cudaS
   a.mult_max = static_cast<S>(r[4]);
   if (a.B <= 0) return 0;  // an empty grid is not a valid launch
   if (a.n_ls < 1 || a.n_ls > 31 || a.T < 1 || a.ta >= a.T) return -1;
-  long smem;
-  if (!flat_solve_plan(a.T, P::NX, P::M, P::NE, a.n_ls, sizeof(S), &a.G, &a.LPB, &smem)) return -1;
-  if (plan != nullptr) {
-    plan[0] = a.G;
-    plan[1] = a.LPB;
-    plan[2] = static_cast<int>(smem);
-  }
-  auto kernel = flat_solve_kernel<S, P>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  a.G = plan[0];
+  a.LPB = plan[1];
+  a.stride = static_cast<size_t>(plan[8]);
+  const int smem = plan[2], blocks = plan[5];
+  auto kernel = plan[3] ? flat_solve_kernel<S, P, true> : flat_solve_kernel<S, P, false>;
+  // another plan of this instantiation may have set a smaller maximum
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (a.B + a.LPB - 1) / a.LPB;
   kernel<<<blocks, a.G * a.LPB, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry point, loaded through ctypes.  ``dyn``, ``cost`` and ``e``
-// name the problem class (kernels/flat_problem.py).  ``ptrs``: 12 device
-// pointers in the order x0, us0, scal, consts, mrow, then the outputs us, xs,
-// fbk, fbK, stats, mval, mjac.  ``ints`` (host): T, B, n_iters, n_ls, ta (-1:
-// unconstrained), affine, primal, has_mu_max, has_mult_max, inner_max (-1:
-// none).  ``reals`` (host): threshold, w_min, mu_factor, mu_max, mult_max.
-// ``plan`` (host, may be null) receives the launch plan: G threads a lane,
-// LPB lanes a block, shared-memory bytes a block.  Returns cudaGetLastError()
-// after the launch; -1 for counts this build does not take or a lane too
-// large for the shared memory; -2 for a class this library was not built
-// for.
+// Plain C entry points, loaded through ctypes.  ``dyn``, ``cost`` and ``e``
+// name the problem class (kernels/flat_problem.py); each returns -2 for a
+// class this library was not built for.
+//
+// ddp_flat_solve_plan: the launch plan on the current device.  ``ints``
+// (host): T, B, n_ls, the program (-1: the plan's choice, 0 resident, 1
+// streamed).  ``plan`` (host) receives 9 ints: G threads a lane, LPB lanes a
+// block, shared-memory bytes a block, the program, blocks an SM holds,
+// blocks, waves, and the streamed program's scratch rows and row stride (the
+// scratch is [rows, stride], a column a lane of every block; 0 and 0 for the
+// resident program).  Returns 0, -1 for counts this build does not take or a
+// lane too large for the shared memory, or a CUDA error.
+//
+// ddp_flat_solve: one launch on that plan.  ``ptrs``: 13 device pointers in
+// the order x0, us0, scal, consts, mrow, then the outputs us, xs, fbk, fbK,
+// stats, mval, mjac, then the scratch.  ``ints`` (host): T, B, n_iters, n_ls,
+// ta (-1: unconstrained), affine, primal, has_mu_max, has_mult_max,
+// inner_max (-1: none).  ``reals`` (host): threshold, w_min, mu_factor,
+// mu_max, mult_max.  ``plan`` (host): ddp_flat_solve_plan's 9 ints for the
+// same class, T, B, n_ls and type.  Returns cudaGetLastError() after the
+// launch, or -1 for counts this build does not take.
+extern "C" int ddp_flat_solve_plan(int is_double, int dyn, int cost, int e, const int* ints,
+                                   int* plan) {
+  if (dyn != DDP_DYN || cost != DDP_COST || e != DDP_E) return -2;
+  return is_double ? plan_launch<double>(ints[0], ints[1], ints[2], ints[3], plan)
+                   : plan_launch<float>(ints[0], ints[1], ints[2], ints[3], plan);
+}
+
 extern "C" int ddp_flat_solve(int is_double, int dyn, int cost, int e, const void* const* ptrs,
-                              const int* ints, const double* reals, int* plan, void* stream) {
+                              const int* ints, const double* reals, const int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dyn != DDP_DYN || cost != DDP_COST || e != DDP_E) return -2;
   return is_double ? launch<double>(ptrs, ints, reals, plan, s)

@@ -10,10 +10,16 @@ final measures: the static flow of ``solver/batched.py`` with
 the 2^-c ladder), Gauss-Newton, one active constraint step.
 
 On CUDA tensors it launches ``csrc/flat_solve.cu`` once (a group of threads
-per lane runs the lane's whole solve in shared memory, its candidates,
-adjoints and per-step derivatives on separate threads; the problem's
-dynamics, cost and constraint and their derivatives are the device functions
-of its class, ``kernels/flat_problem.py``); on CPU tensors it runs
+per lane runs the lane's whole solve, its candidates, adjoints and per-step
+derivatives on separate threads; the problem's dynamics, cost and constraint
+and their derivatives are the device functions of its class,
+``kernels/flat_problem.py``).  The kernel has two programs and its launch
+plan takes the one with fewer waves over the card's SMs: the resident one
+keeps a lane's whole working set in shared memory (the headline's T = 32);
+the streamed one keeps there only the trajectory, controls and gains and
+streams the per-step derivatives, multipliers, anchors and the candidates'
+rollouts through a global scratch that this wrapper allocates, so that 32
+lanes a block still fit at T = 100 and 200.  On CPU tensors it runs
 ``solve_flat_reference``, the plain PyTorch version of the same program.
 
 Where the program differs from ``solve_batched``, both versions here keep it:
@@ -571,23 +577,58 @@ def solve_flat(
 
 class LaunchPlan(NamedTuple):
     """One launch of the whole-solve kernel, ready to go: the device tensors
-    (inputs, outputs that double as working storage, scratch) and the host
-    arguments.  A plan can be launched again: the kernel initialises
-    everything it reads.  Each launch fills ``geometry`` with the kernel's
-    own launch plan: threads a lane, lanes a block and shared-memory bytes a
-    block."""
+    (inputs, outputs, the streamed program's scratch) and the host arguments.
+    A plan can be launched again: the kernel initialises everything it reads.
+    ``geometry`` is the kernel's launch plan on a CUDA card: threads a lane,
+    lanes a block, shared-memory bytes a block, the program ("resident" or
+    "streamed"), blocks an SM holds, lanes an SM, blocks and waves over the
+    card's SMs ({} for CPU tensors, which have no launch)."""
 
-    tensors: list  # x0, us0, scal, consts, mrow, 7 outputs
+    tensors: list  # x0, us0, scal, consts, mrow, 7 outputs, scratch
     ints: list
     reals: list
     flat: FlatProblem
     dims: tuple  # (T, nx, m, e)
     geometry: dict
+    launch: tuple | None  # ddp_flat_solve_plan's 9 ints; None on the CPU
 
 
-def plan_launch(problem, params, x0s, us_init=None, method=None, n_linesearch=8) -> LaunchPlan:
+PROGRAMS = ("resident", "streamed")
+# ddp_flat_solve_plan's answers by (class, T, B, n_ls, type, card, program):
+# the plan depends on nothing else
+_PLANS: dict = {}
+
+
+def _launch_plan_ints(flat, T, B, n_ls, dtype, device, program):
+    """The kernel's launch plan for these counts on ``device`` (9 ints:
+    threads a lane, lanes a block, shared-memory bytes, the program, blocks
+    an SM, blocks, waves, the scratch's rows and row stride), asked of the
+    library once per key.  Raises ValueError where no lane fits."""
+    key = (tuple(sorted(flat.build.items())), T, B, n_ls, dtype, device, program)
+    if key not in _PLANS:
+        fn = _plan_fn(flat.build)
+        out = (ctypes.c_int * 9)()
+        prog = -1 if program is None else PROGRAMS.index(program)
+        with torch.cuda.device(device):
+            rc = fn(int(dtype == torch.float64), flat.dynamics, flat.cost, flat.e,
+                    (ctypes.c_int * 4)(T, B, n_ls, prog), out)  # fmt: skip
+        if rc == -1:
+            raise ValueError(_NO_FIT.format(T=T, e=flat.e))
+        if rc == -2:
+            raise RuntimeError(f"flat_solve: the library does not serve the class {flat.build}")
+        if rc != 0:
+            raise RuntimeError(f"flat_solve launch plan failed: CUDA error {rc}")
+        _PLANS[key] = tuple(out)
+    return _PLANS[key]
+
+
+def plan_launch(problem, params, x0s, us_init=None, method=None, n_linesearch=8,
+                _program=None) -> LaunchPlan:
     """Check the arguments against the gates, the problem's flat-lane class and
-    the kernel's instantiations, and allocate what one launch needs."""
+    the kernel's instantiations, take the kernel's launch plan (CUDA tensors)
+    and allocate what one launch needs.  ``_program`` ("resident" or
+    "streamed") overrides the plan's choice of program: a seam for tests and
+    measurements."""
     method, T, m, e, ta, mrow, us_init, sc = _setup(problem, params, x0s, us_init, method)
     flat = pack_problem(problem)
     B, nx = x0s.shape
@@ -601,11 +642,21 @@ def plan_launch(problem, params, x0s, us_init=None, method=None, n_linesearch=8)
             f"us_init: {us_init.dtype} {tuple(us_init.shape)} on {us_init.device}, "
             f"expected {dtype} {(B, T, m)} on {dev}"
         )
+    if _program is not None and _program not in PROGRAMS:
+        raise ValueError(f"program is one of {PROGRAMS}, got {_program!r}")
     kw = dict(dtype=dtype, device=dev)
 
     def empty(*shape):
         return torch.empty(shape, **kw)
 
+    launch, geometry, scratch = None, {}, empty(0)
+    if dev.type == "cuda":
+        launch = _launch_plan_ints(flat, T, B, n_linesearch, dtype, dev, _program)
+        G, lpb, smem, prog, per_sm, blocks, waves, rows, stride = launch
+        geometry = dict(threads_per_lane=G, lanes_per_block=lpb, smem_bytes=smem, program=PROGRAMS[prog],
+                        blocks_per_sm=per_sm, lanes_per_sm=per_sm * lpb, blocks=blocks, waves=waves)  # fmt: skip
+        if rows:  # the streamed program's scratch [rows, a column a lane of every block]
+            scratch = empty(rows, stride)
     x0 = x0s.T.contiguous()
     us0 = us_init.permute(1, 2, 0).contiguous()
     scal = torch.tensor([params.mu, params.reg, sc["w0"], sc["n0"]], **kw)[:, None].repeat(1, B)
@@ -627,8 +678,8 @@ def plan_launch(problem, params, x0s, us_init=None, method=None, n_linesearch=8)
         float(params.mult_max) if params.mult_max is not None else 0.0,
     ]  # fmt: skip
     return LaunchPlan(
-        tensors=[x0, us0, scal, flat.consts, mrow_t] + outs, ints=ints, reals=reals,
-        flat=flat, dims=(T, nx, m, e), geometry={},
+        tensors=[x0, us0, scal, flat.consts, mrow_t] + outs + [scratch], ints=ints, reals=reals,
+        flat=flat, dims=(T, nx, m, e), geometry=geometry, launch=launch,
     )  # fmt: skip
 
 
@@ -640,7 +691,6 @@ def launch_plan(plan: LaunchPlan) -> BatchSolveResult:
     x0 = plan.tensors[0]
     ptrs = (ctypes.c_void_p * len(plan.tensors))(*[x.data_ptr() for x in plan.tensors])
     fn = _kernel_fn(plan.flat.build)
-    geometry = (ctypes.c_int * 3)()
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream(x0.device).cuda_stream
         rc = fn(
@@ -648,17 +698,15 @@ def launch_plan(plan: LaunchPlan) -> BatchSolveResult:
             ctypes.cast(ptrs, ctypes.c_void_p),
             (ctypes.c_int * len(plan.ints))(*plan.ints),
             (ctypes.c_double * len(plan.reals))(*plan.reals),
-            ctypes.cast(geometry, ctypes.c_void_p), stream,
+            (ctypes.c_int * 9)(*plan.launch), stream,
         )  # fmt: skip
-    if rc == -1:  # the only gate plan_launch cannot check: the shared memory
-        raise ValueError(_NO_FIT.format(T=T, e=e))
+    if rc == -1:
+        raise ValueError(f"flat_solve: counts the kernel does not take: {plan.ints}")
     if rc == -2:
         raise RuntimeError(f"flat_solve: the library does not serve the class {plan.flat.build}")
     if rc != 0:
         raise RuntimeError(f"flat_solve kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
-    plan.geometry.update(threads_per_lane=geometry[0], lanes_per_block=geometry[1],
-                         smem_bytes=geometry[2])  # fmt: skip
     us, xs, fbk, fbK, stats, mval, mjac = plan.tensors[5:12]
     return _result(us, xs, fbk, fbK, stats, mval, mjac, T, m, e, nx)
 
@@ -669,5 +717,13 @@ def _kernel_fn(build: dict):
     lib = _build.load(SOURCE, build)
     fn = lib.ddp_flat_solve
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _plan_fn(build: dict):
+    """The launch-plan entry point of the same library."""
+    fn = _build.load(SOURCE, build).ddp_flat_solve_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn

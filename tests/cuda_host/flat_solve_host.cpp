@@ -1,11 +1,21 @@
 // Runs csrc/flat_solve.cu's kernel (float64) on the host, block by block, on
 // its launch plan, for the flat-lane classes (DYN, COST, E) it instantiates
 // below.
-//   flat_solve_host DYN COST E DIR
+//   flat_solve_host DYN COST E DIR [PROGRAM]
 // reads DIR/{ints.i32 (the kernel's 10 ints), reals.f64 (its 5 reals),
 // x0.f64, us0.f64, scal.f64, consts.f64, mrow.f64} and writes
 // DIR/{us,xs,fbk,fbK,stats,mval,mjac}.f64 in the kernel's batch-last layouts,
-// and DIR/plan.i32 = {G, LPB, shared-memory bytes}.
+// in PROGRAM (0 resident, 1 streamed; default -1, the plan's choice), with a
+// scratch of the harness's own, and DIR/plan.i32 = {G, LPB, shared-memory
+// bytes, program, blocks an SM, blocks, waves}.
+//   flat_solve_host plan T C ITEM E B
+// prints that plan ("G LPB bytes program blocks_an_SM blocks waves") for a
+// class of E rows, C candidates, B lanes and ITEM-byte scalars, or exits 4
+// when no lane fits.  Both modes plan for 132 SMs, with the blocks an SM
+// holds counted from its shared memory (233,472 bytes, 1 KB reserved a
+// block), its 2,048 threads and 32 blocks: the card's registers are not
+// known here.
+#include <algorithm>
 #include <cstdio>
 #include <cstdlib>
 #include <string>
@@ -39,8 +49,16 @@ static std::vector<T> read_all(const std::string& path) {
   return read<T>(path, n);
 }
 
+constexpr int kSms = 132;
+
+// blocks an H100 SM holds by its shared memory and threads alone
+static int host_occupancy(int, int threads, long smem) {
+  const long by_smem = 233472 / (smem + 1024), by_threads = 2048 / threads;
+  return static_cast<int>(std::min({by_smem, by_threads, 32L}));
+}
+
 template <int DYN, int COST, int E>
-static int run(const std::string& dir) {
+static int run(const std::string& dir, int program) {
   using P = PendulumClass<double, DYN, COST, E>;
   constexpr int NX = P::NX, M = P::M, EK = E > 0 ? E : 1;
   auto n = read<int>(dir + "/ints.i32", 10);
@@ -84,16 +102,29 @@ static int run(const std::string& dir) {
   a.mu_factor = r[2];
   a.mu_max = r[3];
   a.mult_max = r[4];
-  long smem = 0;
-  if (!flat_solve_plan(T, NX, M, E, a.n_ls, sizeof(double), &a.G, &a.LPB, &smem)) return 4;
-  if (smem > long(sizeof(host_dynamic_smem))) return 5;
+  FlatSolvePlan fp;
+  if (!flat_solve_plan(T, NX, M, E, a.n_ls, sizeof(double), B, kSms, program, host_occupancy, &fp))
+    return 4;
+  if (fp.smem > long(sizeof(host_dynamic_smem))) return 5;
+  a.G = fp.G;
+  a.LPB = fp.LPB;
+  // the streamed program's scratch, NaN until written, with a column for
+  // every padded lane
+  a.stride = size_t(fp.blocks) * fp.LPB;
+  std::vector<double> scratch(
+      fp.stream ? size_t(ScratchLayout(T, NX, M, E, a.n_ls).total) * a.stride : 0, NAN);
+  a.scratch = scratch.data();
   dim3 block, index{0, 0, 0};
   block.x = a.G * a.LPB;
-  const unsigned blocks = (B + a.LPB - 1) / a.LPB;
-  for (index.x = 0; index.x < blocks; ++index.x) {
+  for (index.x = 0; index.x < unsigned(fp.blocks); ++index.x) {
     // the shared memory as an uninitialised block finds it
-    std::fill(host_dynamic_smem, host_dynamic_smem + smem, static_cast<unsigned char>(0xA5));
-    host_run_block(index, block, [&] { flat_solve_kernel<double, P>(a); });
+    std::fill(host_dynamic_smem, host_dynamic_smem + fp.smem, static_cast<unsigned char>(0xA5));
+    host_run_block(index, block, [&] {
+      if (fp.stream)
+        flat_solve_kernel<double, P, true>(a);
+      else
+        flat_solve_kernel<double, P, false>(a);
+    });
   }
   write(dir + "/us.f64", us);
   write(dir + "/xs.f64", xs);
@@ -102,19 +133,30 @@ static int run(const std::string& dir) {
   write(dir + "/stats.f64", stats);
   write(dir + "/mval.f64", mval);
   write(dir + "/mjac.f64", mjac);
-  write(dir + "/plan.i32", std::vector<int>{a.G, a.LPB, static_cast<int>(smem)});
+  write(dir + "/plan.i32", std::vector<int>{fp.G, fp.LPB, static_cast<int>(fp.smem), fp.stream,
+                                            fp.per_sm, fp.blocks, fp.waves});
   return 0;
 }
 
 int main(int argc, char** argv) {
-  if (argc != 5) return 2;
+  if (argc == 7 && std::string(argv[1]) == "plan") {
+    FlatSolvePlan fp;
+    if (!flat_solve_plan(std::atoi(argv[2]), 2, 1, std::atoi(argv[5]), std::atoi(argv[3]),
+                         std::atoi(argv[4]), std::atoi(argv[6]), kSms, -1, host_occupancy, &fp))
+      return 4;
+    std::printf("%d %d %ld %d %d %d %d\n", fp.G, fp.LPB, fp.smem, fp.stream, fp.per_sm, fp.blocks,
+                fp.waves);
+    return 0;
+  }
+  if (argc != 5 && argc != 6) return 2;
   const int dyn = std::atoi(argv[1]), cost = std::atoi(argv[2]), e = std::atoi(argv[3]);
   const std::string dir = argv[4];
+  const int program = argc == 6 ? std::atoi(argv[5]) : -1;
   // the classes the host test holds to the plain version: the headline's and
   // its unconstrained twin, the arrive-at-rest target, the RK4 tracking twin
-  if (dyn == 0 && cost == 0 && e == 1) return run<0, 0, 1>(dir);
-  if (dyn == 0 && cost == 0 && e == 0) return run<0, 0, 0>(dir);
-  if (dyn == 0 && cost == 0 && e == 2) return run<0, 0, 2>(dir);
-  if (dyn == 1 && cost == 1 && e == 0) return run<1, 1, 0>(dir);
+  if (dyn == 0 && cost == 0 && e == 1) return run<0, 0, 1>(dir, program);
+  if (dyn == 0 && cost == 0 && e == 0) return run<0, 0, 0>(dir, program);
+  if (dyn == 0 && cost == 0 && e == 2) return run<0, 0, 2>(dir, program);
+  if (dyn == 1 && cost == 1 && e == 0) return run<1, 1, 0>(dir, program);
   return 2;
 }

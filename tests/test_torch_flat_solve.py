@@ -71,6 +71,35 @@ def test_reference_matches_jax_solve_batched(method):
     np.testing.assert_array_equal(tr.reg.numpy(), np.asarray(jr.reg))
 
 
+# SolverParams.mu_max and mult_max at this file's size: n = 10 lets every
+# lane update its multipliers in the first iteration (by μ·eq ≫ 20, so the
+# cap clips them: the values under PRIMAL and PRIMAL_DUAL_CONSTANT, the
+# Jacobians under PRIMAL_DUAL_AFFINE), and the next failure's μ·10 = 1e5 is
+# cut to 3e4
+CAPS = dict(PARAMS, n=10.0, mu_max=3e4, mult_max=20.0)
+
+
+@pytest.mark.parametrize("method", ["PRIMAL", "PRIMAL_DUAL_CONSTANT", "PRIMAL_DUAL_AFFINE"])
+def test_caps_match_jax_solve_batched(method):
+    """The μ and multiplier caps: the port's solve_batched and the flat
+    solve's plain version against ddp_tpu's solve_batched with both caps
+    binding, μ identical."""
+    jp, tp = both_problems(H, np.float64, target=1.0)
+    x0s = x0s_small()
+    kw = dict(method=JMethod[method], n_reg_levels=1, n_linesearch=8)
+    jr = jbatched.solve_batched(jp, JParams(**CAPS), jnp.asarray(x0s), **kw)
+    mu = np.asarray(jr.mu)
+    assert bool((mu == CAPS["mu_max"]).all())  # the cap bound: μ·10 would be 1e5
+    clipped = np.abs(np.asarray(jr.mults.jac if method == "PRIMAL_DUAL_AFFINE" else jr.mults.val))
+    assert float(clipped.max()) == CAPS["mult_max"]
+    params = SolverParams(**CAPS)
+    own = tbatched.solve_batched(tp, params, t(x0s), **dict(kw, method=Method[method]))
+    flat = flat_solve.solve_flat(tp, params, t(x0s), method=Method[method])
+    for tr in (own, flat):
+        assert_results_match(tr, jr)
+        np.testing.assert_array_equal(tr.mu.numpy(), mu)
+
+
 def test_reference_matches_jax_solve_batched_unconstrained():
     jp, tp = both_problems(H, np.float64, target=None)
     rng = np.random.default_rng(1)
@@ -248,6 +277,21 @@ def test_bad_arguments_raise():
         flat_solve.solve_flat(tp, SolverParams(**PARAMS), x0s.float())
     with pytest.raises(ValueError, match="x0s must be"):
         flat_solve.solve_flat(tp, SolverParams(**PARAMS), torch.zeros((2, 3), dtype=torch.float64))
+
+
+def test_plan_of_cpu_tensors_has_no_launch_and_no_scratch():
+    """CPU tensors have no card to plan for: the plan packs the kernel's 10
+    ints and 5 reals (both caps set) but asks for no launch plan and
+    allocates no scratch; a program other than the kernel's two is refused."""
+    _, tp = both_problems(4, np.float64, target=1.0)
+    params = SolverParams(**PARAMS, mu_max=3e4, mult_max=20.0)
+    x0s = t(x0s_small())
+    plan = flat_solve.plan_launch(tp, params, x0s, n_linesearch=3, _program="streamed")
+    assert plan.launch is None and plan.geometry == {} and plan.tensors[-1].numel() == 0
+    assert plan.ints[:4] == [4, B, 3, 3] and plan.ints[7:9] == [1, 1] and len(plan.ints) == 10
+    assert plan.reals[3:] == [3e4, 20.0]
+    with pytest.raises(ValueError, match="program"):
+        flat_solve.plan_launch(tp, params, x0s, _program="cached")
 
 
 # ------------------------------------------------------- the problem as data

@@ -278,44 +278,64 @@ def flat_solve_host(request, tmp_path_factory):
 
 FS_T, FS_B = 8, 40
 FS_PARAMS = SolverParams(max_iterations=2, threshold=1e-5, mu=1e4, inner_iters_max=1)
+# both caps binding: n = 10 lets every lane update its multipliers at once
+# (by far more than 20, so the clip cuts them), the next failure's μ·10 is
+# cut to 3e4
+FS_CAPS = FS_PARAMS._replace(n=10.0, mu_max=3e4, mult_max=20.0)
 FS_FIELDS = ("xs", "us", "fb_k", "fb_K", "opt_constr", "opt_lag", "mu", "reg", "w", "n")
 
 
 @pytest.mark.parametrize(
-    "n_ls,case",
-    [(4, "headline"), (7, "headline"), (4, "e0"), (4, "state"), (4, "rk4_tracking")],
-    ids=["C4", "C7", "C4_e0", "C4_state", "C4_rk4_tracking"],
-)
-def test_flat_solve_kernel_matches_plain_version(flat_solve_host, tmp_path, n_ls, case):
-    """The whole solve at T = 8, B = 40 (two blocks of 32 lanes, the second
-    ragged), 2 iterations, lane 3 started at a NaN state: on the pendulum
-    headline's class, its unconstrained twin from random controls, the
-    arrive-at-rest state target (e = 2) and the RK4 tracking twin (a
-    non-zero terminal cost).  Every field of the other lanes within 1e-9 of
-    its array's largest entry (opt_lag of the largest |u|), μ and reg
-    identical; the NaN lane keeps its controls and escalates its reg as the
-    plain version's does."""
-    problem = problem_from_numpy(flat_class_spec(case, FS_T), device="cpu", dtype=torch.float64)
+    "n_ls,case,T,program,capped",
+    [(4, "headline", FS_T, None, False), (7, "headline", FS_T, None, False),
+     (4, "e0", FS_T, None, False), (4, "state", FS_T, None, False),
+     (4, "rk4_tracking", FS_T, None, False), (4, "state", 100, "streamed", False),
+     (4, "headline", FS_T, None, True), (4, "headline", FS_T, "streamed", True),
+     (7, "headline", FS_T, "streamed", False), (4, "rk4_tracking", FS_T, "streamed", False)],
+    ids=["C4", "C7", "C4_e0", "C4_state", "C4_rk4_tracking", "C4_state_T100_streamed", "C4_capped",
+         "C4_capped_streamed", "C7_streamed", "C4_rk4_tracking_streamed"],
+)  # fmt: skip
+def test_flat_solve_kernel_matches_plain_version(flat_solve_host, tmp_path, n_ls, case, T, program,
+                                                 capped):
+    """The whole solve at B = 40 (two blocks of 32 lanes, the second
+    ragged), 2 iterations, lane 3 started at a NaN state: at T = 8 on the
+    pendulum headline's class, its unconstrained twin from random controls,
+    the arrive-at-rest state target (e = 2) and the RK4 tracking twin (a
+    non-zero terminal cost), in the program the launch plan picks there (the
+    resident one); the streamed program (its derivatives, multipliers,
+    anchors and candidates in a scratch, the sweeps fed through cp.async
+    rings) on the state target at T = 100 and at T = 8 on the headline's
+    class with 7 candidates and the RK4 twin; and both programs with the μ
+    and multiplier caps binding.  Every field of the other lanes within
+    1e-9 of its array's largest entry (opt_lag of the largest |u|), μ and
+    reg identical; the NaN lane keeps its controls, escalates its reg and
+    ends with the plain version's μ and NaN entries."""
+    params = FS_CAPS if capped else FS_PARAMS
+    problem = problem_from_numpy(flat_class_spec(case, T), device="cpu", dtype=torch.float64)
     rng = np.random.default_rng(4)
     x0 = np.stack([rng.uniform(-np.pi, np.pi, FS_B), np.zeros(FS_B)], axis=1)
     x0[3, 0] = np.nan
-    us0 = t(0.5 * rng.normal(size=(FS_B, FS_T, 1))) if case == "e0" else None
+    us0 = t(0.5 * rng.normal(size=(FS_B, T, 1))) if case == "e0" else None
     kw = dict(us_init=us0, n_linesearch=n_ls)
-    plan = fs.plan_launch(problem, FS_PARAMS, t(x0), **kw)
+    plan = fs.plan_launch(problem, params, t(x0), **kw)
     for name, x in zip(("x0", "us0", "scal", "consts", "mrow"), plan.tensors[:5]):
         dump(x, tmp_path / f"{name}.f64")
     np.asarray(plan.ints, dtype=np.int32).tofile(tmp_path / "ints.i32")
     np.asarray(plan.reals, dtype=np.float64).tofile(tmp_path / "reals.f64")
     flat = plan.flat
-    run([str(flat_solve_host), *map(str, (flat.dynamics, flat.cost, flat.e)), str(tmp_path)])
+    prog = -1 if program is None else fs.PROGRAMS.index(program)
+    run([str(flat_solve_host), *map(str, (flat.dynamics, flat.cost, flat.e)), str(tmp_path), str(prog)])
     outs = [
         torch.from_numpy(np.fromfile(tmp_path / f"{n}.f64").reshape(x.shape))
         for n, x in zip(("us", "xs", "fbk", "fbK", "stats", "mval", "mjac"), plan.tensors[5:12])
     ]
-    got = fs._result(*outs, FS_T, 1, problem.ne, 2)
-    ref = fs.solve_flat_reference(problem, FS_PARAMS, t(x0), **kw)
-    G, lpb, _ = np.fromfile(tmp_path / "plan.i32", dtype=np.int32).tolist()
-    assert G == 8 and lpb == 32
+    got = fs._result(*outs, T, 1, problem.ne, 2)
+    ref = fs.solve_flat_reference(problem, params, t(x0), **kw)
+    G, lpb, _, stream = np.fromfile(tmp_path / "plan.i32", dtype=np.int32).tolist()[:4]
+    assert G == 8 and lpb == 32 and stream == (program == "streamed")
+    if capped:  # both caps bound
+        assert float(ref.mu.max()) == FS_CAPS.mu_max
+        assert float(ref.mults.jac[torch.arange(FS_B) != 3].abs().max()) == FS_CAPS.mult_max
     lanes = torch.arange(FS_B) != 3
     u_scale = max(1.0, float(ref.us[lanes].abs().max()))
     fields = [(n, getattr(got, n), getattr(ref, n)) for n in FS_FIELDS]
@@ -326,8 +346,43 @@ def test_flat_solve_kernel_matches_plain_version(flat_solve_host, tmp_path, n_ls
             assert bool(torch.isfinite(g[lanes]).all()), name
             scale = u_scale if name == "opt_lag" else max(1.0, float(r[lanes].abs().max()))
             assert float((g - r)[lanes].abs().max()) <= 1e-9 * scale, name
+            assert torch.equal(g[3].isnan(), r[3].isnan()), name  # the NaN lane's NaNs
     assert torch.equal(got.mu, ref.mu) and torch.equal(got.reg, ref.reg)
     assert bool((got.us[3] == (0.0 if us0 is None else us0[3])).all()) and float(got.reg[3]) > 0
+
+
+def test_flat_solve_plan_places_lanes_at_every_horizon(flat_solve_host):
+    """The launch plan at B = 4096 lanes, 4 candidates, on 132 SMs whose
+    blocks are counted from shared memory and threads alone (the card also
+    counts registers): at T = 32 in float32 the resident program (32 lanes a
+    block, one block an SM, one wave, as before); everywhere else the
+    streamed one, one wave at T = 32 in float64 (64 lanes an SM; resident: 16
+    lanes a block, two waves), at the arrive-at-rest fleet's T = 100, e = 2
+    in float32 and float64 (32 lanes an SM; resident in float32: 8 lanes an
+    SM, four waves), at the T200 row's T = 200, e = 1 in float32 (32 lanes an
+    SM; resident: 4, eight waves); two waves at T = 200 in float64 (16).  A
+    lane fits up to T = 4800 in float64 (no plan at T = 5000: the wrapper
+    raises ValueError there)."""
+
+    def plan(T, item, e):
+        proc = subprocess.run(
+            [str(flat_solve_host), "plan", str(T), "4", str(item), str(e), "4096"], capture_output=True,
+            text=True, timeout=60, env=dict(os.environ, **RUN_ENV),
+        )  # fmt: skip
+        if proc.returncode:
+            return proc.returncode
+        G, lpb, _, stream, per_sm, _, waves = map(int, proc.stdout.split())
+        assert G == 8
+        return fs.PROGRAMS[stream], per_sm * lpb, waves
+
+    assert plan(32, 4, 1) == ("resident", 32, 1)
+    assert plan(32, 8, 1) == ("streamed", 64, 1)
+    assert plan(100, 4, 2) == ("streamed", 32, 1)
+    assert plan(100, 8, 2) == ("streamed", 32, 1)
+    assert plan(200, 4, 1) == ("streamed", 32, 1)
+    assert plan(200, 8, 1) == ("streamed", 16, 2)
+    assert plan(4800, 8, 1) == ("streamed", 1, 32)
+    assert plan(5000, 8, 1) == 4
 
 
 # ------------------------------------------------------------- kernel #4
