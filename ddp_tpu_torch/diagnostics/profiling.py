@@ -2,9 +2,10 @@
 
 ≙ the reference runtime diagnostics: the RAII wall-clock chronometer that
 appends to ``chrono.log``, the deduplicating log-file registry, and the
-per-problem convergence trace files ``<name>_primal.dat``/``_dual.dat``.
-Default paths lie in the temporary directory (``tempfile.gettempdir()``,
-which follows ``TMPDIR``).
+per-problem convergence trace files ``<name>_primal.dat``/``_dual.dat``;
+and ``span``, the named host ranges the port's wrappers open in a
+``torch.profiler`` trace.  Default paths lie in the temporary directory
+(``tempfile.gettempdir()``, which follows ``TMPDIR``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 _LOG_FILES: dict[str, object] = {}  # dedup registry, ≙ log_file_t
+_NO_SPAN = contextlib.nullcontext()  # what ``span`` gives when nothing records
 
 
 def _tmp(name: str) -> str:
@@ -141,14 +143,13 @@ def device_profile(path: str | None = None):
     prof.export_chrome_trace(os.path.join(path, "trace.json"))
 
 
-def timed_block_until_ready(fn, *args, n_rep: int = 5, **kw):
-    """Steady-state wall time of a callable, its first (warm-up) call
-    excluded; each call waits for the card.  Returns (result,
-    seconds_per_call)."""
-    res = fn(*args, **kw)
-    block_until_ready(res)
-    t0 = time.perf_counter()
-    for _ in range(n_rep):
-        res = fn(*args, **kw)
-        block_until_ready(res)
-    return res, (time.perf_counter() - t0) / n_rep
+def span(name: str):
+    """A named range of host time for a ``torch.profiler`` trace: while one
+    is recording (``device_profile``, or ``torch.profiler.profile`` of the
+    caller's own), ``torch.profiler.record_function(name)``, a
+    ``user_annotation`` event on the calling thread, on the same clock as the
+    trace's kernel, copy and CUDA runtime events; otherwise one shared null
+    context, which costs a check and nothing else."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd, vmap
 
+from ddp_tpu_torch.diagnostics.profiling import span
 from ddp_tpu_torch.kernels import _build
 from ddp_tpu_torch.kernels.flat_problem import FlatProblem, pack_problem
 from ddp_tpu_torch.ocp.dynamics import _vector_space_config
@@ -566,13 +567,19 @@ def solve_flat(
     Raises ``ValueError`` for a second-order problem, a model that is not a
     vector space, nx != ndx, more than one active constraint step, and a
     problem outside the flat-lane class
-    (``kernels/flat_problem.py``)."""
-    if n_linesearch < 1:
-        raise ValueError(f"n_linesearch must be >= 1, got {n_linesearch}")
-    if x0s.device.type == "cpu":
-        pack_problem(problem)  # the class gate holds on the CPU too
-        return solve_flat_reference(problem, params, x0s, us_init, method, n_linesearch)
-    return launch_plan(plan_launch(problem, params, x0s, us_init, method, n_linesearch))
+    (``kernels/flat_problem.py``).
+
+    In a ``torch.profiler`` trace the call is the span ``solve_flat``, with
+    ``solve_flat.gates``, ``.pack``, ``.plan`` and ``.launch`` inside it
+    (``plan_launch``, ``launch_plan``; on the CPU ``.pack`` alone)."""
+    with span("solve_flat"):
+        if n_linesearch < 1:
+            raise ValueError(f"n_linesearch must be >= 1, got {n_linesearch}")
+        if x0s.device.type == "cpu":
+            with span("solve_flat.pack"):
+                pack_problem(problem)  # the class gate holds on the CPU too
+            return solve_flat_reference(problem, params, x0s, us_init, method, n_linesearch)
+        return launch_plan(plan_launch(problem, params, x0s, us_init, method, n_linesearch))
 
 
 class LaunchPlan(NamedTuple):
@@ -629,86 +636,90 @@ def plan_launch(problem, params, x0s, us_init=None, method=None, n_linesearch=8,
     and allocate what one launch needs.  ``_program`` ("resident" or
     "streamed") overrides the plan's choice of program: a seam for tests and
     measurements."""
-    method, T, m, e, ta, mrow, us_init, sc = _setup(problem, params, x0s, us_init, method)
-    flat = pack_problem(problem)
-    B, nx = x0s.shape
-    dtype, dev = x0s.dtype, x0s.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"kernel takes float32 or float64, got {dtype}")
-    if not 1 <= n_linesearch <= 31:
-        raise ValueError(f"the kernel takes 1 to 31 candidates, got {n_linesearch}")
-    if tuple(us_init.shape) != (B, T, m) or us_init.dtype != dtype or us_init.device != dev:
-        raise ValueError(
-            f"us_init: {us_init.dtype} {tuple(us_init.shape)} on {us_init.device}, "
-            f"expected {dtype} {(B, T, m)} on {dev}"
-        )
-    if _program is not None and _program not in PROGRAMS:
-        raise ValueError(f"program is one of {PROGRAMS}, got {_program!r}")
-    kw = dict(dtype=dtype, device=dev)
+    with span("solve_flat.gates"):
+        method, T, m, e, ta, mrow, us_init, sc = _setup(problem, params, x0s, us_init, method)
+    with span("solve_flat.pack"):
+        flat = pack_problem(problem)
+    with span("solve_flat.plan"):
+        B, nx = x0s.shape
+        dtype, dev = x0s.dtype, x0s.device
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"kernel takes float32 or float64, got {dtype}")
+        if not 1 <= n_linesearch <= 31:
+            raise ValueError(f"the kernel takes 1 to 31 candidates, got {n_linesearch}")
+        if tuple(us_init.shape) != (B, T, m) or us_init.dtype != dtype or us_init.device != dev:
+            raise ValueError(
+                f"us_init: {us_init.dtype} {tuple(us_init.shape)} on {us_init.device}, "
+                f"expected {dtype} {(B, T, m)} on {dev}"
+            )
+        if _program is not None and _program not in PROGRAMS:
+            raise ValueError(f"program is one of {PROGRAMS}, got {_program!r}")
+        kw = dict(dtype=dtype, device=dev)
 
-    def empty(*shape):
-        return torch.empty(shape, **kw)
+        def empty(*shape):
+            return torch.empty(shape, **kw)
 
-    launch, geometry, scratch = None, {}, empty(0)
-    if dev.type == "cuda":
-        launch = _launch_plan_ints(flat, T, B, n_linesearch, dtype, dev, _program)
-        G, lpb, smem, prog, per_sm, blocks, waves, rows, stride = launch
-        geometry = dict(threads_per_lane=G, lanes_per_block=lpb, smem_bytes=smem, program=PROGRAMS[prog],
-                        blocks_per_sm=per_sm, lanes_per_sm=per_sm * lpb, blocks=blocks, waves=waves)  # fmt: skip
-        if rows:  # the streamed program's scratch [rows, a column a lane of every block]
-            scratch = empty(rows, stride)
-    x0 = x0s.T.contiguous()
-    us0 = us_init.permute(1, 2, 0).contiguous()
-    scal = torch.tensor([params.mu, params.reg, sc["w0"], sc["n0"]], **kw)[:, None].repeat(1, B)
-    mrow_t = torch.tensor(mrow, **kw)
-    e_k = max(e, 1)
-    # outputs, [T, rows, B] so that neighbouring threads touch neighbouring
-    # addresses (the kernel works in shared memory)
-    outs = [empty(T, m, B), empty(T + 1, nx, B), empty(T, m, B), empty(T, m * nx, B),
-            empty(6, B), empty(T, e_k, B), empty(T, e_k * nx, B)]  # fmt: skip
-    ints = [
-        T, B, params.max_iterations, n_linesearch, ta,
-        int(method is Method.PRIMAL_DUAL_AFFINE), int(method is Method.PRIMAL),
-        int(params.mu_max is not None), int(params.mult_max is not None),
-        -1 if params.inner_iters_max is None else int(params.inner_iters_max),
-    ]  # fmt: skip
-    reals = [
-        sc["threshold"], sc["w_min"], sc["mu_factor"],
-        float(params.mu_max) if params.mu_max is not None else 0.0,
-        float(params.mult_max) if params.mult_max is not None else 0.0,
-    ]  # fmt: skip
-    return LaunchPlan(
-        tensors=[x0, us0, scal, flat.consts, mrow_t] + outs + [scratch], ints=ints, reals=reals,
-        flat=flat, dims=(T, nx, m, e), geometry=geometry, launch=launch,
-    )  # fmt: skip
+        launch, geometry, scratch = None, {}, empty(0)
+        if dev.type == "cuda":
+            launch = _launch_plan_ints(flat, T, B, n_linesearch, dtype, dev, _program)
+            G, lpb, smem, prog, per_sm, blocks, waves, rows, stride = launch
+            geometry = dict(threads_per_lane=G, lanes_per_block=lpb, smem_bytes=smem, program=PROGRAMS[prog],
+                            blocks_per_sm=per_sm, lanes_per_sm=per_sm * lpb, blocks=blocks, waves=waves)  # fmt: skip
+            if rows:  # the streamed program's scratch [rows, a column a lane of every block]
+                scratch = empty(rows, stride)
+        x0 = x0s.T.contiguous()
+        us0 = us_init.permute(1, 2, 0).contiguous()
+        scal = torch.tensor([params.mu, params.reg, sc["w0"], sc["n0"]], **kw)[:, None].repeat(1, B)
+        mrow_t = torch.tensor(mrow, **kw)
+        e_k = max(e, 1)
+        # outputs, [T, rows, B] so that neighbouring threads touch neighbouring
+        # addresses (the kernel works in shared memory)
+        outs = [empty(T, m, B), empty(T + 1, nx, B), empty(T, m, B), empty(T, m * nx, B),
+                empty(6, B), empty(T, e_k, B), empty(T, e_k * nx, B)]  # fmt: skip
+        ints = [
+            T, B, params.max_iterations, n_linesearch, ta,
+            int(method is Method.PRIMAL_DUAL_AFFINE), int(method is Method.PRIMAL),
+            int(params.mu_max is not None), int(params.mult_max is not None),
+            -1 if params.inner_iters_max is None else int(params.inner_iters_max),
+        ]  # fmt: skip
+        reals = [
+            sc["threshold"], sc["w_min"], sc["mu_factor"],
+            float(params.mu_max) if params.mu_max is not None else 0.0,
+            float(params.mult_max) if params.mult_max is not None else 0.0,
+        ]  # fmt: skip
+        return LaunchPlan(
+            tensors=[x0, us0, scal, flat.consts, mrow_t] + outs + [scratch], ints=ints, reals=reals,
+            flat=flat, dims=(T, nx, m, e), geometry=geometry, launch=launch,
+        )  # fmt: skip
 
 
 def launch_plan(plan: LaunchPlan) -> BatchSolveResult:
     """Launch the kernel once on ``plan``; the result's tensors are views of
     the plan's output buffers."""
     global LAUNCHES
-    T, nx, m, e = plan.dims
-    x0 = plan.tensors[0]
-    ptrs = (ctypes.c_void_p * len(plan.tensors))(*[x.data_ptr() for x in plan.tensors])
-    fn = _kernel_fn(plan.flat.build)
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
-        rc = fn(
-            int(x0.dtype == torch.float64), plan.flat.dynamics, plan.flat.cost, e,
-            ctypes.cast(ptrs, ctypes.c_void_p),
-            (ctypes.c_int * len(plan.ints))(*plan.ints),
-            (ctypes.c_double * len(plan.reals))(*plan.reals),
-            (ctypes.c_int * 9)(*plan.launch), stream,
-        )  # fmt: skip
-    if rc == -1:
-        raise ValueError(f"flat_solve: counts the kernel does not take: {plan.ints}")
-    if rc == -2:
-        raise RuntimeError(f"flat_solve: the library does not serve the class {plan.flat.build}")
-    if rc != 0:
-        raise RuntimeError(f"flat_solve kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    us, xs, fbk, fbK, stats, mval, mjac = plan.tensors[5:12]
-    return _result(us, xs, fbk, fbK, stats, mval, mjac, T, m, e, nx)
+    with span("solve_flat.launch"):
+        T, nx, m, e = plan.dims
+        x0 = plan.tensors[0]
+        ptrs = (ctypes.c_void_p * len(plan.tensors))(*[x.data_ptr() for x in plan.tensors])
+        fn = _kernel_fn(plan.flat.build)
+        with torch.cuda.device(x0.device):
+            stream = torch.cuda.current_stream(x0.device).cuda_stream
+            rc = fn(
+                int(x0.dtype == torch.float64), plan.flat.dynamics, plan.flat.cost, e,
+                ctypes.cast(ptrs, ctypes.c_void_p),
+                (ctypes.c_int * len(plan.ints))(*plan.ints),
+                (ctypes.c_double * len(plan.reals))(*plan.reals),
+                (ctypes.c_int * 9)(*plan.launch), stream,
+            )  # fmt: skip
+        if rc == -1:
+            raise ValueError(f"flat_solve: counts the kernel does not take: {plan.ints}")
+        if rc == -2:
+            raise RuntimeError(f"flat_solve: the library does not serve the class {plan.flat.build}")
+        if rc != 0:
+            raise RuntimeError(f"flat_solve kernel launch failed: CUDA error {rc}")
+        LAUNCHES += 1
+        us, xs, fbk, fbK, stats, mval, mjac = plan.tensors[5:12]
+        return _result(us, xs, fbk, fbK, stats, mval, mjac, T, m, e, nx)
 
 
 def _kernel_fn(build: dict):

@@ -4,6 +4,8 @@ ddp_tpu on the same inputs, f64 on the CPU (≙ tests/test_aux_subsystems.py's
 diagnostics tests and tests/test_history.py's trace and batched-history
 tests)."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -118,11 +120,28 @@ def test_chronometer_and_trace(tmp_path):
     assert len(open(tr.primal).read().splitlines()) == 2
     assert open(tr.dual).read().splitlines() == ["0.01", "0.0001"]
 
-    res, seconds = profiling.timed_block_until_ready(lambda x: x * 2, torch.ones(3), n_rep=2)
-    assert torch.equal(res, 2 * torch.ones(3)) and seconds >= 0.0
     with profiling.device_profile(str(tmp_path / "trace")):
         _ = torch.ones(4) @ torch.ones(4)
     assert (tmp_path / "trace" / "trace.json").exists()
+
+
+def test_span_without_a_profiler_is_one_shared_null_context():
+    first, second = profiling.span("x"), profiling.span("y")
+    assert first is second
+    with first:
+        with second:  # re-entered, as nested spans do
+            pass
+
+
+def test_span_under_the_profiler_records_one_user_annotation(tmp_path):
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.span("x"):
+            _ = torch.ones(4) @ torch.ones(4)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    marks = [ev for ev in events if ev.get("cat") == "user_annotation"]
+    assert [ev["name"] for ev in marks] == ["x"]
+    assert not isinstance(profiling.span("x"), torch.profiler.record_function)
 
 
 @pytest.fixture(scope="module")

@@ -3,6 +3,8 @@ version on CPU tensors) vs ddp_tpu's solve_batched static flow (same gates,
 same accepted steps, same multiplier schedule state) and vs ddp_tpu's Pallas
 whole-solve kernel in interpret mode; the gates; the problem-as-data buffer."""
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -292,6 +294,42 @@ def test_plan_of_cpu_tensors_has_no_launch_and_no_scratch():
     assert plan.reals[3:] == [3e4, 20.0]
     with pytest.raises(ValueError, match="program"):
         flat_solve.plan_launch(tp, params, x0s, _program="cached")
+
+
+# ------------------------------------------------------------------- spans
+
+
+def _spans(tmp_path, fn):
+    """``fn()`` under the CPU profiler: its result and the trace's program
+    spans as (name, start, end), in the order they opened."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    marks = [ev for ev in events if ev.get("cat") == "user_annotation" and ev["name"].startswith("solve_flat")]
+    marks.sort(key=lambda ev: (ev["ts"], -ev["dur"]))
+    return out, [(ev["name"], ev["ts"], ev["ts"] + ev["dur"]) for ev in marks]
+
+
+def test_plan_launch_records_its_three_stages_in_order(tmp_path):
+    _, tp = both_problems(4, np.float64, target=1.0)
+    _, spans = _spans(tmp_path, lambda: flat_solve.plan_launch(tp, SolverParams(**PARAMS), t(x0s_small())))
+    assert [name for name, _, _ in spans] == ["solve_flat.gates", "solve_flat.pack", "solve_flat.plan"]
+    assert all(a[2] <= b[1] for a, b in zip(spans, spans[1:]))
+
+
+def test_solve_flat_records_its_root_with_the_pack_inside(tmp_path):
+    _, tp = both_problems(4, np.float64, target=1.0)
+    x0s = t(x0s_small())
+    run = lambda: flat_solve.solve_flat(tp, SolverParams(**PARAMS), x0s, n_linesearch=3)  # noqa: E731
+    traced, spans = _spans(tmp_path, run)
+    assert [name for name, _, _ in spans] == ["solve_flat", "solve_flat.pack"]
+    (_, s0, e0), (_, s1, e1) = spans
+    assert s0 <= s1 and e1 <= e0
+    plain = run()
+    for name in FIELDS:
+        assert torch.equal(getattr(traced, name), getattr(plain, name)), name
+    assert torch.equal(traced.mults.val, plain.mults.val) and torch.equal(traced.mults.jac, plain.mults.jac)
 
 
 # ------------------------------------------------------- the problem as data
