@@ -240,7 +240,9 @@ def _cost_row(cost):
 def pack_problem(problem) -> FlatProblem:
     """The class, the constants and the constraint mask of ``problem`` for the
     flat-lane kernels, on the problem's device and in its dtype: a caller
-    packs once and launches many times.  Raises ``ValueError`` for a problem
+    packs once and launches many times, as ``flat_solve.solve_flat`` does
+    (it packs again only when the problem changed) and ``solve_batched``'s
+    kernel route once a solve.  Raises ``ValueError`` for a problem
     outside the class, naming the part that is: a subclass of a module of
     the class, a ``RobotModel`` anywhere, and a schedule that is neither a
     list of steps nor ``every_k`` nor ``in_range`` are outside it."""

@@ -35,6 +35,8 @@ term agrees with ``solve_batched`` once multiplier updates succeed.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -42,7 +44,7 @@ from torch.func import jacfwd, vmap
 
 from ddp_tpu_torch.diagnostics.profiling import span
 from ddp_tpu_torch.kernels import _build
-from ddp_tpu_torch.kernels.flat_problem import FlatProblem, pack_problem
+from ddp_tpu_torch.kernels.flat_problem import FlatProblem, _walk, pack_problem
 from ddp_tpu_torch.ocp.dynamics import _vector_space_config
 from ddp_tpu_torch.solver import al as al_mod
 from ddp_tpu_torch.solver.batched import BatchSolveResult
@@ -51,25 +53,29 @@ from ddp_tpu_torch.solver.solve import Method
 SOURCE = "flat_solve.cu"
 # kernel launches since import (or since a caller reset it)
 LAUNCHES = 0
+# problems packed since import: the misses of the per-problem cache
+# (``solve_flat``), on the CPU path too
+PACKS = 0
 _NO_FIT = "flat solve kernel: a lane of horizon {T} with e = {e} does not fit a block's shared memory"
 
 
-def _setup(problem, params, x0s, us_init, method):
-    """The gates of the flat solve and its static description: (method, T, m,
-    e, ta, mrow, us_init, scalars)."""
-    if method is None:
-        method = Method.PRIMAL_DUAL_AFFINE
+def _gate_model(problem, x0s):
+    """The first gates of the flat solve, in their order: the problem's
+    order and model, x0s's shape, nx == ndx."""
     if problem.second_order:
         raise ValueError("flat solve kernel is Gauss-Newton only")
     if not _vector_space_config(problem.model):
         raise ValueError("flat solve kernel needs a vector-space model")
     if x0s.dim() != 2 or x0s.shape[-1] != problem.nx:
         raise ValueError(f"x0s must be [B, {problem.nx}], got {tuple(x0s.shape)}")
-    B, nx = x0s.shape
-    T, m, e = problem.horizon, problem.nu, problem.ne
-    if nx != problem.ndx:
+    if x0s.shape[1] != problem.ndx:
         raise ValueError("flat solve kernel needs nx == ndx")
-    active = problem.active_ts()
+
+
+def _gate_call(active, ref, params, x0s):
+    """The gates after them, in their order: one active constraint step at
+    most (``active``, the problem's active steps), the budget, and x0s's
+    dtype and device against the problem's first buffer ``ref``."""
     if len(active) > 1:
         raise ValueError(
             "flat solve kernel supports single-active-step schedules; "
@@ -78,25 +84,40 @@ def _setup(problem, params, x0s, us_init, method):
     if params.max_iterations < 1:
         raise ValueError("max_iterations must be >= 1")
     dtype, device = x0s.dtype, x0s.device
-    ref = next(problem.buffers())
     if ref.device != device or ref.dtype != dtype:
         raise ValueError(
             f"x0s is {dtype} on {device} but the problem is {ref.dtype} on "
             f"{ref.device}; move one with .to(device, dtype)"
         )
-    ta = active[0] if active else -1
-    mrow = problem.eq_mask()[ta].tolist() if ta >= 0 else [0.0] * e
-    if us_init is None:
-        us_init = torch.zeros((B, T, m), dtype=dtype, device=device)
+
+
+def _scalars(params, dtype) -> dict:
+    """The schedule's scalars as the kernel and the plain version take them."""
     eps = torch.tensor(torch.finfo(dtype).eps, dtype=dtype)
-    scalars = dict(
+    return dict(
         w_min=float(params.w_min) if params.w_min is not None else float(10.0 * eps**0.5),
         w0=float(params.w) if params.w is not None else 1.0 / params.mu,
         n0=float(params.n) if params.n is not None else 1.0 / params.mu**0.1,
         threshold=float(params.threshold),
         mu_factor=float(params.mu_factor),
     )
-    return method, T, m, e, ta, mrow, us_init, scalars
+
+
+def _setup(problem, params, x0s, us_init, method):
+    """The gates of the flat solve and its static description: (method, T, m,
+    e, ta, mrow, us_init, scalars)."""
+    if method is None:
+        method = Method.PRIMAL_DUAL_AFFINE
+    _gate_model(problem, x0s)
+    active = problem.active_ts()
+    _gate_call(active, next(problem.buffers()), params, x0s)
+    B = x0s.shape[0]
+    T, m, e = problem.horizon, problem.nu, problem.ne
+    ta = active[0] if active else -1
+    mrow = problem.eq_mask()[ta].tolist() if ta >= 0 else [0.0] * e
+    if us_init is None:
+        us_init = torch.zeros((B, T, m), dtype=x0s.dtype, device=x0s.device)
+    return method, T, m, e, ta, mrow, us_init, _scalars(params, x0s.dtype)
 
 
 def _chol_solve_rows(A, rhs_list, m):
@@ -569,15 +590,33 @@ def solve_flat(
     problem outside the flat-lane class
     (``kernels/flat_problem.py``).
 
+    Everything of a call but ``x0s`` and ``us_init`` is packed once a problem
+    and kept beside it until the problem is dropped: the ``FlatProblem``
+    (``pack_problem``) and the active steps, and for the newest launch shape
+    (params, B, dtype, device, method, n_linesearch) the kernel's scalars,
+    the zero controls, the ints and reals, the launch plan and the kernel.
+    The kernel writes none of these.  A call packs again (``PACKS``) when
+    the problem's modules or their types, the constraint's schedules, the
+    horizon or the order changed, or any buffer was replaced, moved, cast or
+    written in place (its address, dtype, device, shape or version counter);
+    a new shape is set up again.  A write through ``.data`` does not bump
+    the version counter and is not seen: write buffers in place (``copy_``,
+    ``fill_``) or assign new ones.  A hit makes two device operations (the
+    batch-last copy of ``x0s`` and the kernel; three with ``us_init``) and
+    no host → device copy.
+
     In a ``torch.profiler`` trace the call is the span ``solve_flat``, with
-    ``solve_flat.gates``, ``.pack``, ``.plan`` and ``.launch`` inside it
-    (``plan_launch``, ``launch_plan``; on the CPU ``.pack`` alone)."""
+    ``solve_flat.gates``, ``.pack`` (the cache's key check, and the pack on
+    a miss), ``.plan`` and ``.launch`` inside it (``plan_launch``,
+    ``launch_plan``; on the CPU ``.pack`` alone)."""
     with span("solve_flat"):
         if n_linesearch < 1:
             raise ValueError(f"n_linesearch must be >= 1, got {n_linesearch}")
         if x0s.device.type == "cpu":
             with span("solve_flat.pack"):
-                pack_problem(problem)  # the class gate holds on the CPU too
+                entry, key, buffers = _lookup(problem)
+                if entry is None:  # the class gate holds on the CPU too
+                    _fill(problem, key, buffers)
             return solve_flat_reference(problem, params, x0s, us_init, method, n_linesearch)
         return launch_plan(plan_launch(problem, params, x0s, us_init, method, n_linesearch))
 
@@ -589,7 +628,9 @@ class LaunchPlan(NamedTuple):
     ``geometry`` is the kernel's launch plan on a CUDA card: threads a lane,
     lanes a block, shared-memory bytes a block, the program ("resident" or
     "streamed"), blocks an SM holds, lanes an SM, blocks and waves over the
-    card's SMs ({} for CPU tensors, which have no launch)."""
+    card's SMs ({} for CPU tensors, which have no launch).  The inputs but
+    x0 (and us0 where the caller gave ``us_init``), the lists and the
+    geometry are shared by every plan of the launch shape: read them only."""
 
     tensors: list  # x0, us0, scal, consts, mrow, 7 outputs, scratch
     ints: list
@@ -598,6 +639,7 @@ class LaunchPlan(NamedTuple):
     dims: tuple  # (T, nx, m, e)
     geometry: dict
     launch: tuple | None  # ddp_flat_solve_plan's 9 ints; None on the CPU
+    kernel: tuple | None  # the kernel, then ints, reals and launch as ctypes arrays; None on the CPU
 
 
 PROGRAMS = ("resident", "streamed")
@@ -629,67 +671,174 @@ def _launch_plan_ints(flat, T, B, n_ls, dtype, device, program):
     return _PLANS[key]
 
 
+class _Shape(NamedTuple):
+    """What every launch of one shape of one problem shares."""
+
+    key: tuple  # (params, B, dtype, device, method, n_linesearch, program)
+    us0: torch.Tensor  # zero controls, [T, m, B]
+    scal: torch.Tensor  # [4, B]: μ, reg, w0, n0 a lane
+    mrow: torch.Tensor  # [e]: the active step's rows
+    ints: list
+    reals: list
+    launch: tuple | None
+    geometry: dict
+    scratch: tuple  # the scratch's shape
+    kernel: tuple | None
+
+
+@dataclasses.dataclass(eq=False, slots=True)
+class _Entry:
+    """A problem's pack, the key it was packed under, and its newest launch
+    shape."""
+
+    key: tuple
+    buffers: list  # held, so that no other tensor can take one of their addresses
+    flat: FlatProblem
+    active: tuple  # the active constraint steps
+    shape: _Shape | None = None
+
+
+# each problem's entry, dropped with the problem
+_CACHE: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _problem_key(problem):
+    """(the key, the buffers): what a pack of ``problem`` reads.  The key is
+    the constraint's tree with its schedules (``flat_problem._walk``), the
+    horizon and order, every module's name and type, and each buffer's
+    address, version counter, dtype, device and shape.  It is None where
+    no key can tell: a problem outside the class (its pack raises) or a
+    buffer made under ``torch.inference_mode`` (no version counter)."""
+    modules, buffers = [], []
+    for name, mod in problem.named_modules():
+        modules.append((name, type(mod)))
+        # a module's own buffers, as ``buffers(recurse=False)`` gives them at a third of its cost
+        buffers.extend(b for b in mod._buffers.values() if b is not None)
+    try:
+        tree = _walk(problem.constraint, (), [])
+    except ValueError:
+        return None, buffers
+    if any(b.is_inference() for b in buffers):
+        return None, buffers
+    state = tuple((b.data_ptr(), b._version, b.dtype, b.device, b.shape) for b in buffers)
+    return (tree, problem.horizon, problem.second_order, tuple(modules), state), buffers
+
+
+def _lookup(problem):
+    """(the problem's entry, or None where it has none under its key, the
+    key, the buffers)."""
+    key, buffers = _problem_key(problem)
+    entry = _CACHE.get(problem)
+    if key is None or entry is None or entry.key != key:
+        entry = None
+    return entry, key, buffers
+
+
+def _fill(problem, key, buffers, active=None) -> _Entry:
+    """Pack ``problem`` (raising where it is outside the class) and keep it
+    under ``key``; ``active`` its active steps, read from the pack where not
+    given."""
+    global PACKS
+    flat = pack_problem(problem)
+    PACKS += 1
+    entry = _Entry(key, buffers, flat, flat.active_ts if active is None else active)
+    _CACHE[problem] = entry
+    return entry
+
+
+def _launch_shape(entry, key) -> _Shape:
+    """The constants of the launch shape ``key`` of ``entry``'s problem."""
+    params, B, dtype, dev, method, n_ls, program = key
+    flat, active = entry.flat, entry.active
+    T, m, e = flat.horizon, flat.m, flat.e
+    ta = active[0] if active else -1
+    sc = _scalars(params, dtype)
+    kw = dict(dtype=dtype, device=dev)
+    launch, geometry, scratch, kernel = None, {}, (0,), None
+    ints = [
+        T, B, params.max_iterations, n_ls, ta,
+        int(method is Method.PRIMAL_DUAL_AFFINE), int(method is Method.PRIMAL),
+        int(params.mu_max is not None), int(params.mult_max is not None),
+        -1 if params.inner_iters_max is None else int(params.inner_iters_max),
+    ]  # fmt: skip
+    reals = [
+        sc["threshold"], sc["w_min"], sc["mu_factor"],
+        float(params.mu_max) if params.mu_max is not None else 0.0,
+        float(params.mult_max) if params.mult_max is not None else 0.0,
+    ]  # fmt: skip
+    if dev.type == "cuda":
+        launch = _launch_plan_ints(flat, T, B, n_ls, dtype, dev, program)
+        G, lpb, smem, prog, per_sm, blocks, waves, rows, stride = launch
+        geometry = dict(threads_per_lane=G, lanes_per_block=lpb, smem_bytes=smem, program=PROGRAMS[prog],
+                        blocks_per_sm=per_sm, lanes_per_sm=per_sm * lpb, blocks=blocks, waves=waves)  # fmt: skip
+        if rows:  # the streamed program's scratch [rows, a column a lane of every block]
+            scratch = (rows, stride)
+        kernel = (_kernel_fn(flat.build), (ctypes.c_int * len(ints))(*ints),
+                  (ctypes.c_double * len(reals))(*reals), (ctypes.c_int * 9)(*launch))  # fmt: skip
+    return _Shape(
+        key=key, us0=torch.zeros((T, m, B), **kw),
+        scal=torch.tensor([params.mu, params.reg, sc["w0"], sc["n0"]], **kw)[:, None].repeat(1, B),
+        mrow=flat.mask[ta] if ta >= 0 else torch.zeros(e, **kw),
+        ints=ints, reals=reals, launch=launch, geometry=geometry, scratch=scratch, kernel=kernel,
+    )  # fmt: skip
+
+
 def plan_launch(problem, params, x0s, us_init=None, method=None, n_linesearch=8,
                 _program=None) -> LaunchPlan:
     """Check the arguments against the gates, the problem's flat-lane class and
     the kernel's instantiations, take the kernel's launch plan (CUDA tensors)
-    and allocate what one launch needs.  ``_program`` ("resident" or
-    "streamed") overrides the plan's choice of program: a seam for tests and
-    measurements."""
+    and allocate what one launch needs; packs the problem only where its
+    cache entry no longer holds (``solve_flat``).  ``_program`` ("resident"
+    or "streamed") overrides the plan's choice of program: a seam for tests
+    and measurements."""
     with span("solve_flat.gates"):
-        method, T, m, e, ta, mrow, us_init, sc = _setup(problem, params, x0s, us_init, method)
+        if method is None:
+            method = Method.PRIMAL_DUAL_AFFINE
+        _gate_model(problem, x0s)
     with span("solve_flat.pack"):
-        flat = pack_problem(problem)
+        entry, key, buffers = _lookup(problem)
+        active = problem.active_ts() if entry is None else entry.active
+        _gate_call(active, buffers[0], params, x0s)
+        if entry is None:
+            entry = _fill(problem, key, buffers, active)
     with span("solve_flat.plan"):
+        flat = entry.flat
         B, nx = x0s.shape
+        T, m, e = flat.horizon, flat.m, flat.e
         dtype, dev = x0s.dtype, x0s.device
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"kernel takes float32 or float64, got {dtype}")
         if not 1 <= n_linesearch <= 31:
             raise ValueError(f"the kernel takes 1 to 31 candidates, got {n_linesearch}")
-        if tuple(us_init.shape) != (B, T, m) or us_init.dtype != dtype or us_init.device != dev:
+        if us_init is not None and (
+            tuple(us_init.shape) != (B, T, m) or us_init.dtype != dtype or us_init.device != dev
+        ):
             raise ValueError(
                 f"us_init: {us_init.dtype} {tuple(us_init.shape)} on {us_init.device}, "
                 f"expected {dtype} {(B, T, m)} on {dev}"
             )
         if _program is not None and _program not in PROGRAMS:
             raise ValueError(f"program is one of {PROGRAMS}, got {_program!r}")
+        shape_key = (params, B, dtype, dev, method, n_linesearch, _program)
+        shape = entry.shape
+        if shape is None or shape.key != shape_key:
+            shape = entry.shape = _launch_shape(entry, shape_key)
         kw = dict(dtype=dtype, device=dev)
 
         def empty(*shape):
             return torch.empty(shape, **kw)
 
-        launch, geometry, scratch = None, {}, empty(0)
-        if dev.type == "cuda":
-            launch = _launch_plan_ints(flat, T, B, n_linesearch, dtype, dev, _program)
-            G, lpb, smem, prog, per_sm, blocks, waves, rows, stride = launch
-            geometry = dict(threads_per_lane=G, lanes_per_block=lpb, smem_bytes=smem, program=PROGRAMS[prog],
-                            blocks_per_sm=per_sm, lanes_per_sm=per_sm * lpb, blocks=blocks, waves=waves)  # fmt: skip
-            if rows:  # the streamed program's scratch [rows, a column a lane of every block]
-                scratch = empty(rows, stride)
         x0 = x0s.T.contiguous()
-        us0 = us_init.permute(1, 2, 0).contiguous()
-        scal = torch.tensor([params.mu, params.reg, sc["w0"], sc["n0"]], **kw)[:, None].repeat(1, B)
-        mrow_t = torch.tensor(mrow, **kw)
+        us0 = shape.us0 if us_init is None else us_init.permute(1, 2, 0).contiguous()
         e_k = max(e, 1)
         # outputs, [T, rows, B] so that neighbouring threads touch neighbouring
         # addresses (the kernel works in shared memory)
         outs = [empty(T, m, B), empty(T + 1, nx, B), empty(T, m, B), empty(T, m * nx, B),
                 empty(6, B), empty(T, e_k, B), empty(T, e_k * nx, B)]  # fmt: skip
-        ints = [
-            T, B, params.max_iterations, n_linesearch, ta,
-            int(method is Method.PRIMAL_DUAL_AFFINE), int(method is Method.PRIMAL),
-            int(params.mu_max is not None), int(params.mult_max is not None),
-            -1 if params.inner_iters_max is None else int(params.inner_iters_max),
-        ]  # fmt: skip
-        reals = [
-            sc["threshold"], sc["w_min"], sc["mu_factor"],
-            float(params.mu_max) if params.mu_max is not None else 0.0,
-            float(params.mult_max) if params.mult_max is not None else 0.0,
-        ]  # fmt: skip
         return LaunchPlan(
-            tensors=[x0, us0, scal, flat.consts, mrow_t] + outs + [scratch], ints=ints, reals=reals,
-            flat=flat, dims=(T, nx, m, e), geometry=geometry, launch=launch,
+            tensors=[x0, us0, shape.scal, flat.consts, shape.mrow] + outs + [empty(*shape.scratch)],
+            ints=shape.ints, reals=shape.reals, flat=flat, dims=(T, nx, m, e), geometry=shape.geometry,
+            launch=shape.launch, kernel=shape.kernel,
         )  # fmt: skip
 
 
@@ -698,18 +847,17 @@ def launch_plan(plan: LaunchPlan) -> BatchSolveResult:
     the plan's output buffers."""
     global LAUNCHES
     with span("solve_flat.launch"):
+        if plan.kernel is None:
+            raise ValueError("flat_solve: a plan of CPU tensors has no launch")
         T, nx, m, e = plan.dims
         x0 = plan.tensors[0]
         ptrs = (ctypes.c_void_p * len(plan.tensors))(*[x.data_ptr() for x in plan.tensors])
-        fn = _kernel_fn(plan.flat.build)
+        fn, ints, reals, launch = plan.kernel
         with torch.cuda.device(x0.device):
             stream = torch.cuda.current_stream(x0.device).cuda_stream
             rc = fn(
                 int(x0.dtype == torch.float64), plan.flat.dynamics, plan.flat.cost, e,
-                ctypes.cast(ptrs, ctypes.c_void_p),
-                (ctypes.c_int * len(plan.ints))(*plan.ints),
-                (ctypes.c_double * len(plan.reals))(*plan.reals),
-                (ctypes.c_int * 9)(*plan.launch), stream,
+                ctypes.cast(ptrs, ctypes.c_void_p), ints, reals, launch, stream,
             )  # fmt: skip
         if rc == -1:
             raise ValueError(f"flat_solve: counts the kernel does not take: {plan.ints}")

@@ -3,6 +3,7 @@ version on CPU tensors) vs ddp_tpu's solve_batched static flow (same gates,
 same accepted steps, same multiplier schedule state) and vs ddp_tpu's Pallas
 whole-solve kernel in interpret mode; the gates; the problem-as-data buffer."""
 
+import gc
 import json
 
 import jax
@@ -18,6 +19,8 @@ from ddp_tpu.solver.solve import Method as JMethod
 from ddp_tpu.solver.solve import SolverParams as JParams
 from ddp_tpu_torch.convert import problem_from_numpy
 from ddp_tpu_torch.kernels import flat_problem, flat_solve
+from ddp_tpu_torch.ocp.constraints import AdvanceTime, ConfigTarget, every_k
+from ddp_tpu_torch.ocp.dynamics import RK4Dynamics
 from ddp_tpu_torch.solver import batched as tbatched
 from ddp_tpu_torch.solver.solve import Method, SolverParams
 
@@ -332,6 +335,122 @@ def test_solve_flat_records_its_root_with_the_pack_inside(tmp_path):
     assert torch.equal(traced.mults.val, plain.mults.val) and torch.equal(traced.mults.jac, plain.mults.jac)
 
 
+# ------------------------------------------------------------------- the cache
+
+
+def _uncached(problem, params, x0s, us_init=None, n_linesearch=8):
+    """What a plan's shared inputs (us0, scal, consts, mrow), ints and reals
+    are when packed afresh: ``pack_problem`` and ``_setup``, as the wrapper
+    packed them on every call before it kept them."""
+    _, T, m, e, ta, mrow, us, sc = flat_solve._setup(problem, params, x0s, us_init, None)
+    kw = dict(dtype=x0s.dtype)
+    tensors = [
+        us.permute(1, 2, 0).contiguous(),
+        torch.tensor([params.mu, params.reg, sc["w0"], sc["n0"]], **kw)[:, None].repeat(1, x0s.shape[0]),
+        flat_problem.pack_problem(problem).consts,
+        torch.tensor(mrow, **kw),
+    ]  # fmt: skip
+    ints = [T, x0s.shape[0], params.max_iterations, n_linesearch, ta, 1, 0,
+            int(params.mu_max is not None), int(params.mult_max is not None), params.inner_iters_max]  # fmt: skip
+    reals = [sc["threshold"], sc["w_min"], sc["mu_factor"], 0.0, 0.0]
+    return tensors, ints, reals
+
+
+def _leaf(problem):
+    return next(m for m in problem.modules() if type(m) is ConfigTarget)
+
+
+def _change(case, problem, params, x0s):
+    """Apply ``case``'s change between two calls: the next call's (params,
+    x0s, keyword arguments) and whether it has to pack the problem again."""
+    kw = {}
+    if case == "target_written_in_place":
+        _leaf(problem).target.copy_(torch.tensor([2.0], dtype=torch.float64))
+    elif case == "dt_reassigned":
+        problem.dynamics.dt = torch.tensor(0.02, dtype=torch.float64)
+    elif case == "integrator_swapped":  # the same buffers under another module type
+        rk4 = RK4Dynamics(problem.dynamics.model, problem.dynamics.dt)
+        for mod in [problem] + [m for m in problem.modules() if type(m) is AdvanceTime]:
+            mod.dynamics = rk4
+    elif case == "schedule_of_steps":
+        _leaf(problem).active_ts = (3,)
+    elif case == "schedule_every_k":
+        _leaf(problem).active_ts = every_k(5, offset=3)
+    elif case == "float32":
+        problem.to(torch.float32)
+        x0s = x0s.float()
+    elif case == "params":
+        params = params._replace(mu=1e3)
+    elif case == "batch":
+        x0s = x0s[:5]
+    else:  # "us_init"
+        kw = dict(us_init=t(np.random.default_rng(3).normal(size=(x0s.shape[0], 4, 1))))
+    return params, x0s, kw, case not in ("params", "batch", "us_init")
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["target_written_in_place", "dt_reassigned", "integrator_swapped", "schedule_of_steps",
+     "schedule_every_k", "float32", "params", "batch", "us_init"],
+)  # fmt: skip
+def test_plan_launch_packs_a_problem_once_and_again_after_a_change(case):
+    """A second call on one problem packs nothing and shares the first's
+    constant inputs; after ``case``'s change the next call packs again
+    where the problem changed (a new launch shape only sets its constants
+    up again), and its constant inputs, ints and reals are those of a fresh
+    pack, bit for bit, and not the first call's."""
+    _, tp = both_problems(4, np.float64, target=1.0)
+    params, x0s = SolverParams(**PARAMS), t(x0s_small())
+    flat_solve._CACHE.clear()
+    packs = flat_solve.PACKS
+    first = flat_solve.plan_launch(tp, params, x0s)
+    second = flat_solve.plan_launch(tp, params, x0s)
+    assert flat_solve.PACKS == packs + 1
+    assert all(a is b for a, b in zip(first.tensors[1:5], second.tensors[1:5]))
+    fresh = [x.data_ptr() for x in second.tensors[:1] + second.tensors[5:12]]
+    assert not set(fresh) & {x.data_ptr() for x in first.tensors}  # x0, the outputs: new every call
+    params, x0s, kw, repacks = _change(case, tp, params, x0s)
+    third = flat_solve.plan_launch(tp, params, x0s, **kw)
+    assert flat_solve.PACKS == packs + 1 + repacks
+    tensors, ints, reals = _uncached(tp, params, x0s, **kw)
+    for got, want in zip(third.tensors[1:5], tensors):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    build = flat_problem.pack_problem(tp).build
+    assert third.ints == ints and third.reals == reals and third.flat.build == build
+    stale = zip(first.tensors[1:5], tensors)
+    assert (first.ints, first.reals, first.flat.build) != (ints, reals, build) or not all(
+        a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b) for a, b in stale
+    )
+    if case == "us_init":
+        assert third.tensors[1] is not first.tensors[1]
+
+
+def test_a_dropped_problem_drops_its_cache_entry():
+    """The cache holds its problems weakly: once a problem is gone, so is
+    its pack."""
+    _, tp = both_problems(4, np.float64, target=1.0)
+    flat_solve._CACHE.clear()
+    flat_solve.plan_launch(tp, SolverParams(**PARAMS), t(x0s_small()))
+    assert len(flat_solve._CACHE) == 1
+    del tp
+    gc.collect()
+    assert len(flat_solve._CACHE) == 0
+
+
+def test_problem_of_inference_tensors_packs_on_every_call():
+    """Buffers made under ``torch.inference_mode`` keep no version counter,
+    so no key could see them written in place: every call packs."""
+    jp, _ = both_problems(4, np.float64, target=1.0)
+    with torch.inference_mode():
+        tp = problem_from_numpy(spec_of(jp), device="cpu", dtype=torch.float64)
+    params, x0s = SolverParams(**PARAMS), t(x0s_small())
+    packs = flat_solve.PACKS
+    for _ in range(2):
+        plan = flat_solve.plan_launch(tp, params, x0s)
+    assert flat_solve.PACKS == packs + 2
+    assert torch.equal(plan.tensors[3], flat_problem.pack_problem(tp).consts)
+
+
 # ------------------------------------------------------- the problem as data
 
 
@@ -366,6 +485,21 @@ def test_flat_problem_buffer_round_trips_the_spec(target):
     assert torch.equal(again.consts, flat.consts) and again.build == flat.build
     assert again.tree == flat.tree
     np.testing.assert_array_equal(again.mask, flat.mask)
+    # a cached problem gives what a fresh pack gives: the plan's constant
+    # inputs and the whole solve, call after call
+    params, x0s = SolverParams(**PARAMS), t(x0s_small())
+    cached = [flat_solve.plan_launch(tp, params, x0s) for _ in range(3)]
+    solves = [flat_solve.solve_flat(tp, params, x0s, n_linesearch=3) for _ in range(3)]
+    for plan, solve in zip(cached, solves):
+        flat_solve._CACHE.clear()
+        fresh = flat_solve.plan_launch(tp, params, x0s)
+        assert all(torch.equal(a, b) for a, b in zip(plan.tensors[1:5], fresh.tensors[1:5]))
+        assert (plan.ints, plan.reals) == (fresh.ints, fresh.reals)
+        flat_solve._CACHE.clear()
+        again = flat_solve.solve_flat(tp, params, x0s, n_linesearch=3)
+        for name in FIELDS:
+            assert torch.equal(getattr(solve, name), getattr(again, name)), name
+        assert torch.equal(solve.mults.val, again.mults.val) and torch.equal(solve.mults.jac, again.mults.jac)
 
 
 def test_flat_problem_float32_buffer_follows_the_problem():
