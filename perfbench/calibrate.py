@@ -2,7 +2,9 @@
 program on many seeds, the control (the reference in the program's place in
 a lower precision), the witness (the reference in the program's place in
 the configuration's own precision) and each planted fault on a few, all at the cell's own
-size, in one process (the kernel's library is loaded once).  Prints one JSON
+size, in one process (the kernel's library is loaded once).  The control,
+the witness and the faults are built from the reference the cell's route
+names, so a new configuration's limits are calibrated the same way.  Prints one JSON
 line per run with the compared numbers and, per field, the share of lanes
 apart and the median and largest lane gap.
 
@@ -22,7 +24,6 @@ from pathlib import Path
 sys.path[0] = str(Path(__file__).resolve().parent.parent)
 
 from perfbench import faults, run  # noqa: E402
-from perfbench.reference import flat_al_ddp  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -36,10 +37,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     work = run.load_json("workloads", f"{args.workload}.json")
     cfg = run.load_json("configs", f"{work['config']}.json")
+    ref = run.load_module("reference", run.load_module("routes", work["route"]).REFERENCE)
     plan = [("program", s, None) for s in args.seeds]
-    plan += [("control", s, faults.control(cfg)) for s in args.control_seeds]
-    plan += [("witness", s, faults.control(cfg, flat_al_ddp.TYPES[cfg["dtype"]])) for s in args.witness_seeds]
-    plan += [(name, s, make(cfg)) for name, make in faults.FAULTS.items() for s in args.fault_seeds]
+    plan += [("control", s, faults.control(ref, cfg)) for s in args.control_seeds]
+    plan += [("witness", s, faults.control(ref, cfg, ref.TYPES[cfg["dtype"]])) for s in args.witness_seeds]
+    plan += [(name, s, make(ref, cfg)) for name, make in faults.FAULTS.items() for s in args.fault_seeds]
     for kind, seed, program in plan:
         t0 = time.perf_counter()
         lines = []

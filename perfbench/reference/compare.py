@@ -1,7 +1,31 @@
 """The comparison that decides ``correct``: the program's results of the
 compared calls against the plain reference solved again from the same
-starts in float64, and against the reference's own dynamics and constraint
+inputs in float64, and against the reference's own dynamics and constraint
 applied to the program's trajectories.
+
+The reference is the module ``perfbench/reference/<REFERENCE>.py`` that the
+cell's route names; the harness loads it and hands it in, so a configuration
+brings its own as a new file.  A call's input is whatever the traffic gave
+the call: a pytree of batch-first tensors (a start batch; a state and a
+carry), the compared calls' inputs joined leaf by leaf.  A reference module
+gives:
+
+- ``TYPES``: the configurations' ``dtype`` names → torch dtypes;
+- ``Recipe(cfg)``: the numbers of a configuration, with ``w_min`` and
+  ``threshold`` (the floors of w and n) and ``mu0``, ``reg0``, ``w0``,
+  ``n0`` (the schedule's first values, which a solve that leaves its state
+  unchanged reports);
+- ``solve(cfg, inputs, dtype)``: every lane of ``inputs`` solved in
+  ``dtype``, the 13 fields of the program's result by name, batch-major:
+  us, xs, fb_k, fb_K, mult_val, mult_jac, mult_origin, and per lane
+  opt_constr, opt_lag, mu, reg, w, n;
+- ``starts(inputs)``: each lane's start state, x0s [B, nx];
+- ``dynamics(r, xs, us)``: the next states of states xs [..., nx] under
+  controls us [..., nu];
+- ``rollout(r, inputs, us)``: xs [B, T + 1, nx] of the controls us
+  [B, T, nu] from the inputs' starts;
+- ``final_eq(r, xs, us)``: each lane's constraint vector [B, e] on its whole
+  trajectory (xs [B, T + 1, nx], us [B, T, nu]).
 
 Each compared lane gets a gap per field: the largest difference from the
 reference, as a share of the field's scale (for arrays the larger of the
@@ -41,8 +65,7 @@ from __future__ import annotations
 import math
 
 import torch
-
-from perfbench.reference import flat_al_ddp
+from torch.utils._pytree import tree_map
 
 LANE_TOL = 1e-2
 SOLUTION = ("us", "xs", "mult_origin", "fb_K", "mult_jac", "mu", "reg")
@@ -63,9 +86,9 @@ def _diff(g, r):
     return torch.where(torch.isfinite(d), d, torch.full_like(d, math.inf))
 
 
-def field_gaps(cfg: dict, got: dict, ref: dict) -> dict:
+def field_gaps(reference, cfg: dict, got: dict, ref: dict) -> dict:
     """Per field, each lane's gap [B] (non-finite entries give inf)."""
-    rec = flat_al_ddp.Recipe(cfg)
+    rec = reference.Recipe(cfg)
     out = {}
     for name in _ARRAYS:
         r = ref[name].flatten(1)
@@ -83,19 +106,19 @@ def field_gaps(cfg: dict, got: dict, ref: dict) -> dict:
     return out
 
 
-def residuals(cfg: dict, x0s, got: dict):
+def residuals(reference, cfg: dict, x0s, got: dict):
     """(rollout_residual, constr_residual) of the program's own trajectories
-    under the reference's dynamics and constraint, in float64."""
-    r = flat_al_ddp.Recipe(cfg)
+    from the starts x0s [B, nx] under the reference's dynamics and
+    constraint, in float64."""
+    r = reference.Recipe(cfg)
     xs = got["xs"].to(torch.float64)
     us = got["us"].to(torch.float64)
     x0 = x0s.to(torch.float64)
     scale = torch.clamp(xs.abs().flatten(1).amax(1), min=1.0)
-    step = (xs[:, 1:] - flat_al_ddp.dynamics(r, xs[:, :-1], us)).abs().amax((1, 2))
+    step = (xs[:, 1:] - reference.dynamics(r, xs[:, :-1], us)).abs().amax((1, 2))
     start = (xs[:, 0] - x0).abs().amax(1)
     roll = torch.maximum(step, start) / scale
-    eq = flat_al_ddp.constraint(r, xs[:, r.ta], us[:, r.ta])
-    oc = torch.linalg.vector_norm(eq, dim=-1)
+    oc = torch.linalg.vector_norm(reference.final_eq(r, xs, us), dim=-1)
     con = (got["opt_constr"].to(torch.float64) - oc).abs()
 
     def worst(v):
@@ -105,20 +128,21 @@ def residuals(cfg: dict, x0s, got: dict):
     return worst(roll), worst(con)
 
 
-def judge(cfg: dict, x0s, got: dict) -> tuple[dict, dict]:
+def judge(reference, cfg: dict, inputs, got: dict) -> tuple[dict, dict]:
     """The numbers of ``NUMBERS`` for the program's results ``got`` (fields
-    batch-major, lanes of x0s [B, nx]) and, per field, the share of lanes
-    apart, the median and the largest lane gap (for the record).  The
-    reference is solved in float64 on x0s's device, ``BLOCK`` lanes at a
-    time."""
+    batch-major, a lane per lane of ``inputs``) and, per field, the share of
+    lanes apart, the median and the largest lane gap (for the record).  The
+    ``reference`` module is solved in float64 on the inputs' device,
+    ``BLOCK`` lanes at a time."""
+    x0s = reference.starts(inputs)
     B = x0s.shape[0]
     limit = float(cfg["feasible_below"])
     blocks, verdicts = [], []
     for a in range(0, B, BLOCK):
         lanes = slice(a, min(B, a + BLOCK))
         part = {k: v[lanes] for k, v in got.items()}
-        ref = flat_al_ddp.solve(cfg, x0s[lanes], torch.float64)
-        blocks.append(field_gaps(cfg, part, ref))
+        ref = reference.solve(cfg, tree_map(lambda v: v[lanes], inputs), torch.float64)
+        blocks.append(field_gaps(reference, cfg, part, ref))
         verdicts.append((part["opt_constr"].to(ref["opt_constr"].dtype) < limit) != (ref["opt_constr"] < limit))
         del ref, part
     fields = {k: torch.cat([b[k] for b in blocks]) for k in blocks[0]}
@@ -127,7 +151,7 @@ def judge(cfg: dict, x0s, got: dict) -> tuple[dict, dict]:
     solution = torch.stack([fields[k] for k in SOLUTION if k in fields]).amax(0)
     sensitive = torch.stack([fields[k] for k in SENSITIVE if k in fields]).amax(0)
     apart = (solution > LANE_TOL) | torch.cat(verdicts)
-    roll, con = residuals(cfg, x0s, got)
+    roll, con = residuals(reference, cfg, x0s, got)
     numbers = dict(
         lanes_apart=float(apart.double().mean()),
         gap_median=float(solution.median()),

@@ -122,12 +122,23 @@ def constraint(r: Recipe, x, u, with_jacobian=False):
     return eq, jx[..., : r.e, :], jx_u[..., : r.e, :]
 
 
+def starts(x0s):
+    """A call's input is its batch of start states x0s [B, 2] itself."""
+    return x0s
+
+
 def rollout(r: Recipe, x0, us):
     """xs [B, T + 1, 2] of the controls us [B, T, 1] from x0 [B, 2]."""
     xs = [x0]
     for t in range(r.T):
         xs.append(dynamics(r, xs[-1], us[:, t]))
     return torch.stack(xs, dim=1)
+
+
+def final_eq(r: Recipe, xs, us):
+    """eq [B, e] of each lane's trajectory (xs [B, T + 1, 2], us [B, T, 1]):
+    the constraint at its one active step."""
+    return constraint(r, xs[:, r.ta], us[:, r.ta])
 
 
 def solve(cfg: dict, x0s: torch.Tensor, dtype: torch.dtype = torch.float64) -> dict:

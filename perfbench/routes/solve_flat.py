@@ -12,6 +12,7 @@ from ddp_tpu_torch.kernels import flat_solve
 from ddp_tpu_torch.solver.solve import Method, SolverParams
 
 COUNTS = "flat_solve"  # perfbench/counts/<COUNTS>.py
+REFERENCE = "flat_al_ddp"  # perfbench/reference/<REFERENCE>.py, the check's plain reference
 _PARAMS = SolverParams._fields
 
 

@@ -6,17 +6,25 @@ of standard output:
 The cell is ``perfbench/workloads/<cell>.json``: its configuration
 (``configs/<config>.json``), its traffic mix (``traffic/<mix>.json``, whose
 ``kind`` names the generator ``traffic/<kind>.py``), its entry point
-(``routes/<route>.py``) and the limits of the comparison that decides
-``correct``.  The metrics a cell reports are those ``BENCHMARK.json`` lists
+(``routes/<route>.py``, which names the plain reference
+``reference/<REFERENCE>.py`` the check compares with) and the limits of the
+comparison that decides ``correct``.  The metrics a cell reports are those ``BENCHMARK.json`` lists
 for it: end-to-end ones (``end_to_end/<name>.py``) with ``--trace 0``,
 per-layer ones (``metrics/<name>.py``, read from the ``torch.profiler``
 trace of the window's first ``TRACE_SECONDS``) with ``--trace 1``.  Everything is found by name, so a
 new cell, configuration, mix, generator, route or metric is a new file.
 
+A generator gives ``make_inputs(mix, seed, route, device)``, a list of
+call inputs, each a pytree of batch-first tensors (the warm calls take the
+first ``N_WARM``), and ``run(call, inputs, seconds, *, sync, on_result,
+span, route)``, which calls ``on_result(i, given, result)`` after each call
+with the input that call was given.
+
 Set-up (imports, the device, the kernel's library, the problem, the inputs
 from ``--seed``, warm calls at the cell's size) is timed as
 ``setup_s``; then the traffic runs for ``--seconds``; then the compared
-calls' results are checked against the plain reference.  The run needs the
+calls' results are checked against the plain reference, from the inputs
+the traffic gave those calls.  The run needs the
 card(s) the cell asks for and exits with 2 without a result when they are
 missing, and with 3 when JAX or the JAX package was loaded.
 """
@@ -54,6 +62,7 @@ for _var, _dir in (("TORCH_EXTENSIONS_DIR", "torch_extensions"), ("TRITON_CACHE_
     os.environ[_var] = str(ROOT / ".perfbench_cache" / _dir)
 
 import torch  # noqa: E402
+from torch.utils._pytree import tree_flatten, tree_unflatten  # noqa: E402
 
 from perfbench.reference import compare  # noqa: E402
 from perfbench.trace_reduce import CALL_SPAN, reduce_trace  # noqa: E402
@@ -133,6 +142,38 @@ def card_info(device) -> dict:
     return dict(card=text, query=query)
 
 
+def join(trees: list):
+    """Pytrees of one structure, their leaves batch-first tensors, joined
+    leaf by leaf along the batch (``torch.cat`` for plain tensors)."""
+    flat = [tree_flatten(t) for t in trees]
+    leaves = [torch.cat(parts) for parts in zip(*(leaves for leaves, _ in flat))]
+    return tree_unflatten(leaves, flat[0][1])
+
+
+class Compared:
+    """The calls whose results the check compares, each with the input the
+    traffic gave it: one drawn from ``seed`` among the first
+    ``COMPARED_FROM``, and the last."""
+
+    def __init__(self, seed: int):
+        self.drawn = random.Random(seed).randrange(COMPARED_FROM)
+        self.calls = {}
+
+    def add(self, i, given, result):
+        if i == self.drawn:
+            self.calls[i] = (given, result)
+        self.last = (i, given, result)
+
+    def joined(self, fields) -> tuple:
+        """(inputs, got): the compared calls' inputs joined leaf by leaf and
+        their results' ``fields(result)`` joined by name, in call order."""
+        i, given, result = self.last
+        self.calls[i] = (given, result)
+        inputs = join([given for given, _ in self.calls.values()])
+        got = [fields(result) for _, result in self.calls.values()]
+        return inputs, {k: torch.cat([f[k] for f in got]) for k in got[0]}
+
+
 def run_cell(cell: str, seed: int, seconds: float, trace: bool, *, device="cuda", overrides=None,
              program=None, log=print) -> dict:  # fmt: skip
     """One run of ``cell``: returns the result line's object.  ``overrides``
@@ -151,10 +192,11 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, *, device="cuda"
 
     marks = [("imports", time.perf_counter())]
     route_mod = load_module("routes", work["route"])
+    reference = load_module("reference", route_mod.REFERENCE)
     traffic = load_module("traffic", mix["kind"])
     marks.append(("program import", time.perf_counter()))
     route = route_mod.Route(cfg, device)
-    inputs = traffic.make_inputs(mix, seed, route.nx, route.dtype, device)
+    inputs = traffic.make_inputs(mix, seed, route, device)
     call = route.call if program is None else program(route, route.call)
     marks.append(("problem and inputs", time.perf_counter()))
     info = route.describe(inputs[0])
@@ -183,17 +225,13 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, *, device="cuda"
 
     # the window
     tally = route.tally(lanes_per_call, device)
-    keep = {random.Random(seed).randrange(COMPARED_FROM)}
-    kept = {}
+    compared = Compared(seed)
     harness_s = [0.0]  # the harness's own host time between calls
 
-    def on_result(i, result):
+    def on_result(i, given, result):
         t0 = time.perf_counter()
         tally.add(route.fields(result))
-        x0 = inputs[i % len(inputs)]
-        if i in keep:
-            kept[i] = (x0, result)
-        kept["last"] = (i, x0, result)
+        compared.add(i, given, result)
         harness_s[0] += time.perf_counter() - t0
 
     gc.collect()
@@ -212,13 +250,13 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, *, device="cuda"
         tracing = [trace]
         t_window = time.perf_counter()
 
-        def after_call(i, result):
-            on_result(i, result)
+        def after_call(i, given, result):
+            on_result(i, given, result)
             if tracing[0] and time.perf_counter() - t_window >= TRACE_SECONDS:
                 prof.stop()
                 tracing[0] = False
 
-        window = traffic.run(call, inputs, seconds, sync=sync, on_result=after_call,
+        window = traffic.run(call, inputs, seconds, sync=sync, on_result=after_call, route=route,
                              span=(lambda: torch.profiler.record_function(CALL_SPAN)) if trace else None)  # fmt: skip
         sync()
         usage = resource.getrusage(resource.RUSAGE_SELF)
@@ -249,19 +287,16 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, *, device="cuda"
         f"yielded={usage.ru_nvcsw - usage0.ru_nvcsw}")  # fmt: skip
 
     # the check, with the program's state freed but for the compared results
-    last_i, *last = kept.pop("last")
-    kept.setdefault(last_i, tuple(last))
-    x0s = torch.cat([x0 for x0, _ in kept.values()])
-    got = [route.fields(result) for _, result in kept.values()]
-    got = {k: torch.cat([f[k] for f in got]) for k in got[0]}
-    del kept, last, call, route, inputs, tally
+    given, got = compared.joined(route.fields)
+    lanes = got["us"].shape[0]
+    del compared, call, route, inputs, tally
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    numbers, per_field = compare.judge(cfg, x0s, got)
+    numbers, per_field = compare.judge(reference, cfg, given, got)
     del got
-    log(f"[check] lanes={x0s.shape[0]} seconds={time.perf_counter() - t_check:.3f}")
+    log(f"[check] lanes={lanes} seconds={time.perf_counter() - t_check:.3f}")
     # a lane whose result is not finite is an answer that says the wrong thing
     check = dict(nonfinite_lanes=dict(value=nonfinite, limit=0))
     check.update({k: dict(value=v, limit=limits.get(k)) for k, v in numbers.items()})

@@ -41,7 +41,10 @@ def small(cell: str, T: int = 12, iterations: int = 6) -> tuple[dict, dict]:
 def test_check_passes_sound_runs_and_fails_the_control_and_faults(cell, kind, monkeypatch):
     monkeypatch.setattr(run, "N_WARM", 0)
     overrides, cfg = small(cell)
-    programs = {"program": None, "control": faults.control(cfg), **{k: f(cfg) for k, f in faults.FAULTS.items()}}
+    route = run.load_module("routes", run.load_json("workloads", f"{cell}.json")["route"])
+    ref = run.load_module("reference", route.REFERENCE)
+    programs = dict(program=None, control=faults.control(ref, cfg),
+                    **{k: f(ref, cfg) for k, f in faults.FAULTS.items()})  # fmt: skip
     program = programs[kind]
     out = run.run_cell(cell, 2**31 + 5, 0.0, False, device="cpu", overrides=overrides,
                        program=program, log=lambda *a: None)  # fmt: skip

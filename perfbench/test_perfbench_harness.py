@@ -9,6 +9,7 @@ no run loads a module whose top-level name is JAX's or the JAX package's.
 
 from __future__ import annotations
 
+import ast
 import hashlib
 import json
 import os
@@ -104,13 +105,31 @@ def test_traced_run_records_the_head_of_the_window():
     assert res["out"]["correct"] and res["out"]["device"]["window_s"] > 0
 
 
+def named_references() -> list:
+    """The reference modules the cells' routes name (``REFERENCE``), read
+    from the routes' sources: importing a route imports the program."""
+    names = set()
+    for cell in CELLS:
+        route = json.loads((BENCH / "workloads" / f"{cell}.json").read_text())["route"]
+        tree = ast.parse((BENCH / "routes" / f"{route}.py").read_text())
+        names |= {ast.literal_eval(node.value) for node in tree.body if isinstance(node, ast.Assign)
+                  and any(getattr(t, "id", None) == "REFERENCE" for t in node.targets)}  # fmt: skip
+    return sorted(names)
+
+
 def test_reference_imports_nothing_of_the_program():
+    """The comparison, the counts and every reference a route names load
+    neither the program nor JAX."""
+    refs = named_references()
+    assert refs, "no route names a reference"
     code = (
         "import json, sys; sys.path.insert(0, sys.argv[1]);"
-        "import perfbench.reference.compare, perfbench.reference.flat_al_ddp, perfbench.counts.flat_solve;"
+        "import perfbench.reference.compare, perfbench.counts.flat_solve; from perfbench import run;"
+        "[run.load_module('reference', name) for name in sys.argv[2:]];"
         "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))"
     )
-    proc = subprocess.run([sys.executable, "-c", code, str(ROOT)], capture_output=True, text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT), *refs], capture_output=True, text=True,
+                          timeout=120)  # fmt: skip
     assert proc.returncode == 0, proc.stderr
     mods = set(json.loads(proc.stdout))
     assert not (FORBIDDEN | {"ddp_tpu_torch"}) & mods

@@ -14,9 +14,10 @@ import time
 import torch
 
 
-def make_inputs(mix: dict, seed: int, nx: int, dtype, device) -> list:
-    """The pool of start batches [lanes, nx], made on the device from
-    ``seed`` in one call."""
+def make_inputs(mix: dict, seed: int, route, device) -> list:
+    """The pool of start batches [lanes, nx] in the route's state size and
+    type, made on the device from ``seed`` in one call."""
+    nx, dtype = route.nx, route.dtype
     lo = torch.tensor(mix["x0_low"], dtype=dtype, device=device)
     hi = torch.tensor(mix["x0_high"], dtype=dtype, device=device)
     if lo.shape != (nx,) or hi.shape != (nx,):
@@ -27,11 +28,13 @@ def make_inputs(mix: dict, seed: int, nx: int, dtype, device) -> list:
     return list((lo + (hi - lo) * u).unbind(0))
 
 
-def run(call, inputs, seconds, *, sync, on_result, span=None) -> dict:
+def run(call, inputs, seconds, *, sync, on_result, span=None, route=None) -> dict:
     """Call ``call(inputs[i % len(inputs)])`` back to back until ``seconds``
     have passed since the first call started, each call timed from its entry
-    to ``sync()``'s return; ``on_result(i, result)`` after each.  Returns the
-    calls' start and end times (host clock, seconds)."""
+    to ``sync()``'s return; ``on_result(i, given, result)`` after each, with
+    the input the call was given.  The route is not needed: a call's input
+    does not depend on an earlier result.  Returns the calls' start and end
+    times (host clock, seconds)."""
     span = span or contextlib.nullcontext
     starts, ends = [], []
     i = 0
@@ -44,7 +47,7 @@ def run(call, inputs, seconds, *, sync, on_result, span=None) -> dict:
         end = time.perf_counter()
         starts.append(start)
         ends.append(end)
-        on_result(i, result)
+        on_result(i, x0, result)
         i += 1
         if end - starts[0] >= seconds:
             return dict(starts=starts, ends=ends)
